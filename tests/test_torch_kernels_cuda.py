@@ -1,0 +1,155 @@
+"""The port's CUDA kernels against their plain versions, and the wrappers'
+routing.  Imports torch and the port only, so it also runs on a machine
+without JAX.
+
+Tests marked ``gpu`` need a CUDA card and skip without one; run them on
+the card with ``PYTHONPATH=src python -m pytest -q -m gpu
+tests/test_torch_kernels_cuda.py``.  The others check, on the CPU, that a
+CPU tensor takes the plain version and leaves the launch counter alone.
+
+Tolerance: 2e-5 (fp32) and 2e-2 (bf16) times max(|plain|, 1)."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import dyad_mm, flash_attn, ops  # noqa: E402
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, dtype):
+    got, want = got.float(), want.float()
+    scale = max(float(want.abs().max()), 1.0)
+    err = float((got - want).abs().max())
+    assert err <= TOL[dtype] * scale, (err, TOL[dtype] * scale)
+
+
+def _randn(gen, *shape, device, dtype=torch.float32):
+    return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    gen = torch.Generator().manual_seed(0)
+    cpu = torch.device("cpu")
+    counts = (dyad_mm.dyad_mm_blocks.launches,
+              flash_attn.flash_prefill.launches,
+              flash_attn.flash_decode.launches)
+    x, w = _randn(gen, 4, 32, device=cpu), _randn(gen, 4, 8, 8, device=cpu)
+    assert torch.equal(dyad_mm.dyad_mm_blocks(x, w, w),
+                       dyad_mm.dyad_mm_blocks_plain(x, w, w))
+    q = _randn(gen, 1, 5, 2, 1, 16, device=cpu)
+    kv = _randn(gen, 1, 7, 2, 16, device=cpu)
+    assert torch.equal(flash_attn.flash_prefill(q, kv, kv)[0],
+                       flash_attn.flash_prefill_plain(q, kv, kv)[0])
+    assert torch.equal(flash_attn.flash_decode(q[:, :1], kv, kv, 3),
+                       flash_attn.flash_decode_plain(q[:, :1], kv, kv, 3))
+    assert counts == (dyad_mm.dyad_mm_blocks.launches,
+                      flash_attn.flash_prefill.launches,
+                      flash_attn.flash_decode.launches)
+
+
+def test_other_devices_raise():
+    x = torch.zeros(2, 8, device="meta")
+    w = torch.zeros(2, 4, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        dyad_mm.dyad_mm_blocks(x, w, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,n,d_in,d_out,variant", [
+    (1024, 4, 192, 768, "it"), (8, 4, 768, 192, "it"),
+    (64, 2, 129, 130, "it"), (13, 3, 7, 5, "ot"), (10, 2, 33, 17, "dt"),
+    (3, 3, 7, 5, "it"), (5, 2, 129, 130, "dt"), (1, 4, 768, 192, "ot")])
+def test_dyad_mm_kernel_matches_plain(cuda, M, n, d_in, d_out, variant,
+                                      dtype):
+    gen = torch.Generator(device=cuda).manual_seed(M + d_in)
+    x = _randn(gen, M, n * d_in, device=cuda, dtype=dtype)
+    w1 = (_randn(gen, n, d_out, d_in, device=cuda) / d_in ** 0.5).to(dtype)
+    w2 = (_randn(gen, n, d_out, d_in, device=cuda) / d_in ** 0.5).to(dtype)
+    before = dyad_mm.dyad_mm_blocks.launches
+    got = dyad_mm.dyad_mm_blocks(x, w1, w2, variant)
+    torch.cuda.synchronize()
+    assert dyad_mm.dyad_mm_blocks.launches == before + 1
+    assert got.dtype == dtype and got.shape == (M, n, d_out)
+    _close(got, dyad_mm.dyad_mm_blocks_plain(x, w1, w2, variant), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,K,G,h,causal,window,q_off,k_off", [
+    (8, 128, 160, 12, 1, 64, True, None, 0, 0),
+    (3, 20, 28, 2, 2, 16, True, 9, [0, 4, 30], [0, 2, 40]),
+    (2, 37, 37, 1, 4, 128, False, None, 0, 0),
+    (1, 8, 16, 2, 2, 16, True, None, 0, 20),         # all rows masked
+])
+def test_flash_prefill_kernel_matches_plain(cuda, B, S, T, K, G, h, causal,
+                                            window, q_off, k_off, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(S + T)
+    q = _randn(gen, B, S, K, G, h, device=cuda, dtype=dtype)
+    k = _randn(gen, B, T, K, h, device=cuda, dtype=dtype)
+    v = _randn(gen, B, T, K, h, device=cuda, dtype=dtype)
+    if isinstance(q_off, list):
+        q_off = torch.tensor(q_off, device=cuda)
+        k_off = torch.tensor(k_off, device=cuda)
+    kw = dict(causal=causal, window=window, save_lse=True)
+    o, lse = flash_attn.flash_prefill(q, k, v, q_off, k_off, **kw)
+    po, plse = flash_attn.flash_prefill_plain(q, k, v, q_off, k_off, **kw)
+    torch.cuda.synchronize()
+    _close(o, po, dtype)
+    live = plse > -1e29
+    if live.any():
+        _close(lse[live], plse[live], dtype)
+    assert bool((lse[~live] <= -1e29).all())
+    assert bool((o[(~live).reshape(B, K, S, G).permute(0, 2, 1, 3)]
+                 == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,K,G,h,idx,window", [
+    (8, 160, 12, 1, 64, 143, None),
+    (4, 64, 3, 2, 64, [70, 150, 64, 200], 48),
+    (3, 10, 2, 8, 16, [5, 20, 16], 7),
+    (2, 300, 1, 4, 128, [0, 299], None),
+])
+def test_flash_decode_kernel_matches_plain(cuda, B, L, K, G, h, idx, window,
+                                           dtype):
+    gen = torch.Generator(device=cuda).manual_seed(L + G)
+    q = _randn(gen, B, 1, K, G, h, device=cuda, dtype=dtype)
+    k = _randn(gen, B, L, K, h, device=cuda, dtype=dtype)
+    v = _randn(gen, B, L, K, h, device=cuda, dtype=dtype)
+    if isinstance(idx, list):
+        idx = torch.tensor(idx, device=cuda)
+    before = flash_attn.flash_decode.launches
+    got = flash_attn.flash_decode(q, k, v, idx, window=window)
+    torch.cuda.synchronize()
+    assert flash_attn.flash_decode.launches == before + 1
+    _close(got, flash_attn.flash_decode_plain(q, k, v, idx, window=window),
+           dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.zeros(4, 32, device=cuda, dtype=torch.float16)
+    w = torch.zeros(4, 8, 8, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        dyad_mm.dyad_mm_blocks(x, w, w)
+    xg = torch.zeros(4, 32, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="A.6"):
+        ops.dyad_mm(xg, w.float(), w.float())
+    with pytest.raises(NotImplementedError, match="B.6"):
+        ops.dyad_mm(xg.detach(), w.float(), w.float(), variant="ot")
+    q = torch.zeros(1, 1, 1, 9, 16, device=cuda)
+    kv = torch.zeros(1, 4, 1, 16, device=cuda)
+    with pytest.raises(NotImplementedError):
+        flash_attn.flash_decode(q, kv, kv, 0)

@@ -16,6 +16,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch import device as device_lib
+
 _LAYERS = "layers"
 
 
@@ -44,7 +46,9 @@ def _nest(flat: Dict[str, object]) -> dict:
 
 
 def from_flat(flat: Dict[str, np.ndarray], device=None) -> dict:
-    """Port parameters from the reference's flat, layer-stacked arrays."""
+    """Port parameters from the reference's flat, layer-stacked arrays, on
+    ``device`` (``None`` means cuda)."""
+    device = device_lib.resolve(device)
     stacked = {k[len(_LAYERS) + 1:]: v for k, v in flat.items()
                if k.startswith(_LAYERS + "/")}
     rest = {k: v for k, v in flat.items() if not k.startswith(_LAYERS + "/")}

@@ -22,13 +22,17 @@ PAPER_ARCHS = ["opt125m", "opt350m"]
 def linear_cfg(spec: str) -> factory.LinearCfg:
     """Parse "dense" | "dyad_it" | "dyad_ot_8" | "dyad_dt_4_cat" |
     "dyad_it_4_kernel" (route the forward through the hand-written
-    kernel) | the fused and quantized tokens ("fused", "ffused",
-    "einsumbwd", "w8", "wfp8"), which parse as in the reference."""
+    kernel) | the fused and quantized tokens ("fused", "ffused", "w8",
+    "wfp8"), which parse as in the reference.  "einsumbwd" picks the
+    backward route, and the port has no backward yet: it raises."""
     if spec == "dense":
         return DENSE
     parts = spec.split("_")
     if parts[0] != "dyad":
         raise ValueError(f"unknown linear spec {spec!r}")
+    if "einsumbwd" in parts:
+        raise NotImplementedError(
+            "the einsumbwd backward route is not ported yet (ROADMAP A.6)")
     variant = parts[1] if len(parts) > 1 else "it"
     n = int(parts[2]) if len(parts) > 2 and parts[2].isdigit() else 4
     quant = ("int8" if "w8" in parts
@@ -36,7 +40,6 @@ def linear_cfg(spec: str) -> factory.LinearCfg:
     return factory.LinearCfg(impl="dyad", n_dyad=n, variant=variant,
                              cat="cat" in parts, fuse_mlp="fused" in parts,
                              use_kernel="kernel" in parts,
-                             use_kernel_bwd="einsumbwd" not in parts,
                              fuse_ff_kernel="ffused" in parts,
                              quant=quant, scope="ff")
 

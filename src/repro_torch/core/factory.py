@@ -35,10 +35,8 @@ class LinearCfg:
     cat: bool = False
     use_kernel: bool = False
     scope: str = "ff"              # which sites receive DYAD when impl == "dyad"
-    # parsed as in the reference, not ported yet: the kernel backward
-    # (ROADMAP A.6), the fused ff tiers and weight quantization (layers.mlp
-    # and apply raise)
-    use_kernel_bwd: bool = True
+    # parsed as in the reference, not ported yet: the fused ff tiers and
+    # weight quantization (layers.mlp and apply raise)
     fuse_mlp: bool = False
     fuse_ff_kernel: bool = False
     quant: Optional[str] = None

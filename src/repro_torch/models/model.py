@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import device as device_lib
 from repro_torch.layers import embed as embed_lib
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelCfg
@@ -21,8 +22,9 @@ def _kind(cfg: ModelCfg) -> str:
 def init_params(cfg: ModelCfg, generator: torch.Generator,
                 device=None) -> dict:
     """Random parameters drawn from ``generator`` (which must live on
-    ``device``)."""
+    ``device``; ``None`` means cuda)."""
     kind = _kind(cfg)
+    device = device_lib.resolve(device)
     dtype = cfg.pdtype
     p = {
         "embed": embed_lib.init_embedding(generator, cfg.vocab_size,
@@ -68,6 +70,7 @@ def forward(cfg: ModelCfg, params, tokens, *, last_only: bool = False):
 def init_cache(cfg: ModelCfg, batch: int, max_len: int,
                dtype=torch.float32, device=None) -> list:
     kind = _kind(cfg)
+    device = device_lib.resolve(device)
     return [blocks.init_block_cache(cfg, kind, batch, max_len, dtype, device)
             for _ in range(cfg.n_layers)]
 

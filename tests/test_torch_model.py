@@ -112,6 +112,19 @@ def test_bridge_round_trip_is_exact():
         "a": 3, "b/x": 2, "b/y": 1}
 
 
+def test_builders_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device runs")
+    tcfg = tconfigs.get("opt125m", smoke=True)
+    flat = bridge.to_flat(tmodel.init_params(
+        tcfg, torch.Generator().manual_seed(0), "cpu"))
+    for build in (lambda: bridge.from_flat(flat),
+                  lambda: tmodel.init_params(tcfg, torch.Generator()),
+                  lambda: tmodel.init_cache(tcfg, 1, 8)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$|,)"
     r"|from\s+repro(\.|\s))", re.M)

@@ -1,4 +1,4 @@
-"""Architecture configs the port serves: the paper's OPT models."""
+"""Architecture configs the port runs: the paper's OPT and Pythia models."""
 from repro_torch.configs.base import (  # noqa: F401
     DENSE,
     DYAD_DEFAULT,

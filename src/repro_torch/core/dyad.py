@@ -31,6 +31,7 @@ class DyadSpec:
     variant: str = "it"           # "it" | "ot" | "dt"
     cat: bool = False             # paper's -CAT: one bmm over 2*n_dyad blocks
     use_kernel: bool = False      # route through the hand-written kernel
+    use_kernel_bwd: bool = True   # its kernel backward (False: einsum VJP)
 
     def __post_init__(self):
         if self.variant not in VARIANTS:
@@ -113,7 +114,8 @@ def apply(params: Params, x: torch.Tensor, spec: DyadSpec) -> torch.Tensor:
     if spec.use_kernel:
         from repro_torch.kernels import ops as kops
 
-        y = kops.dyad_mm(x, w1, w2, variant=spec.variant)
+        y = kops.dyad_mm(x, w1, w2, variant=spec.variant,
+                         use_kernel_bwd=spec.use_kernel_bwd)
     else:
         w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
         x1, x2 = _block_views(x, n, d_in, spec.variant)

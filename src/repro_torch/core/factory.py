@@ -34,6 +34,7 @@ class LinearCfg:
     variant: str = "it"            # "it" | "ot" | "dt"
     cat: bool = False
     use_kernel: bool = False
+    use_kernel_bwd: bool = True    # kernel backward (with use_kernel)
     scope: str = "ff"              # which sites receive DYAD when impl == "dyad"
     # parsed as in the reference, not ported yet: the fused ff tiers and
     # weight quantization (layers.mlp and apply raise)
@@ -55,7 +56,8 @@ class LinearCfg:
     def spec(self, f_in: int, f_out: int) -> dyad.DyadSpec:
         n = dyad.resolve_n_dyad(f_in, f_out, self.n_dyad)
         return dyad.DyadSpec(n_dyad=n, variant=self.variant, cat=self.cat,
-                             use_kernel=self.use_kernel)
+                             use_kernel=self.use_kernel,
+                             use_kernel_bwd=self.use_kernel_bwd)
 
 
 DENSE = LinearCfg(impl="dense")

@@ -1,4 +1,4 @@
-"""Flash-attention kernels (CUDA): cache prefill and ring-cache decode.
+"""Flash-attention kernels (CUDA): prefill, its backward, ring-cache decode.
 
 * :func:`flash_prefill` (``csrc/flash_prefill.cu``) ports the TPU kernel
   ``repro.kernels.flash_attn.flash_prefill``: online-softmax attention of
@@ -6,6 +6,10 @@
   ``q_off + s`` and key ``t`` at ``k_off + t`` (scalars or ``(B,)``
   vectors), causal and/or windowed, optionally returning the fp32
   log-sum-exp ``(B, K, S*G)``.
+* :func:`flash_prefill_grads` (``csrc/flash_bwd.cu``) ports
+  ``repro.kernels.flash_attn.flash_prefill_grads``: dq, dk and dv from
+  q, k, v, the output, its lse and the output cotangent, with the
+  probabilities recomputed from lse.
 * :func:`flash_decode` (``csrc/flash_decode.cu``) ports
   ``repro.kernels.flash_attn.flash_decode``: one query token against the
   ``(B, L, K, h)`` ring cache, slot ``j`` holding position
@@ -38,15 +42,35 @@ def _offsets(off, B: int, device) -> torch.Tensor:
         -1).expand(B)
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' accumulation dtype: fp32, or fp64 for fp64
+    inputs (``torch.autograd.gradcheck``)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _softmax_av(s, mask, v_dtype, v, eq: str):
     """Masked softmax of fp32 scores and the P.V product, with the
-    kernels' zeroing and denominator guard.  Returns (out_f32, m, l)."""
+    kernels' zeroing and denominator guard.  Returns (out, m, l) in the
+    scores' dtype."""
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     e = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
     l = e.sum(dim=-1, keepdim=True)
-    o = torch.einsum(eq, e.to(v_dtype).float(), v.float())
+    o = torch.einsum(eq, e.to(v_dtype).to(s.dtype), v.to(s.dtype))
     return o, m, l
+
+
+def _positions_mask(q_off, k_off, B: int, S: int, T: int, causal: bool,
+                    window, device):
+    """(B, S, T) validity of each (query, key) pair from the offsets."""
+    qpos = _offsets(q_off, B, device)[:, None] + torch.arange(S, device=device)
+    kpos = _offsets(k_off, B, device)[:, None] + torch.arange(T, device=device)
+    mask = torch.ones(B, S, T, dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos[:, None, :] <= qpos[:, :, None]
+    if window is not None:
+        mask &= qpos[:, :, None] - kpos[:, None, :] < window
+    return mask
 
 
 def flash_prefill_plain(q, k, v, q_off=0, k_off=0, *, causal: bool = True,
@@ -54,18 +78,12 @@ def flash_prefill_plain(q, k, v, q_off=0, k_off=0, *, causal: bool = True,
     """The prefill kernel's function in plain torch (fp32 scores)."""
     B, S, K, G, h = q.shape
     T = k.shape[1]
-    dev = q.device
-    qpos = _offsets(q_off, B, dev)[:, None] + torch.arange(S, device=dev)
-    kpos = _offsets(k_off, B, dev)[:, None] + torch.arange(T, device=dev)
-    mask = torch.ones(B, S, T, dtype=torch.bool, device=dev)
-    if causal:
-        mask &= kpos[:, None, :] <= qpos[:, :, None]
-    if window is not None:
-        mask &= qpos[:, :, None] - kpos[:, None, :] < window
-    mask = mask[:, :, None, None, :]                       # (B,S,1,1,T)
+    mask = _positions_mask(q_off, k_off, B, S, T, causal, window,
+                           q.device)[:, :, None, None, :]  # (B,S,1,1,T)
     ct = torch.promote_types(q.dtype, k.dtype)
-    s = torch.einsum("bskgh,btkh->bskgt", q.to(ct).float(),
-                     k.to(ct).float()) * (1.0 / math.sqrt(h))
+    f = _acc(ct)
+    s = torch.einsum("bskgh,btkh->bskgt", q.to(ct).to(f),
+                     k.to(ct).to(f)) * (1.0 / math.sqrt(h))
     o, m, l = _softmax_av(s, mask, v.dtype, v, "bskgt,btkh->bskgh")
     l = l.clamp_min(_TINY)
     out = (o / l).to(q.dtype)
@@ -73,6 +91,92 @@ def flash_prefill_plain(q, k, v, q_off=0, k_off=0, *, causal: bool = True,
         return out, None
     lse = (m + torch.log(l))[..., 0]                        # (B,S,K,G)
     return out, lse.permute(0, 2, 1, 3).reshape(B, K, S * G)
+
+
+def _delta(o, do):
+    """rowsum(do * o) in fp32, in the lse layout (B, K, S*G)."""
+    B, S, K, G, _ = o.shape
+    f = _acc(o.dtype)
+    d = (do.to(f) * o.to(f)).sum(dim=-1)                     # (B,S,K,G)
+    return d.permute(0, 2, 1, 3).reshape(B, K, S * G)
+
+
+def flash_prefill_grads_plain(q, k, v, o, lse, do, q_off=0, k_off=0, *,
+                              causal: bool = True,
+                              window: Optional[int] = None):
+    """The backward kernels' function in plain torch: the recomputed
+    probability dataflow (``p = exp(s - lse)`` zeroed off the mask, fp32
+    sums) as direct contractions; the port of the reference's direct
+    lowering ``kernels.ops._flash_bwd_direct``.  Returns (dq, dk, dv) in
+    the dtypes of q, k and v."""
+    f = _acc(q.dtype)
+    B, S, K, G, h = q.shape
+    T = k.shape[1]
+    scale = 1.0 / math.sqrt(h)
+    qf, kf, vf, dof = q.to(f), k.to(f), v.to(f), do.to(f)
+    s = torch.einsum("bskgh,btkh->bskgt", qf, kf) * scale
+    mask = _positions_mask(q_off, k_off, B, S, T, causal, window,
+                           q.device)[:, :, None, None, :]
+    lse = lse.reshape(B, K, S, G).permute(0, 2, 1, 3)       # (B,S,K,G)
+    p = torch.where(mask, torch.exp(s - lse[..., None]),
+                    torch.zeros((), dtype=f, device=q.device))
+    delta = _delta(o, do).reshape(B, K, S, G).permute(0, 2, 1, 3)
+    dv = torch.einsum("bskgt,bskgh->btkh", p, dof)
+    dp = torch.einsum("bskgh,btkh->bskgt", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bskgt,btkh->bskgh", ds, kf)
+    dk = torch.einsum("bskgt,bskgh->btkh", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_prefill_grads(q, k, v, o, lse, do, q_off=0, k_off=0, *,
+                        causal: bool = True, window: Optional[int] = None):
+    """Flash attention backward.  q, o, do: (B, S, K, G, h); k, v:
+    (B, T, K, h); lse: the forward's (B, K, S*G) fp32 log-sum-exp.  Returns
+    (dq, dk, dv) at those layouts, dk and dv summed over the G query heads
+    of each KV head.  One call launches the dq and the dk/dv kernels."""
+    if q.device.type == "cpu":
+        return flash_prefill_grads_plain(q, k, v, o, lse, do, q_off, k_off,
+                                         causal=causal, window=window)
+    _check_cuda("flash_prefill_grads", q, k, v)
+    B, S, K, G, h = q.shape
+    T = k.shape[1]
+    if (k.shape != (B, T, K, h) or v.shape != k.shape
+            or do.shape != q.shape or o.shape != q.shape
+            or lse.shape != (B, K, S * G)):
+        raise ValueError(f"flash_prefill_grads: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, do "
+                         f"{tuple(do.shape)}, o {tuple(o.shape)}, lse "
+                         f"{tuple(lse.shape)}")
+    if do.dtype != q.dtype or do.stride(-1) != 1:
+        raise ValueError("flash_prefill_grads: do must have q's dtype and a "
+                         "contiguous head dim")
+    if lse.dtype != torch.float32:
+        raise TypeError("flash_prefill_grads: lse must be fp32")
+    lse = lse.contiguous()
+    if S == 0 or T == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    # every element is written by the kernels
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    delta = _delta(o, do).contiguous()
+    qo_vec, qo = _int_arg(q_off, B, q.device)
+    ko_vec, ko = _int_arg(k_off, B, q.device)
+    err = build.entry("flash_bwd")(
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(do),
+        build.ptr(lse), build.ptr(delta), build.ptr(dq), build.ptr(dk),
+        build.ptr(dv), build.ptr(qo_vec), qo, build.ptr(ko_vec), ko,
+        B, S, T, K, G, h, *q.stride()[:4], *do.stride()[:4],
+        *k.stride()[:3], *v.stride()[:3], int(causal),
+        -1 if window is None else int(window), 1.0 / math.sqrt(h),
+        _DTYPES[q.dtype], build.stream(q.device))
+    build.check(err, "flash_prefill_grads")
+    flash_prefill_grads.launches += 1
+    return dq, dk, dv
+
+
+flash_prefill_grads.launches = 0
 
 
 def _int_arg(off, B: int, device):
@@ -144,8 +248,9 @@ def flash_decode_plain(q, k, v, idx, *, window: Optional[int] = None):
         mask &= iv - pos < window
     mask = mask[:, None, None, :]                           # (B,1,1,L)
     ct = torch.promote_types(q.dtype, k.dtype)
-    s = torch.einsum("bkgh,btkh->bkgt", q.to(ct).float(),
-                     k.to(ct).float()) * (1.0 / math.sqrt(h))
+    f = _acc(ct)
+    s = torch.einsum("bkgh,btkh->bkgt", q.to(ct).to(f),
+                     k.to(ct).to(f)) * (1.0 / math.sqrt(h))
     o, _, l = _softmax_av(s, mask, v.dtype, v, "bkgt,btkh->bkgh")
     out = (o / l.clamp_min(_TINY)).to(q.dtype)
     return out[:, None] if squeeze else out

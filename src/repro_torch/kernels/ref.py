@@ -6,6 +6,9 @@ the BLOCKDIAG and BLOCKTRANS contributions for a variant, without bias.
     x        (..., f_in)                 f_in  = n_dyad * d_in
     w1, w2   (n_dyad, d_out, d_in)       f_out = n_dyad * d_out
     returns  (..., f_out)
+
+``dyad_mm_bwd_ref`` is its einsum VJP, the oracle every backward route is
+held against.
 """
 from __future__ import annotations
 
@@ -69,6 +72,20 @@ def unview(dx1: torch.Tensor, dx2: torch.Tensor, variant: str) -> torch.Tensor:
     if variant in ("it", "dt"):
         return out + dx2.transpose(-1, -2).reshape(*lead, f_in)
     return out + dx2.reshape(*lead, f_in)
+
+
+def dyad_mm_bwd_ref(x, w1, w2, g, *, variant: str = "it"):
+    """Einsum VJP of :func:`dyad_mm_ref`: ``(dx, dw1, dw2)`` for the output
+    cotangent ``g: (..., f_out)`` (port of the reference's
+    ``ref.dyad_mm_bwd_ref``)."""
+    n = w1.shape[0]
+    x1, x2 = block_views(x, n, variant)
+    z1bar, z2bar = split_cotangent(g, n, variant)
+    dw1 = torch.einsum("...gi,...go->goi", x1, z1bar).to(w1.dtype)
+    dw2 = torch.einsum("...gi,...go->goi", x2, z2bar).to(w2.dtype)
+    dx1 = torch.einsum("...go,goi->...gi", z1bar, w1.to(g.dtype))
+    dx2 = torch.einsum("...go,goi->...gi", z2bar, w2.to(g.dtype))
+    return unview(dx1, dx2, variant).to(x.dtype), dw1, dw2
 
 
 def sdpa_ref(q, k, v, qpos, kpos, *, causal: bool = True, window=None):

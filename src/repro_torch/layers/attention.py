@@ -1,12 +1,13 @@
 """Multi-head / grouped-query attention with a dense ring KV cache (port of
 ``repro.layers.attention`` for the ``lm`` serving path).
 
-Ported: the no-cache forward and the dense-ring cache with a scalar write
-index, in both the S == 1 (decode) and the S < L (prefill) branches, each
-on the flash route (``kernels.ops``) and the plain route
-(:func:`_naive_sdpa`).  RoPE, qk-norm, cross-attention, per-slot (vector)
-indices, paged pools, the S >= L windowed-ring prefill and the chunked
-einsum paths raise ``NotImplementedError``.
+Ported: RoPE, the no-cache forward (the training path; on the flash route
+differentiable through the flash backward kernel) and the dense-ring cache
+with a scalar write index, in both the S == 1 (decode) and the S < L
+(prefill) branches, each on the flash route (``kernels.ops``) and the
+plain route (:func:`_naive_sdpa`).  qk-norm, cross-attention, per-slot
+(vector) indices, paged pools, the S >= L windowed-ring prefill and the
+chunked einsum paths raise ``NotImplementedError``.
 
 The cache is a dict ``{"k", "v": (B, L, K, h) tensors, "idx": int}``; the
 write index lives on the host (the batch engine knows every position).
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.core import factory
 from repro_torch.kernels import ops as kops
+from repro_torch.layers.rotary import apply_rope
 
 NEG_INF = -1e30
 _DEAD = -(10 ** 9)      # key position of an empty ring slot
@@ -82,8 +84,6 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
               chunk: Optional[int] = None, flash: bool = False,
               kv_input=None, cache=None):
     """Returns (out, new_cache)."""
-    if rope_theta is not None:
-        raise NotImplementedError("RoPE is not ported yet (ROADMAP A.4)")
     if kv_input is not None:
         raise NotImplementedError(
             "cross-attention is not ported yet (ROADMAP A.13)")
@@ -95,7 +95,6 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
     q = factory.apply(params["wq"], x, lin_cfg, site="attn")
     k = factory.apply(params["wk"], x, lin_cfg, site="attn")
     v = factory.apply(params["wv"], x, lin_cfg, site="attn")
-    qg = q.reshape(B, S, K, G, head_dim)
     k = k.reshape(B, S, K, head_dim)
     v = v.reshape(B, S, K, head_dim)
     use_flash = flash and kops.attn_route(x.device) == "flash"
@@ -104,6 +103,15 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
     if positions is not None and positions.dim() != 1:
         raise NotImplementedError(
             "per-batch positions are not ported yet (ROADMAP A.9)")
+    if rope_theta is not None:
+        # roped before the cache write, so cached keys never re-rotate
+        rp = positions
+        if rp is None:
+            start = cache["idx"] if cache is not None else 0
+            rp = start + torch.arange(S, device=dev)
+        q = apply_rope(q.reshape(B, S, n_heads, head_dim), rp, rope_theta)
+        k = apply_rope(k, rp, rope_theta)
+    qg = q.reshape(B, S, K, G, head_dim)
 
     new_cache, idx = None, 0
     if cache is not None:
@@ -141,7 +149,8 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
         # arange(T)
         q_off = 0 if positions is None else int(positions[0])
         o = kops.flash_attention(qg, k, v, q_off, 0, causal=causal,
-                                 window=window)
+                                 window=window,
+                                 use_kernel_bwd=lin_cfg.use_kernel_bwd)
     elif use_flash and causal:
         # S < L cache prefill over the post-write cache: slot j holds
         # position j, queries sit at idx + arange(S); tail slots past

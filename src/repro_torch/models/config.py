@@ -44,9 +44,12 @@ class ModelCfg:
     iota_embed: bool = False
     # the paper's knob
     linear: factory.LinearCfg = factory.DENSE
-    # precision
+    # precision & memory
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    remat: bool = False                   # recompute each block in backward
+    # training-shape hint read by make_train_step
+    grad_accum: int = 1
 
     def __post_init__(self):
         if self.family not in FAMILIES:

@@ -1,10 +1,13 @@
-"""The ``lm`` model: init / forward / cache / prefill / decode_step (port
-of ``repro.models.model``).  Parameters are nested dicts of tensors with
-``layers`` a list of per-layer dicts; the cache is a list of per-layer
-dicts."""
+"""The ``lm`` model: init / forward / loss / cache / prefill / decode_step
+(port of ``repro.models.model``).  Parameters are nested dicts of tensors
+with ``layers`` a list of per-layer dicts; the cache is a list of per-layer
+dicts.  ``cfg.remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` with
+``nothing_saveable``)."""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.layers import embed as embed_lib
@@ -57,14 +60,36 @@ def _logits(cfg: ModelCfg, params, x):
 
 
 def forward(cfg: ModelCfg, params, tokens, *, last_only: bool = False):
-    """Full-sequence forward without a cache.  Returns fp32 logits."""
+    """Full-sequence forward without a cache.  tokens: (B, S) int.
+    Returns fp32 logits (B, S, V), or (B, 1, V) with ``last_only``."""
     kind = _kind(cfg)
     x = _embed_inputs(cfg, params, tokens)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
-        x, _ = blocks.apply_block(lp, x, cfg, kind)
+        if remat:
+            x = checkpoint(lambda h, lp=lp: blocks.apply_block(
+                lp, h, cfg, kind)[0], x, use_reentrant=False)
+        else:
+            x, _ = blocks.apply_block(lp, x, cfg, kind)
     if last_only:
         x = x[:, -1:]
     return _logits(cfg, params, x)
+
+
+def loss_fn(cfg: ModelCfg, params, batch):
+    """Next-token cross-entropy over ``batch = {"tokens", "labels"}``
+    (labels < 0 are masked), in the reference's logsumexp - gold form.
+    Returns (loss, metrics) with detached 0-dim ``loss``, ``aux`` (0 for
+    the ``lm`` family, which has no router) and ``ppl_proxy``."""
+    logits = forward(cfg, params, batch["tokens"])
+    labels = batch["labels"].long()
+    mask = (labels >= 0).float()
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    nll = torch.logsumexp(logits, dim=-1) - gold
+    loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    ld = loss.detach()
+    return loss, {"loss": ld, "aux": torch.zeros_like(ld),
+                  "ppl_proxy": torch.exp(ld.clamp_max(20.0))}
 
 
 def init_cache(cfg: ModelCfg, batch: int, max_len: int,

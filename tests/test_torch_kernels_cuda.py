@@ -37,12 +37,15 @@ def _randn(gen, *shape, device, dtype=torch.float32):
     return torch.randn(*shape, generator=gen, device=device).to(dtype)
 
 
+WRAPPERS = (dyad_mm.dyad_mm_blocks, dyad_mm.dyad_mm_dgrad_two,
+            dyad_mm.dyad_mm_wgrad, flash_attn.flash_prefill,
+            flash_attn.flash_prefill_grads, flash_attn.flash_decode)
+
+
 def test_cpu_tensors_take_the_plain_versions():
     gen = torch.Generator().manual_seed(0)
     cpu = torch.device("cpu")
-    counts = (dyad_mm.dyad_mm_blocks.launches,
-              flash_attn.flash_prefill.launches,
-              flash_attn.flash_decode.launches)
+    counts = [w.launches for w in WRAPPERS]
     x, w = _randn(gen, 4, 32, device=cpu), _randn(gen, 4, 8, 8, device=cpu)
     assert torch.equal(dyad_mm.dyad_mm_blocks(x, w, w),
                        dyad_mm.dyad_mm_blocks_plain(x, w, w))
@@ -52,9 +55,19 @@ def test_cpu_tensors_take_the_plain_versions():
                        flash_attn.flash_prefill_plain(q, kv, kv)[0])
     assert torch.equal(flash_attn.flash_decode(q[:, :1], kv, kv, 3),
                        flash_attn.flash_decode_plain(q[:, :1], kv, kv, 3))
-    assert counts == (dyad_mm.dyad_mm_blocks.launches,
-                      flash_attn.flash_prefill.launches,
-                      flash_attn.flash_decode.launches)
+    z = _randn(gen, 4, 4, 8, device=cpu)
+    x3 = x.reshape(4, 4, 8)
+    for got, want in (
+            (dyad_mm.dyad_mm_dgrad_two(z, z, w, w),
+             dyad_mm.dyad_mm_dgrad_two_plain(z, z, w, w)),
+            (dyad_mm.dyad_mm_wgrad(x3, x3, z, z),
+             dyad_mm.dyad_mm_wgrad_plain(x3, x3, z, z))):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    o, lse = flash_attn.flash_prefill(q, kv, kv, save_lse=True)
+    got = flash_attn.flash_prefill_grads(q, kv, kv, o, lse, o)
+    want = flash_attn.flash_prefill_grads_plain(q, kv, kv, o, lse, o)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert counts == [w.launches for w in WRAPPERS]
 
 
 def test_other_devices_raise():
@@ -144,12 +157,150 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     w = torch.zeros(4, 8, 8, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         dyad_mm.dyad_mm_blocks(x, w, w)
-    xg = torch.zeros(4, 32, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        ops.dyad_mm(xg, w.float(), w.float())
+    z = x.reshape(4, 4, 8)
+    with pytest.raises(TypeError):
+        dyad_mm.dyad_mm_dgrad_two(z, z, w, w)
+    with pytest.raises(TypeError):
+        dyad_mm.dyad_mm_wgrad(z, z, z, z)
+    with pytest.raises(ValueError, match="unsupported device"):
+        dyad_mm.dyad_mm_wgrad(z.float(), z.float().cpu(), z.float(),
+                              z.float())
     with pytest.raises(NotImplementedError, match="B.6"):
-        ops.dyad_mm(xg.detach(), w.float(), w.float(), variant="ot")
+        ops.dyad_mm(x.float(), w.float(), w.float(), variant="ot")
     q = torch.zeros(1, 1, 1, 9, 16, device=cuda)
     kv = torch.zeros(1, 4, 1, 16, device=cuda)
     with pytest.raises(NotImplementedError):
         flash_attn.flash_decode(q, kv, kv, 0)
+
+
+DGRAD_SHAPES = [
+    # (M, n, d_in, d_out): the OPT-125m training up/down, then ragged
+    (4096, 4, 192, 768), (4096, 4, 768, 192), (129, 2, 13, 130),
+    (7, 3, 5, 3), (100, 1, 64, 65)]
+
+
+def _it_views(x, g, n):
+    """The IT operands the backward passes: x1, the stride-n x2 and the
+    shared cotangent view."""
+    M = x.shape[0]
+    x1 = x.reshape(M, n, -1)
+    x2 = x.reshape(M, -1, n).transpose(1, 2)
+    z = g.reshape(M, n, -1)
+    return x1, x2, z
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,n,d_in,d_out", DGRAD_SHAPES)
+def test_dyad_dgrad_two_kernel_matches_plain(cuda, M, n, d_in, d_out,
+                                             dtype):
+    gen = torch.Generator(device=cuda).manual_seed(M + d_in)
+    g = _randn(gen, M, n * d_out, device=cuda, dtype=dtype)
+    w1 = (_randn(gen, n, d_out, d_in, device=cuda) / d_out ** 0.5).to(dtype)
+    w2 = (_randn(gen, n, d_out, d_in, device=cuda) / d_out ** 0.5).to(dtype)
+    z = g.reshape(M, n, d_out)
+    # IT: one cotangent view for both components; DT: a strided z2
+    z2 = g.reshape(M, d_out, n).transpose(1, 2)
+    for za, zb in ((z, z), (z, z2)):
+        before = dyad_mm.dyad_mm_dgrad_two.launches
+        dx1, dx2 = dyad_mm.dyad_mm_dgrad_two(za, zb, w1, w2)
+        torch.cuda.synchronize()
+        assert dyad_mm.dyad_mm_dgrad_two.launches == before + 1
+        p1, p2 = dyad_mm.dyad_mm_dgrad_two_plain(za, zb, w1, w2)
+        assert dx1.dtype == dtype and dx2.shape == (M, n, d_in)
+        _close(dx1, p1, dtype)
+        _close(dx2, p2, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("M,n,d_in,d_out", DGRAD_SHAPES)
+def test_dyad_wgrad_kernel_matches_plain(cuda, M, n, d_in, d_out, dtype,
+                                         out_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(M + d_out)
+    x = _randn(gen, M, n * d_in, device=cuda, dtype=dtype)
+    g = _randn(gen, M, n * d_out, device=cuda, dtype=dtype)
+    x1, x2, z = _it_views(x, g, n)
+    before = dyad_mm.dyad_mm_wgrad.launches
+    dw1, dw2 = dyad_mm.dyad_mm_wgrad(x1, x2, z, z, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert dyad_mm.dyad_mm_wgrad.launches == before + 1
+    p1, p2 = dyad_mm.dyad_mm_wgrad_plain(x1, x2, z, z, out_dtype=out_dtype)
+    assert dw1.dtype == out_dtype and dw2.shape == (n, d_out, d_in)
+    _close(dw1, p1, dtype)
+    _close(dw2, p2, dtype)
+    # the split row reduction is fixed: a second call is bitwise equal
+    again = dyad_mm.dyad_mm_wgrad(x1, x2, z, z, out_dtype=out_dtype)
+    assert torch.equal(again[0], dw1) and torch.equal(again[1], dw2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,K,G,h,causal,window,q_off,k_off", [
+    (2, 512, 4, 1, 64, True, None, 0, 0),           # the training shape
+    (3, 20, 2, 2, 16, True, 9, [0, 4, 30], [0, 2, 40]),
+    (2, 37, 1, 4, 128, False, None, 0, 0),
+    (1, 8, 2, 2, 16, True, None, 0, 20),            # all rows masked
+    (2, 33, 3, 2, 32, True, 5, 3, 3),
+])
+def test_flash_prefill_grads_kernel_matches_plain(cuda, B, S, K, G, h, causal,
+                                                  window, q_off, k_off,
+                                                  dtype):
+    gen = torch.Generator(device=cuda).manual_seed(S + h)
+    T = S
+    q = _randn(gen, B, S, K, G, h, device=cuda, dtype=dtype)
+    k = _randn(gen, B, T, K, h, device=cuda, dtype=dtype)
+    v = _randn(gen, B, T, K, h, device=cuda, dtype=dtype)
+    do = _randn(gen, B, S, K, G, h, device=cuda, dtype=dtype)
+    if isinstance(q_off, list):
+        q_off = torch.tensor(q_off, device=cuda)
+        k_off = torch.tensor(k_off, device=cuda)
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_attn.flash_prefill_plain(q, k, v, q_off, k_off,
+                                            save_lse=True, **kw)
+    before = flash_attn.flash_prefill_grads.launches
+    got = flash_attn.flash_prefill_grads(q, k, v, o, lse, do, q_off, k_off,
+                                         **kw)
+    torch.cuda.synchronize()
+    assert flash_attn.flash_prefill_grads.launches == before + 1
+    want = flash_attn.flash_prefill_grads_plain(q, k, v, o, lse, do, q_off,
+                                                k_off, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and bool(torch.isfinite(a.float()).all())
+        _close(a, b, dtype)
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_runs_the_kernels(cuda, monkeypatch):
+    """One OPT smoke train step on the card: every kernel of the training
+    path launches, and the kernel backward equals the plain one forced
+    with REPRO_KERNEL_BWD=xla on the same params and batch."""
+    from repro_torch import configs, tree
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import AdamW, schedule
+    from repro_torch.train import step as step_lib
+
+    cfg = configs.get("opt125m", smoke=True,
+                      linear=configs.linear_cfg("dyad_it_4_kernel"))
+    opt = AdamW(lr=schedule.constant(1e-3))
+    batch = SyntheticLM(cfg.vocab_size, 64, 4, device="cuda").batch(0)
+    grads = {}
+    for route in ("pallas", "xla"):
+        monkeypatch.setenv("REPRO_KERNEL_BWD", route)
+        state = step_lib.init_train_state(
+            cfg, opt, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+        for w in WRAPPERS:
+            w.launches = 0
+        metrics, grads[route] = step_lib.loss_and_grads(
+            cfg, state["params"], batch)
+        torch.cuda.synchronize()
+        launches = [w.launches for w in WRAPPERS]
+        n = cfg.n_layers
+        want = ([2 * n, 2 * n, 2 * n, n, n, 0] if route == "pallas"
+                else [2 * n, 0, 0, n, 0, 0])
+        assert launches == want, (route, launches)
+        assert bool(torch.isfinite(metrics["loss"]))
+    for a, b in zip(tree.leaves(grads["pallas"]), tree.leaves(grads["xla"])):
+        _close(a, b, torch.float32)

@@ -51,7 +51,18 @@ def test_forward_prefill_decode_match_jax(spec, route, monkeypatch):
     """route=flash runs the reference's three Pallas kernels in interpret
     mode and the port's flash wrappers on their plain versions."""
     monkeypatch.setenv("REPRO_KERNEL_ATTN", route)
-    jcfg, jp, tcfg, tp = _pair("opt125m", spec)
+    _check_forward_prefill_decode("opt125m", spec)
+
+
+@pytest.mark.parametrize("spec", ["dense", "dyad_it_4_kernel"])
+def test_pythia_rope_forward_prefill_decode_match_jax(spec):
+    """RoPE: the queries and keys of the prefill and of the decode step are
+    rotated at their absolute positions before the cache write."""
+    _check_forward_prefill_decode("pythia160m", spec)
+
+
+def _check_forward_prefill_decode(arch, spec):
+    jcfg, jp, tcfg, tp = _pair(arch, spec)
     rng = np.random.default_rng(1)
     toks = rng.integers(0, jcfg.vocab_size, (2, 12)).astype(np.int32)
     nxt = rng.integers(0, jcfg.vocab_size, (2, 1)).astype(np.int32)
@@ -75,7 +86,7 @@ def test_forward_prefill_decode_match_jax(spec, route, monkeypatch):
     assert tmodel.cache_pos(tc) == 13
 
 
-@pytest.mark.parametrize("arch", ["opt125m", "opt350m"])
+@pytest.mark.parametrize("arch", ["opt125m", "opt350m", "pythia160m"])
 def test_init_params_matches_reference_tree(arch):
     """The port draws its own weights, in the reference's tree: same keys,
     shapes and parameter count once bridged."""
@@ -90,7 +101,7 @@ def test_init_params_matches_reference_tree(arch):
 
 
 def test_full_configs_match_reference():
-    for arch in ("opt125m", "opt350m"):
+    for arch in ("opt125m", "opt350m", "pythia160m"):
         j, t = jconfigs.get(arch), tconfigs.get(arch)
         for field in ("n_layers", "d_model", "vocab_size", "n_heads",
                       "n_kv_heads", "head_dim", "d_ff", "act", "mlp_bias",
@@ -134,6 +145,13 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    # the training slice's modules are among those scanned
+    names = {str(f.relative_to(ROOT / "src" / "repro_torch"))
+             for f in files[:-1]}
+    assert {"tree.py", "errors.py", "optim/adamw.py", "optim/schedule.py",
+            "data/synthetic.py", "train/step.py", "train/loop.py",
+            "checkpoint/manager.py", "obs/metrics.py", "launch/train.py",
+            "layers/rotary.py", "configs/pythia160m.py"} <= names
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad

@@ -1,6 +1,6 @@
 """Config registry and linear-spec parsing (port of ``repro.configs.base``).
 
-Each paper architecture registers ``full()`` (the published config) and
+Each ported architecture registers ``full()`` (the published config) and
 ``smoke()`` (a reduced same-family config for CPU tests).
 """
 from __future__ import annotations
@@ -16,6 +16,9 @@ DENSE = factory.DENSE
 
 # the paper's architectures
 PAPER_ARCHS = ["opt125m", "opt350m", "pythia160m"]
+# every architecture the port runs: the paper's, and the bias-free lm
+# config whose ff takes the megakernel
+PORTED_ARCHS = PAPER_ARCHS + ["qwen3_0_6b"]
 
 
 def linear_cfg(spec: str) -> factory.LinearCfg:
@@ -43,10 +46,10 @@ def linear_cfg(spec: str) -> factory.LinearCfg:
 
 def get(arch: str, *, smoke: bool = False,
         linear: Optional[factory.LinearCfg] = None, **overrides) -> ModelCfg:
-    if arch not in PAPER_ARCHS:
+    if arch not in PORTED_ARCHS:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP A.5/A.13); "
-            f"ported: {PAPER_ARCHS}")
+            f"arch {arch!r} is not ported yet (ROADMAP A.13); "
+            f"ported: {PORTED_ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     cfg = (mod.smoke if smoke else mod.full)()
     if linear is not None:

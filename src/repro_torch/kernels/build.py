@@ -47,6 +47,12 @@ ENTRIES = {
     "flash_bwd": ("repro_flash_prefill_grads",
                   [_P] * 9 + [_P, _I, _P, _I] + [_I] * 6 + [_LL] * 14
                   + [_I, _I, _F, _I, _P]),
+    "dyad_mm_two": ("repro_dyad_mm_blocks_two",
+                    [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_I, _P]),
+    "dyad_dgrad_fused": ("repro_dyad_mm_dgrad",
+                         [_P] * 5 + [_I] * 4 + [_LL] * 9 + [_I, _P]),
+    "dyad_ff": ("repro_dyad_ff_fused",
+                [_P] * 11 + [_I] * 7 + [_LL] * 12 + [_I] * 3 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,6 @@
-// A batched, strided fp32-accumulating FMA GEMM shared by the DYAD backward
-// kernels (dyad_dgrad.cu, dyad_wgrad.cu):
+// A batched, strided fp32-accumulating FMA GEMM shared by the DYAD kernels
+// that are plain products (dyad_dgrad.cu, dyad_dgrad_fused.cu,
+// dyad_wgrad.cu, dyad_mm_two.cu):
 //
 //   C_c[g][r, j] = sum_{k in [k_begin, k_end)} A_c[g][r, k] * B_c[g][k, j]
 //
@@ -8,7 +9,12 @@
 // caller passes the DYAD views (the stride-n x2, the permuted dx2, a
 // transposed cotangent) as they are.  grid.z runs over (split, c, g): with
 // split > 1 each block sums one range of k and writes fp32 partials for a
-// second pass to add in a fixed order.
+// second pass to add in a fixed order.  With Fuse the two components sum
+// into one accumulator and C_0 (grid.z over g only, split 1):
+//
+//   C_0[g][r, j] = sum_k A_0[g][r, k] B_0[g][k, j] + sum_k A_1[g][r, k] B_1[g][k, j]
+//
+// component 0's k range first, then component 1's.
 //
 // Tiling: a block of 128 threads owns a 128 x 64 tile of C; each thread
 // keeps an 8 x 8 register tile (rows 8 ty .. 8 ty + 7, columns
@@ -122,35 +128,18 @@ __device__ __forceinline__ void store4(O* dst, long long sj, int left,
   if (left > 3) dst[3 * sj] = from_f32<O>(v3);
 }
 
-template <typename T, typename O>
-__global__ void __launch_bounds__(kThreads) dyad_gemm_kernel(DyadGemmArgs a) {
-  __shared__ __align__(16) float As[2][kBK * kPA];
-  __shared__ __align__(16) float Bs[2][kBK * kPB];
-
-  const int z = blockIdx.z;
-  const int g = z % a.n;
-  const int c = (z / a.n) % 2;
-  const int s = z / (2 * a.n);
-  const int r0 = blockIdx.y * kBM, j0 = blockIdx.x * kBN;
-  const int k_begin = s * a.krows;
-  const int k_end = min(a.K, k_begin + a.krows);
-  const int tx = threadIdx.x % (kBN / kTN);   // 0..7, along j
-  const int ty = threadIdx.x / (kBN / kTN);   // 0..15, along r
-
-  const T* A = static_cast<const T*>(a.A[c]) + g * a.a_sg[c];
-  const T* B = static_cast<const T*>(a.B[c]) + g * a.b_sg[c];
-  const long long a_sr = a.a_sr[c], a_sk = a.a_sk[c];
-  const long long b_sk = a.b_sk[c], b_sj = a.b_sj[c];
-
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-
+// acc += A[r0.., k] B[k, j0..] over k in [k_begin, k_end) for one
+// component: tiles of A and B, kBK deep, through two shared-memory stages,
+// the global loads of step k + 1 in flight while step k computes
+template <typename T>
+__device__ __forceinline__ void mainloop(
+    const T* A, long long a_sr, long long a_sk, const T* B, long long b_sk,
+    long long b_sj, int r0, int j0, int k_begin, int k_end, int R, int N,
+    int tx, int ty, float (&As)[2][kBK * kPA], float (&Bs)[2][kBK * kPB],
+    float (&acc)[kTM][kTN]) {
   float ra[kAPer], rb[kBPer];
-  load_a(A, a_sr, a_sk, r0, k_begin, a.R, k_end, ra);
-  load_b(B, b_sk, b_sj, k_begin, j0, k_end, a.N, rb);
+  load_a(A, a_sr, a_sk, r0, k_begin, R, k_end, ra);
+  load_b(B, b_sk, b_sj, k_begin, j0, k_end, N, rb);
   store_a(As[0], a_sk, ra);
   store_b(Bs[0], b_sk, b_sj, rb);
   __syncthreads();
@@ -159,8 +148,8 @@ __global__ void __launch_bounds__(kThreads) dyad_gemm_kernel(DyadGemmArgs a) {
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     const bool more = k0 + kBK < k_end;
     if (more) {   // next tile's loads in flight during this tile's FMAs
-      load_a(A, a_sr, a_sk, r0, k0 + kBK, a.R, k_end, ra);
-      load_b(B, b_sk, b_sj, k0 + kBK, j0, k_end, a.N, rb);
+      load_a(A, a_sr, a_sk, r0, k0 + kBK, R, k_end, ra);
+      load_b(B, b_sk, b_sj, k0 + kBK, j0, k_end, N, rb);
     }
     const float* as = As[stage];
     const float* bs = Bs[stage];
@@ -191,6 +180,41 @@ __global__ void __launch_bounds__(kThreads) dyad_gemm_kernel(DyadGemmArgs a) {
     }
     __syncthreads();
     stage ^= 1;
+  }
+}
+
+template <typename T, typename O, bool Fuse>
+__global__ void __launch_bounds__(kThreads) dyad_gemm_kernel(DyadGemmArgs a) {
+  __shared__ __align__(16) float As[2][kBK * kPA];
+  __shared__ __align__(16) float Bs[2][kBK * kPB];
+
+  const int z = blockIdx.z;
+  const int g = z % a.n;
+  const int c = Fuse ? 0 : (z / a.n) % 2;
+  const int s = z / ((Fuse ? 1 : 2) * a.n);
+  const int r0 = blockIdx.y * kBM, j0 = blockIdx.x * kBN;
+  const int k_begin = s * a.krows;
+  const int k_end = min(a.K, k_begin + a.krows);
+  const int tx = threadIdx.x % (kBN / kTN);   // 0..7, along j
+  const int ty = threadIdx.x / (kBN / kTN);   // 0..15, along r
+
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+
+  auto run = [&](int ca) {
+    mainloop(static_cast<const T*>(a.A[ca]) + g * a.a_sg[ca], a.a_sr[ca],
+             a.a_sk[ca], static_cast<const T*>(a.B[ca]) + g * a.b_sg[ca],
+             a.b_sk[ca], a.b_sj[ca], r0, j0, k_begin, k_end, a.R, a.N, tx,
+             ty, As, Bs, acc);
+  };
+  if constexpr (Fuse) {   // both components into the one accumulator
+    run(0);
+    run(1);
+  } else {
+    run(c);
   }
 
   // column chunk h of the thread: 4 tx + 32 h .. + 3
@@ -235,11 +259,13 @@ __global__ void dyad_gemm_reduce(DyadGemmArgs a) {
   C[r * a.c_sr[c] + j * a.c_sj[c]] = from_f32<O>(sum);
 }
 
-template <typename T, typename O>
+template <typename T, typename O, bool Fuse = false>
 cudaError_t launch(const DyadGemmArgs& a, cudaStream_t stream) {
+  if (Fuse && (a.split != 1 || a.part)) return cudaErrorInvalidValue;
   if (a.n == 0 || a.R == 0 || a.N == 0) return cudaSuccess;
-  dim3 grid((a.N + kBN - 1) / kBN, (a.R + kBM - 1) / kBM, 2 * a.n * a.split);
-  dyad_gemm_kernel<T, O><<<grid, kThreads, 0, stream>>>(a);
+  dim3 grid((a.N + kBN - 1) / kBN, (a.R + kBM - 1) / kBM,
+            (Fuse ? 1 : 2) * a.n * a.split);
+  dyad_gemm_kernel<T, O, Fuse><<<grid, kThreads, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !a.part) return err;
   const long long total = 2LL * a.n * a.R * a.N;

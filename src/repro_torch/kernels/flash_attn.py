@@ -187,6 +187,16 @@ def _int_arg(off, B: int, device):
     return vec.expand(B).contiguous(), 0
 
 
+def _promoted(q, k, v):
+    """q, k, v in their promoted dtype.  The cache may hold another dtype
+    than the queries (an fp32 cache under bf16 compute); the TPU kernels
+    promote each tile (``jnp.promote_types``), and casting the narrower
+    operands up before the launch (in practice the queries) computes the
+    same product.  The caller casts the output back to q's dtype."""
+    ct = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    return q.to(ct), k.to(ct), v.to(ct)
+
+
 def _check_cuda(name: str, q, k, v):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -207,6 +217,8 @@ def flash_prefill(q, k, v, q_off=0, k_off=0, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, q_off, k_off, causal=causal,
                                    window=window, save_lse=save_lse)
+    q_dtype = q.dtype
+    q, k, v = _promoted(q, k, v)
     _check_cuda("flash_prefill", q, k, v)
     B, S, K, G, h = q.shape
     T = k.shape[1]
@@ -226,7 +238,7 @@ def flash_prefill(q, k, v, q_off=0, k_off=0, *, causal: bool = True,
         1.0 / math.sqrt(h), _DTYPES[q.dtype], build.stream(q.device))
     build.check(err, "flash_prefill")
     flash_prefill.launches += 1
-    return out, lse
+    return out.to(q_dtype), lse
 
 
 flash_prefill.launches = 0
@@ -263,6 +275,8 @@ def flash_decode(q, k, v, idx, *, window: Optional[int] = None):
     q's rank."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, idx, window=window)
+    q_dtype = q.dtype
+    q, k, v = _promoted(q, k, v)
     _check_cuda("flash_decode", q, k, v)
     squeeze = q.dim() == 5
     q4 = q[:, 0] if squeeze else q
@@ -284,6 +298,7 @@ def flash_decode(q, k, v, idx, *, window: Optional[int] = None):
         _DTYPES[q.dtype], build.stream(q.device))
     build.check(err, "flash_decode")
     flash_decode.launches += 1
+    out = out.to(q_dtype)
     return out[:, None] if squeeze else out
 
 

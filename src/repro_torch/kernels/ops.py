@@ -1,17 +1,30 @@
 """Kernel routing for the layers (port of ``repro.kernels.ops``).
 
 * :func:`dyad_mm` — one DYAD linear without bias, a
-  ``torch.autograd.Function``.  Forward: the IT variant runs the
-  hand-written ``dyad_mm_blocks`` kernel on CUDA; the OT/DT forward kernel
-  (``dyad_mm_blocks_two``, ROADMAP B.6) is not ported yet and raises on
-  CUDA.  Backward, saving ``(x, w1, w2)``, three routes:
+  ``torch.autograd.Function``.  Forward: the IT variant runs
+  ``dyad_mm_blocks`` (one accumulator: both components share the output
+  layout); OT and DT run ``dyad_mm_blocks_two`` and ``ref.combine``.
+  Backward, saving ``(x, w1, w2)``, three routes:
 
-  - ``kernel`` (the default on CUDA): ``dyad_mm_dgrad_two`` plus
-    ``ref.unview`` for dx, ``dyad_mm_wgrad`` with the param dtype for dw;
+  - ``kernel`` (the default on CUDA): dx from ``dyad_mm_dgrad`` for OT
+    (one accumulator) and from ``dyad_mm_dgrad_two`` plus ``ref.unview``
+    for IT and DT; dw from ``dyad_mm_wgrad`` with the param dtype;
   - ``plain`` (the default on the CPU): :func:`_bwd_direct`, the
     reference's direct-layout lowering with fp32 sums;
   - ``use_kernel_bwd=False`` (spec token ``einsumbwd``): the einsum VJP
     oracle ``ref.dyad_mm_bwd_ref``, on either device.
+
+* :func:`dyad_ff` — the whole bias-free ff module (up and gate IT, the
+  activation, down OT) as one ``torch.autograd.Function``.  Forward
+  (:func:`ff_route`): ``fused`` runs the ``dyad_ff_fused`` megakernel,
+  ``split`` runs ``dyad_mm_blocks`` for up (and gate), the activation in
+  torch, and ``dyad_mm_blocks_two``.  Backward, with the same three
+  routes: ``kernel`` (:func:`_ff_bwd_kernel`: the hidden rematerialised
+  with ``dyad_mm_blocks``, then ``dyad_mm_wgrad`` and ``dyad_mm_dgrad``
+  for the down projection, the activation's VJP in torch, then
+  ``dyad_mm_wgrad`` and ``dyad_mm_dgrad_two`` for up and gate);
+  ``plain`` (:func:`_ff_bwd_direct`); the oracle (autograd of
+  ``ref.dyad_ff_ref``).
 
 * :func:`flash_attention` — the flash forward kernel with its backward,
   ``flash_prefill_grads`` on CUDA, the same dataflow in plain torch on the
@@ -23,6 +36,7 @@
 Environment switches, with the reference's names and values:
 
 * ``REPRO_KERNEL_ATTN=flash|xla`` forces the attention route;
+* ``REPRO_KERNEL_FF=fused|split`` forces the ff forward route;
 * ``REPRO_KERNEL_BWD=pallas|xla`` forces the backward route of both ops.
   On the card ``pallas`` means the hand-written CUDA backward kernels (the
   default there) and ``xla`` the plain torch lowering; forcing ``pallas``
@@ -34,10 +48,12 @@ from __future__ import annotations
 import os
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attn, ref
-from repro_torch.kernels.dyad_mm import (dyad_mm_blocks, dyad_mm_dgrad_two,
-                                         dyad_mm_wgrad)
+from repro_torch.kernels.dyad_mm import (dyad_ff_fused, dyad_mm_blocks,
+                                         dyad_mm_blocks_two, dyad_mm_dgrad,
+                                         dyad_mm_dgrad_two, dyad_mm_wgrad)
 
 
 def bwd_route(device: torch.device) -> str:
@@ -89,18 +105,19 @@ def _bwd_direct(x2d, w1, w2, g2d, variant: str):
 def _dyad_forward(x, w1, w2, variant: str):
     n, d_out, _ = w1.shape
     lead = x.shape[:-1]
-    w1c, w2c = w1.to(x.dtype), w2.to(x.dtype)
-    if x.device.type == "cuda" and variant != "it":
-        raise NotImplementedError(
-            f"dyad_mm: the {variant!r} forward kernel "
-            "(dyad_mm_blocks_two) is not ported yet (ROADMAP B.6)")
-    if variant != "it":
-        return ref.dyad_mm_ref(x, w1c, w2c, variant=variant)
-    # IT: both components share the block-contiguous output layout, so
-    # one accumulator holds the sum; the stride-n view is read in-kernel.
+    w1c = w1.to(x.dtype).contiguous()
+    w2c = w2.to(x.dtype).contiguous()
     x2d = x.reshape(-1, x.shape[-1])
-    z = dyad_mm_blocks(x2d, w1c.contiguous(), w2c.contiguous(), variant)
-    return z.reshape(*lead, n * d_out)
+    if variant == "it":
+        # IT: both components share the block-contiguous output layout, so
+        # one accumulator holds the sum; the stride-n view is read in-kernel
+        y = dyad_mm_blocks(x2d, w1c, w2c, variant)
+    else:
+        # OT/DT: component 2 lands in the strided output layout; the
+        # kernel emits both products and combine re-views and adds
+        x1, x2 = ref.block_views(x2d, n, variant)
+        y = ref.combine(*dyad_mm_blocks_two(x1, x2, w1c, w2c), variant)
+    return y.reshape(*lead, n * d_out)
 
 
 class _DyadMM(torch.autograd.Function):
@@ -129,13 +146,16 @@ class _DyadMM(torch.autograd.Function):
             dx, dw1, dw2 = _bwd_direct(x2d, w1c, w2c, g2d, variant)
             return (dx.reshape(*lead, f_in).to(x.dtype), dw1.to(w1.dtype),
                     dw2.to(w2.dtype), None, None)
-        # CUDA runs only IT (the OT/DT forward raises), whose dx1 and dx2
-        # live in different layouts: dgrad_two emits them apart
         x1, x2 = ref.block_views(x2d, n, variant)
         z1bar, z2bar = ref.split_cotangent(g2d, n, variant)
-        dx1, dx2 = dyad_mm_dgrad_two(z1bar, z2bar, w1c.contiguous(),
-                                     w2c.contiguous())
-        dx = ref.unview(dx1, dx2, variant)
+        w1c, w2c = w1c.contiguous(), w2c.contiguous()
+        if variant == "ot":
+            # both dx components are block-contiguous: one accumulator
+            dx = dyad_mm_dgrad(z1bar, z2bar, w1c, w2c)
+        else:
+            # IT/DT: dx2 lives in the permuted layout; emitted apart
+            dx = ref.unview(*dyad_mm_dgrad_two(z1bar, z2bar, w1c, w2c),
+                            variant)
         dw1, dw2 = dyad_mm_wgrad(x1, x2, z1bar, z2bar, out_dtype=w1.dtype)
         return (dx.reshape(*lead, f_in).to(x.dtype), dw1, dw2.to(w2.dtype),
                 None, None)
@@ -146,6 +166,219 @@ def dyad_mm(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
     """Fused DYAD matmul: (..., f_in) -> (..., f_out), no bias.
     ``use_kernel_bwd=False`` swaps the backward to the einsum VJP oracle."""
     return _DyadMM.apply(x, w1, w2, variant, use_kernel_bwd)
+
+
+# -- the ff megakernel op --------------------------------------------------------
+
+
+def ff_route() -> str:
+    """Which forward route ``dyad_ff`` takes: ``fused`` (the default, the
+    one-kernel megakernel) or ``split`` (up and gate through
+    ``dyad_mm_blocks``, the activation in torch, down through
+    ``dyad_mm_blocks_two``: the hidden goes through device memory).
+    ``REPRO_KERNEL_FF=fused|split`` forces either."""
+    forced = os.environ.get("REPRO_KERNEL_FF", "").lower()
+    return forced if forced in ("fused", "split") else "fused"
+
+
+def _ff_weights(ws, act: str):
+    """(wg, wu, wd) pairs from the flat weight tuple; wg None ungated."""
+    if act == "swiglu":
+        return ws[0:2], ws[2:4], ws[4:6]
+    return None, ws[0:2], ws[2:4]
+
+
+def _cast(pair, dt):
+    return tuple(w.to(dt).contiguous() for w in pair)
+
+
+def _ff_act_fwd(act: str, g_pre, u_pre):
+    """(h, vjp) of the activation epilogue on the block-layout pre-
+    activations; ``vjp(dh)`` returns ``(dg_pre, du_pre)`` gated, else
+    ``(du_pre,)``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_()
+                  for t in ((g_pre, u_pre) if act == "swiglu" else (u_pre,))]
+        h = (F.silu(leaves[0]) * leaves[1] if act == "swiglu"
+             else ref.ACTS[act](leaves[0]))
+
+    def vjp(dh):
+        return torch.autograd.grad(h, leaves, dh)
+
+    return h.detach(), vjp
+
+
+def _ff_forward(x, wg, wu, wd, act: str):
+    """The ff forward on the route of :func:`ff_route`: (..., f_in) ->
+    (..., f_out)."""
+    n = wu[0].shape[0]
+    d_out = wd[0].shape[1]
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, x.shape[-1])
+    dt = x.dtype
+    if ff_route() == "fused":
+        # the weights go in as they are: for bf16 x the kernel rounds fp32
+        # weights to bf16 as it loads them (a cast here would copy each)
+        x1, x2 = ref.block_views(x2d, n, "it")
+        z1, z2 = dyad_ff_fused(x1, x2, *wu, *wd, *(wg or (None, None)),
+                               act=act)
+    else:
+        u = dyad_mm_blocks(x2d, *_cast(wu, dt), "it")
+        if wg is not None:
+            h = F.silu(dyad_mm_blocks(x2d, *_cast(wg, dt), "it")) * u
+        else:
+            h = ref.ACTS[act](u)
+        z1, z2 = dyad_mm_blocks_two(h, h, *_cast(wd, dt))
+    return ref.combine(z1, z2, "ot").reshape(*lead, n * d_out)
+
+
+def _ff_bwd_kernel(x, wg, wu, wd, g, act: str):
+    """The kernel backward: the hidden rematerialised, then the fused
+    dgrad/wgrad kernels (the reference's ``ops._ff_bwd_kernel``).  Returns
+    (dx, *dwg, dwu1, dwu2, dwd1, dwd2)."""
+    n = wu[0].shape[0]
+    lead, f_in = x.shape[:-1], x.shape[-1]
+    dt = x.dtype
+    x2d = x.reshape(-1, f_in)
+    g2d = g.reshape(-1, g.shape[-1]).to(dt)
+    x1, x2 = ref.block_views(x2d, n, "it")
+    wu1, wu2 = _cast(wu, dt)
+    wd1, wd2 = _cast(wd, dt)
+
+    u_pre = dyad_mm_blocks(x2d, wu1, wu2, "it")
+    if wg is not None:
+        wg1, wg2 = _cast(wg, dt)
+        h, act_vjp = _ff_act_fwd(act, dyad_mm_blocks(x2d, wg1, wg2, "it"),
+                                 u_pre)
+    else:
+        h, act_vjp = _ff_act_fwd(act, None, u_pre)
+
+    z1bar, z2bar = ref.split_cotangent(g2d, n, "ot")
+    dwd1, dwd2 = dyad_mm_wgrad(h, h, z1bar, z2bar, out_dtype=wd[0].dtype)
+    # OT down: both dh components share the block layout, one accumulator
+    dh = dyad_mm_dgrad(z1bar, z2bar, wd1, wd2)
+    pre_grads = [t.to(dt) for t in act_vjp(dh)]
+    du_pre = pre_grads[-1]
+
+    dwu1, dwu2 = dyad_mm_wgrad(x1, x2, du_pre, du_pre,
+                               out_dtype=wu[0].dtype)
+    dx = ref.unview(*dyad_mm_dgrad_two(du_pre, du_pre, wu1, wu2), "it")
+    dgs = ()
+    if wg is not None:
+        dg_pre = pre_grads[0]
+        dwg1, dwg2 = dyad_mm_wgrad(x1, x2, dg_pre, dg_pre,
+                                   out_dtype=wg[0].dtype)
+        dx = dx + ref.unview(*dyad_mm_dgrad_two(dg_pre, dg_pre, wg1, wg2),
+                             "it")
+        dgs = (dwg1, dwg2.to(wg[1].dtype))
+    return (dx.reshape(*lead, f_in).to(x.dtype), *dgs, dwu1,
+            dwu2.to(wu[1].dtype), dwd1, dwd2.to(wd[1].dtype))
+
+
+def _ff_bwd_direct(x, wg, wu, wd, g, act: str):
+    """The reference's non-TPU lowering of the megakernel backward
+    (``ops._ff_bwd_direct``): direct-layout contractions with fp32 sums
+    (the BLOCKTRANS operands read through the free ``(B, d, n)``
+    reshapes, component 2's dx produced in the permuted layout) and the
+    hidden rematerialised in x's dtype."""
+    n, _, d_in = wu[0].shape
+    d_out = wd[0].shape[1]
+    lead, f_in = x.shape[:-1], x.shape[-1]
+    dt = x.dtype
+    f = torch.promote_types(dt, torch.float32)   # fp64 stays fp64
+    x2d = x.reshape(-1, f_in)
+    B = x2d.shape[0]
+    g2d = g.reshape(-1, g.shape[-1]).to(dt)
+    x1 = x2d.reshape(B, n, d_in).to(f)
+    xr = x2d.reshape(B, d_in, n).to(f)         # x2[b,g,k] == xr[b,k,g]
+    z1 = g2d.reshape(B, n, d_out).to(f)
+    gr = g2d.reshape(B, d_out, n).to(f)        # z2bar[b,g,o] == gr[b,o,g]
+
+    def wf(pair):
+        return tuple(w.to(dt).to(f) for w in pair)
+
+    wu1, wu2 = wf(wu)
+    wd1, wd2 = wf(wd)
+
+    def up(w1, w2):
+        return (torch.einsum("bgk,gjk->bgj", x1, w1)
+                + torch.einsum("bkg,gjk->bgj", xr, w2)).to(dt)
+
+    u_pre = up(wu1, wu2)
+    if wg is not None:
+        wg1, wg2 = wf(wg)
+        h, act_vjp = _ff_act_fwd(act, up(wg1, wg2), u_pre)
+    else:
+        h, act_vjp = _ff_act_fwd(act, None, u_pre)
+    hf = h.to(f)
+    dwd1 = torch.einsum("bgj,bgo->goj", hf, z1)
+    dwd2 = torch.einsum("bgj,bog->goj", hf, gr)
+    dh = (torch.einsum("bgo,goj->bgj", z1, wd1)
+          + torch.einsum("bog,goj->bgj", gr, wd2)).to(dt)
+    pre_grads = act_vjp(dh)
+
+    def in_grads(du, w1, w2):
+        du = du.to(f)
+        dw1 = torch.einsum("bgk,bgj->gjk", x1, du)
+        dw2 = torch.einsum("bkg,bgj->gjk", xr, du)
+        # component 2's dx is produced in the permuted layout (bkg)
+        dx = (torch.einsum("bgj,gjk->bgk", du, w1).reshape(B, f_in)
+              + torch.einsum("bgj,gjk->bkg", du, w2).reshape(B, f_in))
+        return dw1, dw2, dx
+
+    dwu1, dwu2, dx = in_grads(pre_grads[-1], wu1, wu2)
+    dgs = ()
+    if wg is not None:
+        dwg1, dwg2, dxg = in_grads(pre_grads[0], wg1, wg2)
+        dx = dx + dxg
+        dgs = (dwg1.to(wg[0].dtype), dwg2.to(wg[1].dtype))
+    return (dx.reshape(*lead, f_in).to(x.dtype), *dgs,
+            dwu1.to(wu[0].dtype), dwu2.to(wu[1].dtype),
+            dwd1.to(wd[0].dtype), dwd2.to(wd[1].dtype))
+
+
+def _ff_bwd_oracle(x, ws, g, act: str):
+    """Autograd of the einsum oracle ``ref.dyad_ff_ref``: (dx, *dws) in the
+    order of ``ws``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, *ws)]
+        wg, wu, wd = _ff_weights(leaves[1:], act)
+        gs = wg if wg is not None else (None, None)
+        y = ref.dyad_ff_ref(leaves[0], *wu, *wd, *gs, act=act)
+        return torch.autograd.grad(y, leaves, g)
+
+
+class _DyadFF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, act, use_kernel_bwd, *ws):
+        ctx.save_for_backward(x, *ws)
+        ctx.act, ctx.use_kernel_bwd = act, use_kernel_bwd
+        return _ff_forward(x, *_ff_weights(ws, act), act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *ws = ctx.saved_tensors
+        act = ctx.act
+        g = g.contiguous()
+        if not ctx.use_kernel_bwd:
+            grads = _ff_bwd_oracle(x, ws, g, act)
+        else:
+            route = (_ff_bwd_kernel if bwd_route(x.device) == "kernel"
+                     else _ff_bwd_direct)
+            grads = route(x, *_ff_weights(ws, act), g, act)
+        return (grads[0], None, None, *grads[1:])
+
+
+def dyad_ff(params, x, *, act: str = "gelu", use_kernel_bwd: bool = True):
+    """The whole bias-free DYAD ff module as one differentiable op.
+
+    ``params`` is the ``layers.mlp`` param dict: ``{"up", "down"}`` (and
+    ``"gate"`` for ``act="swiglu"``), each holding DYAD ``w1``/``w2``.
+    ``use_kernel_bwd=False`` swaps the backward to autograd of the einsum
+    oracle ``ref.dyad_ff_ref``."""
+    names = (("gate", "up", "down") if act == "swiglu" else ("up", "down"))
+    ws = [params[k][w] for k in names for w in ("w1", "w2")]
+    return _DyadFF.apply(x, act, use_kernel_bwd, *ws)
 
 
 def attn_route(device: torch.device) -> str:

@@ -8,13 +8,16 @@ the BLOCKDIAG and BLOCKTRANS contributions for a variant, without bias.
     returns  (..., f_out)
 
 ``dyad_mm_bwd_ref`` is its einsum VJP, the oracle every backward route is
-held against.
+held against; ``dyad_ff_ref`` is the einsum oracle of the whole ff module
+(``ops.dyad_ff``), and ``ACTS`` the activation table its epilogue and the
+kernels' share.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -86,6 +89,39 @@ def dyad_mm_bwd_ref(x, w1, w2, g, *, variant: str = "it"):
     dx1 = torch.einsum("...go,goi->...gi", z1bar, w1.to(g.dtype))
     dx2 = torch.einsum("...go,goi->...gi", z2bar, w2.to(g.dtype))
     return unview(dx1, dx2, variant).to(x.dtype), dw1, dw2
+
+
+# the reference's activation table (jax.nn.gelu defaults to the tanh form)
+ACTS = {
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "silu": F.silu,
+}
+
+
+def dyad_ff_ref(x, wu1, wu2, wd1, wd2, wg1=None, wg2=None, *,
+                act: str = "gelu"):
+    """Einsum oracle for the ff megakernel (``ops.dyad_ff``): up = IT in
+    block layout, the activation (``act="swiglu"`` gates with wg1/wg2),
+    down = OT consuming the block-layout hidden.
+
+        x          (..., f_in)            f_in  = n * d_in
+        wu*, wg*   (n, d_ff_b, d_in)      hidden is (..., n, d_ff_b)
+        wd*        (n, d_out, d_ff_b)     f_out = n * d_out
+        returns    (..., f_out)
+    """
+    n = wu1.shape[0]
+    x1, x2 = block_views(x, n, "it")
+
+    def up(w1, w2):
+        return (torch.einsum("...gi,gji->...gj", x1, w1.to(x.dtype))
+                + torch.einsum("...gi,gji->...gj", x2, w2.to(x.dtype)))
+
+    u = up(wu1, wu2)
+    h = F.silu(up(wg1, wg2)) * u if act == "swiglu" else ACTS[act](u)
+    z1 = torch.einsum("...gj,goj->...go", h, wd1.to(x.dtype))
+    z2 = torch.einsum("...gj,goj->...go", h, wd2.to(x.dtype))
+    return combine(z1, z2, "ot")
 
 
 def sdpa_ref(q, k, v, qpos, kpos, *, causal: bool = True, window=None):

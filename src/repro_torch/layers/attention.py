@@ -1,13 +1,16 @@
 """Multi-head / grouped-query attention with a dense ring KV cache (port of
 ``repro.layers.attention`` for the ``lm`` serving path).
 
-Ported: RoPE, the no-cache forward (the training path; on the flash route
+Ported: RoPE, qk-norm (RMSNorm of each query and key head before RoPE),
+the no-cache forward (the training path; on the flash route
 differentiable through the flash backward kernel) and the dense-ring cache
 with a scalar write index, in both the S == 1 (decode) and the S < L
 (prefill) branches, each on the flash route (``kernels.ops``) and the
-plain route (:func:`_naive_sdpa`).  qk-norm, cross-attention, per-slot
-(vector) indices, paged pools, the S >= L windowed-ring prefill and the
-chunked einsum paths raise ``NotImplementedError``.
+plain route (:func:`_naive_sdpa`).  ``chunk`` is consulted where the
+reference consults it, on the plain route only; the chunked einsum paths
+it selects there (``S > chunk``, or keys beyond ``chunk``), cross-
+attention, per-slot (vector) indices, paged pools and the S >= L
+windowed-ring prefill raise ``NotImplementedError``.
 
 The cache is a dict ``{"k", "v": (B, L, K, h) tensors, "idx": int}``; the
 write index lives on the host (the batch engine knows every position).
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch.core import factory
 from repro_torch.kernels import ops as kops
+from repro_torch.layers import norms
 from repro_torch.layers.rotary import apply_rope
 
 NEG_INF = -1e30
@@ -34,19 +38,20 @@ def init_attention(generator, d_model: int, n_heads: int, n_kv: int,
                    head_dim: int, lin_cfg: factory.LinearCfg, *,
                    qkv_bias: bool = False, qk_norm: bool = False,
                    out_bias: bool = False, dtype=torch.float32, device=None):
-    if qk_norm:
-        raise NotImplementedError("qk-norm is not ported yet (ROADMAP A.4)")
-
     def lin(f_in, f_out, bias):
         return factory.init(generator, f_in, f_out, lin_cfg, site="attn",
                             bias=bias, dtype=dtype, device=device)
 
-    return {
+    p = {
         "wq": lin(d_model, n_heads * head_dim, qkv_bias),
         "wk": lin(d_model, n_kv * head_dim, qkv_bias),
         "wv": lin(d_model, n_kv * head_dim, qkv_bias),
         "wo": lin(n_heads * head_dim, d_model, out_bias),
     }
+    if qk_norm:
+        p["q_norm"] = norms.init_rmsnorm(head_dim, dtype, device)
+        p["k_norm"] = norms.init_rmsnorm(head_dim, dtype, device)
+    return p
 
 
 def _mask(qpos, kpos, causal: bool, window: Optional[int]):
@@ -87,16 +92,17 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
     if kv_input is not None:
         raise NotImplementedError(
             "cross-attention is not ported yet (ROADMAP A.13)")
-    if chunk is not None:
-        raise NotImplementedError(
-            "the chunked attention paths are not ported yet (ROADMAP A.4)")
     B, S, _ = x.shape
     K, G = n_kv, n_heads // n_kv
     q = factory.apply(params["wq"], x, lin_cfg, site="attn")
     k = factory.apply(params["wk"], x, lin_cfg, site="attn")
     v = factory.apply(params["wv"], x, lin_cfg, site="attn")
+    q = q.reshape(B, S, n_heads, head_dim)
     k = k.reshape(B, S, K, head_dim)
     v = v.reshape(B, S, K, head_dim)
+    if "q_norm" in params:
+        q = norms.rmsnorm(params["q_norm"], q)
+        k = norms.rmsnorm(params["k_norm"], k)
     use_flash = flash and kops.attn_route(x.device) == "flash"
     dev = x.device
 
@@ -109,7 +115,7 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
         if rp is None:
             start = cache["idx"] if cache is not None else 0
             rp = start + torch.arange(S, device=dev)
-        q = apply_rope(q.reshape(B, S, n_heads, head_dim), rp, rope_theta)
+        q = apply_rope(q, rp, rope_theta)
         k = apply_rope(k, rp, rope_theta)
     qg = q.reshape(B, S, K, G, head_dim)
 
@@ -157,6 +163,15 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
         # idx + S - 1 fall outside the causal band
         o = kops.flash_attention(qg, k, v, idx, 0, causal=True,
                                  window=window)
+    elif chunk is not None and cache is None and S > chunk and \
+            S % chunk == 0:
+        raise NotImplementedError(
+            "the q-blocked chunked attention (_q_block_sdpa) is not ported "
+            "yet (ROADMAP A.4)")
+    elif chunk is not None and k.shape[1] > chunk:
+        raise NotImplementedError(
+            "the key-chunked attention (_chunked_sdpa) is not ported yet "
+            "(ROADMAP A.4)")
     else:
         qpos = (positions if positions is not None
                 else idx + torch.arange(S, device=dev))

@@ -39,7 +39,9 @@ def _randn(gen, *shape, device, dtype=torch.float32):
 
 WRAPPERS = (dyad_mm.dyad_mm_blocks, dyad_mm.dyad_mm_dgrad_two,
             dyad_mm.dyad_mm_wgrad, flash_attn.flash_prefill,
-            flash_attn.flash_prefill_grads, flash_attn.flash_decode)
+            flash_attn.flash_prefill_grads, flash_attn.flash_decode,
+            dyad_mm.dyad_mm_blocks_two, dyad_mm.dyad_mm_dgrad,
+            dyad_mm.dyad_ff_fused)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -67,6 +69,14 @@ def test_cpu_tensors_take_the_plain_versions():
     got = flash_attn.flash_prefill_grads(q, kv, kv, o, lse, o)
     want = flash_attn.flash_prefill_grads_plain(q, kv, kv, o, lse, o)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for got, want in (
+            (dyad_mm.dyad_mm_blocks_two(x3, x3, w, w),
+             dyad_mm.dyad_mm_blocks_two_plain(x3, x3, w, w)),
+            (dyad_mm.dyad_ff_fused(x3, x3, w, w, w, w, act="gelu"),
+             dyad_mm.dyad_ff_fused_plain(x3, x3, w, w, w, w, act="gelu"))):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(dyad_mm.dyad_mm_dgrad(z, z, w, w),
+                       dyad_mm.dyad_mm_dgrad_plain(z, z, w, w))
     assert counts == [w.launches for w in WRAPPERS]
 
 
@@ -165,8 +175,17 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="unsupported device"):
         dyad_mm.dyad_mm_wgrad(z.float(), z.float().cpu(), z.float(),
                               z.float())
-    with pytest.raises(NotImplementedError, match="B.6"):
-        ops.dyad_mm(x.float(), w.float(), w.float(), variant="ot")
+    with pytest.raises(TypeError):
+        dyad_mm.dyad_mm_blocks_two(z, z, w, w)
+    with pytest.raises(TypeError):
+        dyad_mm.dyad_mm_dgrad(z, z, w, w)
+    with pytest.raises(TypeError):
+        dyad_mm.dyad_ff_fused(z, z, w, w, w, w)
+    # bf16 activations take bf16 or fp32 weights, not a mix
+    zb = z.bfloat16()
+    with pytest.raises(TypeError):
+        dyad_mm.dyad_ff_fused(zb, zb, w.float(), w.bfloat16(), w.float(),
+                              w.float())
     q = torch.zeros(1, 1, 1, 9, 16, device=cuda)
     kv = torch.zeros(1, 4, 1, 16, device=cuda)
     with pytest.raises(NotImplementedError):
@@ -298,8 +317,153 @@ def test_train_step_on_the_card_runs_the_kernels(cuda, monkeypatch):
         torch.cuda.synchronize()
         launches = [w.launches for w in WRAPPERS]
         n = cfg.n_layers
-        want = ([2 * n, 2 * n, 2 * n, n, n, 0] if route == "pallas"
-                else [2 * n, 0, 0, n, 0, 0])
+        want = ([2 * n, 2 * n, 2 * n, n, n, 0, 0, 0, 0] if route == "pallas"
+                else [2 * n, 0, 0, n, 0, 0, 0, 0, 0])
+        assert launches == want, (route, launches)
+        assert bool(torch.isfinite(metrics["loss"]))
+    for a, b in zip(tree.leaves(grads["pallas"]), tree.leaves(grads["xla"])):
+        _close(a, b, torch.float32)
+
+
+# -- the ff megakernel slice: dyad_mm_blocks_two, dyad_mm_dgrad, dyad_ff_fused
+
+TWO_SHAPES = [
+    # (M, n, d_in, d_out): Qwen3-0.6B's split-route down projection at the
+    # training rows, OPT-125m's OT/DT up and down, then ragged
+    (4096, 4, 768, 256), (4096, 4, 192, 768), (8, 4, 768, 192),
+    (129, 2, 13, 130), (7, 3, 5, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,n,d_in,d_out", TWO_SHAPES)
+def test_dyad_blocks_two_kernel_matches_plain(cuda, M, n, d_in, d_out,
+                                              dtype):
+    gen = torch.Generator(device=cuda).manual_seed(M + d_out)
+    x = _randn(gen, M, n * d_in, device=cuda, dtype=dtype)
+    w1 = (_randn(gen, n, d_out, d_in, device=cuda) / d_in ** 0.5).to(dtype)
+    w2 = (_randn(gen, n, d_out, d_in, device=cuda) / d_in ** 0.5).to(dtype)
+    x1 = x.reshape(M, n, d_in)
+    # OT: x2 = x1; DT: the stride-n view
+    for xb in (x1, x.reshape(M, d_in, n).transpose(1, 2)):
+        before = dyad_mm.dyad_mm_blocks_two.launches
+        z1, z2 = dyad_mm.dyad_mm_blocks_two(x1, xb, w1, w2)
+        torch.cuda.synchronize()
+        assert dyad_mm.dyad_mm_blocks_two.launches == before + 1
+        p1, p2 = dyad_mm.dyad_mm_blocks_two_plain(x1, xb, w1, w2)
+        assert z1.dtype == dtype and z2.shape == (M, n, d_out)
+        _close(z1, p1, dtype)
+        _close(z2, p2, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,n,d_in,d_out", [
+    # Qwen3-0.6B's down dh at the training rows; OPT-125m's OT dx
+    (4096, 4, 768, 256), (4096, 4, 192, 768), (129, 2, 13, 130),
+    (7, 3, 5, 3)])
+def test_dyad_dgrad_fused_kernel_matches_plain(cuda, M, n, d_in, d_out,
+                                               dtype):
+    gen = torch.Generator(device=cuda).manual_seed(M + d_in)
+    g = _randn(gen, M, n * d_out, device=cuda, dtype=dtype)
+    w1 = (_randn(gen, n, d_out, d_in, device=cuda) / d_out ** 0.5).to(dtype)
+    w2 = (_randn(gen, n, d_out, d_in, device=cuda) / d_out ** 0.5).to(dtype)
+    # the OT cotangent views: block-contiguous z1, the stride-n z2bar
+    z1 = g.reshape(M, n, d_out)
+    z2 = g.reshape(M, d_out, n).transpose(1, 2)
+    before = dyad_mm.dyad_mm_dgrad.launches
+    dx = dyad_mm.dyad_mm_dgrad(z1, z2, w1, w2)
+    torch.cuda.synchronize()
+    assert dyad_mm.dyad_mm_dgrad.launches == before + 1
+    assert dx.dtype == dtype and dx.shape == (M, n, d_in)
+    _close(dx, dyad_mm.dyad_mm_dgrad_plain(z1, z2, w1, w2), dtype)
+
+
+FF_SHAPES = [
+    # (M, n, d_in_b, d_ff_b, d_out_b): Qwen3-0.6B at the training, prefill
+    # and decode rows, then ragged edges and an output wider than a tile
+    (4096, 4, 256, 768, 256), (1024, 4, 256, 768, 256),
+    (8, 4, 256, 768, 256), (3, 2, 129, 130, 17), (45, 3, 33, 200, 300)]
+
+
+def _ff_case(cuda, M, n, d_in, d_ff, d_out, dtype, act, wdtype=None):
+    gen = torch.Generator(device=cuda).manual_seed(M + d_ff)
+    x = _randn(gen, M, n * d_in, device=cuda, dtype=dtype)
+    x1, x2 = x.reshape(M, n, d_in), x.reshape(M, d_in, n).transpose(1, 2)
+    n_up = 4 if act == "swiglu" else 2
+    ups = [(_randn(gen, n, d_ff, d_in, device=cuda) / d_in ** 0.5).to(
+        wdtype or dtype) for _ in range(n_up)]
+    downs = [(_randn(gen, n, d_out, d_ff, device=cuda) / d_ff ** 0.5).to(
+        wdtype or dtype) for _ in range(2)]
+    gs = ups[2:] if act == "swiglu" else [None, None]
+    return (x1, x2, ups[0], ups[1], downs[0], downs[1], *gs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu", "relu", "silu", "swiglu"])
+@pytest.mark.parametrize("M,n,d_in,d_ff,d_out", FF_SHAPES)
+def test_dyad_ff_fused_kernel_matches_plain(cuda, M, n, d_in, d_ff, d_out,
+                                            act, dtype):
+    args = _ff_case(cuda, M, n, d_in, d_ff, d_out, dtype, act)
+    before = dyad_mm.dyad_ff_fused.launches
+    z1, z2 = dyad_mm.dyad_ff_fused(*args, act=act)
+    torch.cuda.synchronize()
+    assert dyad_mm.dyad_ff_fused.launches == before + 1
+    p1, p2 = dyad_mm.dyad_ff_fused_plain(*args, act=act)
+    assert z1.dtype == dtype and z2.shape == (M, n, d_out)
+    _close(z1, p1, dtype)
+    _close(z2, p2, dtype)
+    # the hidden split adds its partials in a fixed order: same bits again
+    again = dyad_mm.dyad_ff_fused(*args, act=act)
+    assert torch.equal(again[0], z1) and torch.equal(again[1], z2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [4096, 8])
+def test_dyad_ff_fused_rounds_fp32_weights_in_kernel(cuda, M):
+    """bf16 activations with the fp32 params: the same bits as casting
+    the weights to bf16 before the call."""
+    args = _ff_case(cuda, M, 4, 256, 768, 256, torch.bfloat16, "swiglu",
+                    wdtype=torch.float32)
+    got = dyad_mm.dyad_ff_fused(*args, act="swiglu")
+    cast = [a if a is None or i < 2 else a.bfloat16()
+            for i, a in enumerate(args)]
+    want = dyad_mm.dyad_ff_fused(*cast, act="swiglu")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_qwen3_train_step_on_the_card_runs_the_kernels(cuda, monkeypatch):
+    """One Qwen3 smoke train step with the megakernel on the card: every
+    kernel of the path launches the expected number of times, and the
+    kernel backward equals the plain one forced with REPRO_KERNEL_BWD=xla
+    on the same params and batch."""
+    from repro_torch import configs, tree
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import AdamW, schedule
+    from repro_torch.train import step as step_lib
+
+    cfg = configs.get("qwen3_0_6b", smoke=True,
+                      linear=configs.linear_cfg("dyad_it_4_kernel_ffused"))
+    opt = AdamW(lr=schedule.constant(1e-3))
+    batch = SyntheticLM(cfg.vocab_size, 64, 4, device="cuda").batch(0)
+    grads = {}
+    for route in ("pallas", "xla"):
+        monkeypatch.setenv("REPRO_KERNEL_BWD", route)
+        state = step_lib.init_train_state(
+            cfg, opt, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+        for w in WRAPPERS:
+            w.launches = 0
+        metrics, grads[route] = step_lib.loss_and_grads(
+            cfg, state["params"], batch)
+        torch.cuda.synchronize()
+        launches = [w.launches for w in WRAPPERS]
+        n = cfg.n_layers
+        # blocks, dgrad_two, wgrad, prefill, prefill_grads, decode,
+        # blocks_two, dgrad, ff_fused
+        want = ([2 * n, 2 * n, 3 * n, n, n, 0, 0, n, n] if route == "pallas"
+                else [0, 0, 0, n, 0, 0, 0, 0, n])
         assert launches == want, (route, launches)
         assert bool(torch.isfinite(metrics["loss"]))
     for a, b in zip(tree.leaves(grads["pallas"]), tree.leaves(grads["xla"])):

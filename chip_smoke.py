@@ -12,7 +12,8 @@ exit and no result line):
 2. the build of every kernel in ``src/repro_torch/kernels/csrc``;
 3. each kernel against its plain PyTorch version on the card, fp32 and
    bf16, at the OPT-125m and Qwen3-0.6B serving and training shapes and
-   the edge cases;
+   the edge cases (the paged decode kernels also over bf16 and int8
+   pools, and with a poisoned scratch page);
 4. the time of each kernel, its plain version and a library yardstick
    (CUDA events around device work queued ahead, L2 flushed before each
    run, median of 25 after warm-up);
@@ -46,7 +47,20 @@ exit and no result line):
    kernel backward against the plain one, the ``split`` ff route against
    ``fused``; and one OPT-125m train step each with the OT and DT
    variants at 2 layers;
-12. the ``kernels`` JSON line, then the result line.
+12. the continuous-batching path: Qwen3-0.6B at full width and depth
+   (bf16 compute, fp32 page pools, random weights from ``--seed``) in
+   ``ContinuousBatchingEngine(n_slots=8, max_len=512, page_size=16,
+   prefill_chunk=128, prefix_cache=True)``, 32 greedy requests (a shared
+   64-token prefix and a 32-224-token tail each, 16-64 new tokens; the
+   ff weights x 4 so that greedy tokens vary) with the launch counters
+   checked exactly, then a profile of a window of its engine steps; the
+   same trace on dense rings (``REPRO_PAGED_KV=off``), with int8 pools,
+   and with a pool cut so that preemption fires, each against the paged
+   run by the bf16 tie rule; at 2 layers in fp32, a cut pool's greedy
+   tokens equal to the unpressured run's exactly and dense rings against
+   the paged run at the fp32 bound; and int8 pools at 2 layers on the
+   card against the CPU port;
+13. the ``kernels`` JSON line, then the result line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -91,11 +105,48 @@ TRAIN_PARITY = {"B": 2, "S": 256, "layers": 2}
 # the CPU side the slow one, so the batch is smaller (bf16 smaller still)
 QWEN_PARITY = {"B": 2, "S": 128, "S_bf16": 64, "layers": 2}
 QWEN_FF = "dyad_it_4_kernel_ffused"
+# the continuous path's traffic: each prompt a shared prefix and a tail of
+# a length drawn from ``tail``, each request up to ``max_new`` tokens
+CONT = {"slots": 8, "max_len": 512, "page_size": 16, "chunk": 128,
+        "requests": 32, "prefix": 64, "tail": (32, 224), "max_new": (16, 64),
+        # the pool cut: 96 pages, where the unpressured run's high water
+        # is about 120
+        "cut_pages": 1 + 96,
+        # engine steps [a, b) of the paged run traced by the profiler
+        "profile_steps": (60, 90),
+        # the ff weights x 4: at the init scale greedy decoding repeats one
+        # token per request, which would leave the token comparisons blind
+        "ff_scale": 4.0}
+# fp32 compute and pools at 2 layers on the card: with the pool cut so
+# that preemption fires, the greedy tokens must equal the unpressured
+# run's exactly (the reference's contract, ``test_resilience.py:299``);
+# dense rings against the paged run by the tie rule at LOGIT_TOL.  Each
+# request reserves 4-8 pages, 4 slots want up to 32, the cut leaves 12
+CONT_EXACT = {"layers": 2, "slots": 4, "max_len": 128, "page_size": 16,
+              "chunk": 32, "requests": 12, "prefix": 32, "tail": (8, 40),
+              "max_new": (16, 48), "cut_pages": 1 + 12, "ff_scale": 4.0}
+# int8 pools on the card against the CPU port, at 2 layers in fp32
+CONT_PARITY = {"layers": 2, "slots": 4, "max_len": 128, "page_size": 16,
+               "chunk": 32, "requests": 4, "prefix": 32, "tail": (8, 40),
+               "max_new": (8, 8), "ff_scale": 4.0}
+# token comparisons across routes: two runs may part only after a step
+# whose top-2 logit margin is below this bound x max(|logits|, 1).  bf16
+# compute rounds each activation at 2^-8 at other places on other routes
+# (the megakernel's hidden split follows the row count, a chunked prefill
+# differs from a one-shot one); an int8 K/V element that two devices' fp32
+# sums put on either side of a rounding boundary moves by one quantum,
+# 1/127 of its row's largest magnitude
+LOGIT_TOL_BF16 = 2e-2
+LOGIT_TOL_INT8 = 1e-2
+
+
+_T0 = time.perf_counter()
 
 
 def log(phase: str, **kw) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
-          flush=True)
+    """One line per result, with the seconds since the script started."""
+    print(f"[{phase}] t={time.perf_counter() - _T0:.1f} "
+          + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
 
 
 def _close(got, want, tol: float):
@@ -220,6 +271,74 @@ def _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases):
                split_route_ms=time_ms(split), bmm_chain_ms=time_ms(chain))
 
 
+def _time_paged(torch, randn, record, time_ms):
+    """Phase 4 for the paged decode kernels: one layer's decode step of
+    the continuous path, Qwen3 at 8 slots with 512 tokens of context each,
+    bf16 queries (the bf16 compute) over fp32 pools (the engine's cache
+    dtype) and over int8 pools.  Yardstick: the plain route's dataflow as
+    library calls, the gather to a dense (B, NB * P, K, h) view (and the
+    dequant for int8) plus F.scaled_dot_product_attention over it, the G
+    query heads of each KV head as its query rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn
+
+    ctx = CONT["max_len"]
+    c = dict(B=CONT["slots"], K=8, G=2, h=128, P=CONT["page_size"],
+             NB=ctx // CONT["page_size"], idx=[ctx - 1] * CONT["slots"],
+             l_real=None, window=None)
+    B, K, G, h, P, NB = (c[k] for k in ("B", "K", "G", "h", "P", "NB"))
+    for name, pool_dt in (("flash_decode_paged", torch.float32),
+                          ("flash_decode_paged_int8", torch.int8)):
+        q, pk, pv, bt, idx, sc = _paged_inputs(torch, randn, c,
+                                               torch.bfloat16, pool_dt)
+        q4 = q[:, 0]
+        pos = torch.arange(NB * P, device=q.device)
+        amask = (pos[None, :] <= idx[:, None])[:, None, None, :]
+
+        def library():
+            b64 = bt.long()
+            kd = pk[b64].reshape(B, NB * P, K, h)
+            vd = pv[b64].reshape(B, NB * P, K, h)
+            if sc:
+                kd = kd.float() * sc["scales_k"][b64].reshape(
+                    B, NB * P, K, 1)
+                vd = vd.float() * sc["scales_v"][b64].reshape(
+                    B, NB * P, K, 1)
+            return F.scaled_dot_product_attention(
+                q4.to(kd.dtype), kd.transpose(1, 2), vd.transpose(1, 2),
+                attn_mask=amask)
+
+        rows = B * ctx                  # live K/V rows, read once
+        nbytes = (2 * rows * K * h * pk.element_size()
+                  + (2 * rows * K * 4 if sc else 0)
+                  + 2 * 2 * B * K * G * h + 4 * (B * NB + B))
+        # scores and P.V, 2h operations each per key and query head; the
+        # inputs' type: fp32 for fp32 pools (promoted), bf16 for int8
+        record(name,
+               time_ms(lambda: flash_attn.flash_decode_paged(
+                   q, pk, pv, bt, idx, **sc)),
+               time_ms(lambda: flash_attn.flash_decode_paged_plain(
+                   q, pk, pv, bt, idx, **sc)),
+               time_ms(library), nbytes, 4.0 * h * G * K * rows,
+               f"B{B}_ctx{ctx}_K{K}_G{G}_h{h}_P{P}",
+               FP32_FLOPS if pool_dt == torch.float32 else BF16_FLOPS,
+               "bfloat16 q, " + str(pool_dt)[6:] + " pools")
+    # the kernel alone over each pool dtype at a short and the full context:
+    # equal times over 4x fewer bytes mean it waits on latency, not bytes
+    for n in (64, ctx):
+        c = dict(c, idx=[n - 1] * B)
+        times = {}
+        for pool_dt in (torch.float32, torch.bfloat16, torch.int8):
+            q, pk, pv, bt, idx, sc = _paged_inputs(torch, randn, c,
+                                                   torch.bfloat16, pool_dt)
+            ms = time_ms(lambda: flash_attn.flash_decode_paged(
+                q, pk, pv, bt, idx, **sc))
+            times[str(pool_dt)[6:]] = f"{ms:.4f}"
+        log("time_pools", kernel="flash_decode_paged", context=n,
+            **{f"ms_{k}": v for k, v in times.items()})
+
+
 def _ff_args(randn, M, n, d_in, d_ff, d_out, act, dtype, wdtype):
     """dyad_ff_fused's arguments: the IT views of one (M, n * d_in)
     activation in ``dtype``, up (and gate) and down weights in ``wdtype``
@@ -233,6 +352,37 @@ def _ff_args(randn, M, n, d_in, d_ff, d_out, act, dtype, wdtype):
              for _ in range(2)]
     gates = ups[2:] if act == "swiglu" else [None, None]
     return (x1, x2, ups[0], ups[1], downs[0], downs[1], *gates)
+
+
+def _paged_inputs(torch, randn, c, q_dtype, pool_dtype):
+    """q (B, 1, K, G, h), pools of 1 + B * NB + 2 pages (two spare: the
+    block tables are a random permutation, not the identity layout), the
+    tables, idx, and for int8 pools the quantized pools and their scales."""
+    from repro_torch import quant
+
+    B, K, G, h, P, NB = (c[k] for k in ("B", "K", "G", "h", "P", "NB"))
+    NP = 1 + B * NB + 2
+    q = randn(B, 1, K, G, h, dtype=q_dtype)
+    pk, pv = randn(NP, P, K, h), randn(NP, P, K, h)
+    perm = torch.randperm(NP - 1, generator=torch.Generator().manual_seed(
+        NP))[:B * NB] + 1
+    bt = perm.reshape(B, NB).to(torch.int32).to(q.device)
+    idx = torch.tensor(c["idx"], dtype=torch.int32, device=q.device)
+    if pool_dtype == torch.int8:
+        (pk, sk), (pv, sv) = quant.quantize_kv_rows(pk), \
+            quant.quantize_kv_rows(pv)
+        return q, pk, pv, bt, idx, {"scales_k": sk, "scales_v": sv}
+    return q, pk.to(pool_dtype), pv.to(pool_dtype), bt, idx, {}
+
+
+def _dead_pages(bt, idx, n_pages: int, P: int):
+    """Pages no slot may read: scratch page 0, every unreferenced page, and
+    each slot's pages past the block of its write index."""
+    live = set(bt.flatten().tolist())
+    dead = [p for p in range(n_pages) if p not in live]
+    for b, i in enumerate(idx.tolist()):
+        dead += bt[b, i // P + 1:].tolist()
+    return dead
 
 
 def main() -> int:
@@ -305,7 +455,22 @@ def main() -> int:
                "flash_decode": 0.0, "dyad_mm_dgrad_two": 0.0,
                "dyad_mm_wgrad": 0.0, "flash_prefill_grads": 0.0,
                "dyad_mm_blocks_two": 0.0, "dyad_mm_dgrad": 0.0,
-               "dyad_ff_fused": 0.0}
+               "dyad_ff_fused": 0.0, "flash_decode_paged": 0.0,
+               "flash_decode_paged_int8": 0.0}
+    # the paged decode: Qwen3's decode step (8 slots, K 8, G 2, h 128, pages
+    # of 16) with contexts of 1 to 512 tokens, and the edge cases of the
+    # reference's tests: P not dividing l_real, a window, idx 0 on one page
+    paged_cases = {
+        "qwen3_decode": dict(B=8, K=8, G=2, h=128, P=16, NB=32,
+                             idx=[0, 15, 16, 100, 255, 300, 480, 511],
+                             l_real=None, window=None),
+        "p_not_dividing": dict(B=3, K=2, G=2, h=64, P=8, NB=5,
+                               idx=[5, 36, 20], l_real=37, window=None),
+        "window": dict(B=1, K=2, G=2, h=64, P=4, NB=3, idx=[11], l_real=12,
+                       window=5),
+        "idx0_one_page": dict(B=2, K=2, G=4, h=64, P=16, NB=1, idx=[0, 7],
+                              l_real=None, window=None),
+    }
     # Qwen3-0.6B's ff: d 1024, d_ff 3072, n 4; blocks d_in 256, d_ff 768,
     # d_out 256
     QD, QFF = 1024, 3072
@@ -509,6 +674,44 @@ def main() -> int:
                   flash_attn.flash_prefill(q, kk, vv)[0],
                   flash_attn.flash_prefill_plain(q, kk, vv)[0], dn)
 
+        # the paged decode kernels: fp32/bf16 queries over fp32, bf16 and
+        # int8 pools (int8: flash_decode_paged_int8); fp32 bounds where no
+        # operand is bf16
+        for pool_dt in (torch.float32, torch.bfloat16, torch.int8):
+            pn = str(pool_dt).split(".")[1]
+            name = ("flash_decode_paged_int8" if pool_dt == torch.int8
+                    else "flash_decode_paged")
+            exact = dt == torch.float32 and pool_dt != torch.bfloat16
+            for label, c in paged_cases.items():
+                q, pk, pv, bt, idx, sc = _paged_inputs(torch, randn, c, dt,
+                                                       pool_dt)
+                kw = dict(l_real=c["l_real"], window=c["window"], **sc)
+                err = check(f"{name}/{label}/pool_{pn}",
+                            flash_attn.flash_decode_paged(q, pk, pv, bt, idx,
+                                                          **kw),
+                            flash_attn.flash_decode_paged_plain(
+                                q, pk, pv, bt, idx, **kw),
+                            "float32" if exact else "bfloat16")
+                if exact:
+                    max_err[name] = max(max_err[name], err)
+            # scratch page 0, the unreferenced pages and the live pages past
+            # each slot's write index poisoned: not one bit moves
+            q, pk, pv, bt, idx, sc = _paged_inputs(
+                torch, randn, paged_cases["qwen3_decode"], dt, pool_dt)
+            clean = flash_attn.flash_decode_paged(q, pk, pv, bt, idx, **sc)
+            dead = _dead_pages(bt, idx, pk.shape[0], pk.shape[1])
+            for t in (pk, pv):
+                t[dead] = 127 if pool_dt == torch.int8 else 1e30
+            for t in sc.values():
+                t[dead] = 1e30
+            got = flash_attn.flash_decode_paged(q, pk, pv, bt, idx, **sc)
+            same = (0 in dead and torch.equal(got, clean)
+                    and bool(torch.isfinite(got.float()).all()))
+            log("check", case=f"{name}/poisoned_scratch/pool_{pn}", dtype=dn,
+                poisoned_pages=len(dead), ok=same)
+            if not same:
+                failures.append(f"{name}/poisoned_scratch/pool_{pn}")
+
         for label, (M, n, d_in, d_out) in two_cases.items():
             x = randn(M, n * d_in, dtype=dt)
             w1 = (randn(n, d_out, d_in) / d_in ** 0.5).to(dt)
@@ -710,6 +913,7 @@ def main() -> int:
            # recomputed scores, dp, dq, dk, dv: five 2h products per pair
            10.0 * h * pairs, f"B{Bt}_S{St}_K{K}_h{h}_causal")
     _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases)
+    _time_paged(torch, randn, record, time_ms)
     del flush, sout
 
     # -- 5. the OPT serving path ---------------------------------------------
@@ -721,7 +925,10 @@ def main() -> int:
                 "flash_prefill_grads": flash_attn.flash_prefill_grads,
                 "dyad_mm_blocks_two": dyad_mm.dyad_mm_blocks_two,
                 "dyad_mm_dgrad": dyad_mm.dyad_mm_dgrad,
-                "dyad_ff_fused": dyad_mm.dyad_ff_fused}
+                "dyad_ff_fused": dyad_mm.dyad_ff_fused,
+                "flash_decode_paged": flash_attn.flash_decode_paged,
+                "flash_decode_paged_int8":
+                    flash_attn.flash_decode_paged_int8}
     run = _Run(torch, dev, args.seed, wrappers)
 
     steps = new - 1
@@ -795,7 +1002,12 @@ def main() -> int:
                                 n_layers=tp["layers"]):
             return 1
 
-    # -- 12. the kernels line ------------------------------------------------
+    # -- 12. the continuous engine on Qwen3-0.6B ----------------------------
+    cont = run.continuous()
+    if cont is None:
+        return 1
+
+    # -- 13. the kernels line ------------------------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
     files = {"dyad_mm_blocks": ("dyad_mm.cu", "dyad_mm.py:286"),
              "flash_prefill": ("flash_prefill.cu", "flash_attn.py:288"),
@@ -805,18 +1017,25 @@ def main() -> int:
              "flash_prefill_grads": ("flash_bwd.cu", "flash_attn.py:531"),
              "dyad_mm_blocks_two": ("dyad_mm_two.cu", "dyad_mm.py:261"),
              "dyad_mm_dgrad": ("dyad_dgrad_fused.cu", "dyad_mm.py:443"),
-             "dyad_ff_fused": ("dyad_ff.cu", "dyad_mm.py:812")}
+             "dyad_ff_fused": ("dyad_ff.cu", "dyad_mm.py:812"),
+             "flash_decode_paged": ("flash_decode_paged.cu",
+                                    "flash_attn.py:920"),
+             "flash_decode_paged_int8": ("flash_decode_paged.cu",
+                                         "flash_attn.py:886")}
     # each kernel's launches come from the path that brought it in: OPT
     # serving for slice 1's, OPT training for slice 2's backward kernels,
     # the Qwen3 train step for the megakernel and dyad_mm_dgrad, the OPT
-    # OT train step for dyad_mm_blocks_two; every path's counts were
-    # checked exactly where it ran
+    # OT train step for dyad_mm_blocks_two, the continuous engine's paged
+    # run (fp32 pools) and its int8 run for the paged decode kernels; every
+    # path's counts were checked exactly where it ran
     ot_train = variant_launches["dyad_ot_4_kernel"]
     main_path = {"dyad_mm_dgrad_two": train_launches,
                  "dyad_mm_wgrad": train_launches,
                  "flash_prefill_grads": train_launches,
                  "dyad_ff_fused": qtrain, "dyad_mm_dgrad": qtrain,
-                 "dyad_mm_blocks_two": ot_train}
+                 "dyad_mm_blocks_two": ot_train,
+                 "flash_decode_paged": cont["paged"],
+                 "flash_decode_paged_int8": cont["int8"]}
     line = []
     for name, (src, replaces) in files.items():
         tm = timing[name]
@@ -832,6 +1051,9 @@ def main() -> int:
             "launches_ot_train_step": ot_train[name],
             "launches_dt_train_step":
                 variant_launches["dyad_dt_4_kernel"][name],
+            "launches_qwen3_continuous": cont["paged"][name],
+            "launches_qwen3_continuous_int8": cont["int8"][name],
+            "launches_qwen3_continuous_dense": cont["dense"][name],
             "max_abs_err": max_err[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": by, "library_ms": tm["library_ms"],
@@ -1135,6 +1357,294 @@ class _Run:
                                 separators=(",", ":")), ok=ok)
         return ok
 
+    # -- 12. the continuous engine -------------------------------------------
+    def continuous(self):
+        """The continuous-batching path at full width and depth: the paged
+        run with exact launch counts and its metrics, a profiled run, then
+        the same trace on dense rings, with int8 pools and with a cut pool,
+        each held against the paged run, and int8 pools at 2 layers on the
+        card against the CPU port.  Returns the launch counts of the paged,
+        int8 and dense runs, None on a failure."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch import configs
+        from repro_torch.models import model
+
+        torch, dev = self.torch, self.dev
+        cfg = configs.get("qwen3_0_6b", linear=configs.linear_cfg(QWEN_FF))
+        params = _scale_ff(model.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(self.seed), dev),
+            CONT["ff_scale"])
+        prompts, max_new = _trace(cfg.vocab_size, self.seed, CONT)
+        kw = dict(n_slots=CONT["slots"], max_len=CONT["max_len"],
+                  page_size=CONT["page_size"], prefill_chunk=CONT["chunk"],
+                  prefix_cache=True)
+        # warm-up: the first calls at each shape pay one-time costs
+        self._serve_trace(cfg, params, prompts[:2], [4, 4], **kw)
+        window = CONT["profile_steps"]
+        paged = self._serve_trace(cfg, params, prompts, max_new,
+                                  window=window, **kw)
+        if not self._check_trace("continuous", cfg, paged, "paged"):
+            return None
+        # the whole run launches some 700,000 kernels, which the profiler
+        # takes minutes to record and sort: it traces a window of engine
+        # steps, device activity only, against the same window's wall time
+        # in the unprofiled run (the engine schedules both runs alike)
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        self._serve_trace(cfg, params, prompts, max_new, window=window,
+                          prof=prof, **kw)
+        _log_profile(prof, paged["window_s"] * 1e3, "continuous_profile")
+        log("continuous_profile", steps=f"{window[0]}-{window[1] - 1}",
+            of_steps=paged["engine_steps"])
+
+        dense = self._serve_trace(cfg, params, prompts, max_new,
+                                  env={"REPRO_PAGED_KV": "off"}, **kw)
+        qcfg = cfg.replace(kv_quant="int8")
+        int8 = self._serve_trace(qcfg, params, prompts, max_new, **kw)
+        cut = self._serve_trace(cfg, params, prompts, max_new,
+                                **dict(kw, prefix_cache=False,
+                                       n_pages=CONT["cut_pages"]))
+        preempted = cut["summary"]["counters"].get("preemptions", 0)
+        ok = (self._check_trace("continuous_dense", cfg, dense, "dense")
+              and self._check_trace("continuous_int8", qcfg, int8, "int8")
+              and self._check_trace("continuous_pool_cut", cfg, cut, "paged")
+              and self._same_tokens("dense_vs_paged", cfg, params, prompts,
+                                    dense["tokens"], paged["tokens"],
+                                    LOGIT_TOL_BF16)
+              and self._same_tokens("pool_cut_vs_paged", cfg, params,
+                                    prompts, cut["tokens"], paged["tokens"],
+                                    LOGIT_TOL_BF16))
+        log("continuous_int8", token_match_rate_vs_fp_pools=
+            f"{_match_rate(int8['tokens'], paged['tokens']):.4f}",
+            note="printed, not gated")
+        log("continuous_pool_cut", n_pages=CONT["cut_pages"],
+            preemptions=preempted, ok=preempted > 0)
+        if not ok or preempted == 0:
+            return None
+        del params
+        torch.cuda.empty_cache()
+        if not (self.continuous_exact() and self.continuous_parity()):
+            return None
+        return {"paged": paged["launches"], "int8": int8["launches"],
+                "dense": dense["launches"]}
+
+    def continuous_exact(self):
+        """Qwen3 at full width and 2 layers in fp32 (compute and pools) on
+        the card: a cut pool forces preemption, and each request's greedy
+        tokens must equal the unpressured run's exactly, as the
+        reference's contract says; the dense rings against the paged run
+        by the tie rule at the fp32 bound."""
+        from repro_torch import configs
+        from repro_torch.models import model
+
+        torch, dev, ce = self.torch, self.dev, CONT_EXACT
+        cfg = configs.get("qwen3_0_6b", linear=configs.linear_cfg(QWEN_FF),
+                          n_layers=ce["layers"], compute_dtype="float32")
+        params = _scale_ff(model.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(self.seed), dev),
+            ce["ff_scale"])
+        prompts, max_new = _trace(cfg.vocab_size, self.seed + 2, ce)
+        kw = dict(n_slots=ce["slots"], max_len=ce["max_len"],
+                  page_size=ce["page_size"], prefill_chunk=ce["chunk"])
+        paged = self._serve_trace(cfg, params, prompts, max_new, **kw)
+        cut = self._serve_trace(cfg, params, prompts, max_new,
+                                **dict(kw, n_pages=ce["cut_pages"]))
+        dense = self._serve_trace(cfg, params, prompts, max_new,
+                                  env={"REPRO_PAGED_KV": "off"}, **kw)
+        if not (self._check_trace("exact_paged", cfg, paged, "paged")
+                and self._check_trace("exact_pool_cut", cfg, cut, "paged")
+                and self._check_trace("exact_dense", cfg, dense, "dense")):
+            return False
+        preempted = cut["summary"]["counters"].get("preemptions", 0)
+        equal = sum(g == w for g, w in zip(cut["tokens"], paged["tokens"]))
+        ok = preempted > 0 and equal == len(prompts)
+        log("tokens", compare="pool_cut_vs_paged_fp32", requests=len(prompts),
+            requests_equal=equal, n_pages=ce["cut_pages"],
+            preemptions=preempted, rule="exact", ok=ok)
+        return ok and self._same_tokens("dense_vs_paged_fp32", cfg, params,
+                                        prompts, dense["tokens"],
+                                        paged["tokens"], LOGIT_TOL)
+
+    def continuous_parity(self):
+        """int8 pools on the card against the CPU port: Qwen3 at full width
+        and 2 layers in fp32, the same params and trace, greedy tokens."""
+        from repro_torch import configs
+        from repro_torch.models import model
+
+        torch, dev, cp = self.torch, self.dev, CONT_PARITY
+        cfg = configs.get("qwen3_0_6b", linear=configs.linear_cfg(QWEN_FF),
+                          n_layers=cp["layers"], compute_dtype="float32",
+                          kv_quant="int8")
+        params = _scale_ff(model.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(self.seed), dev),
+            cp["ff_scale"])
+        params_cpu = _tree_to(params, self.cpu)
+        prompts, max_new = _trace(cfg.vocab_size, self.seed + 1, cp)
+        kw = dict(n_slots=cp["slots"], max_len=cp["max_len"],
+                  page_size=cp["page_size"], prefill_chunk=cp["chunk"],
+                  prefix_cache=True)
+        card = self._serve_trace(cfg, params, prompts, max_new, **kw)
+        host = self._serve_trace(cfg, params_cpu, prompts, max_new,
+                                 device=self.cpu, **kw)
+        return (self._check_trace("continuous_int8_parity", cfg, card,
+                                  "int8")
+                and self._same_tokens("int8_card_vs_cpu", cfg, params_cpu,
+                                      prompts, card["tokens"],
+                                      host["tokens"], LOGIT_TOL_INT8,
+                                      device=self.cpu))
+
+    def _serve_trace(self, cfg, params, prompts, max_new, env=None,
+                     device=None, window=None, prof=None, **kw):
+        """One run of the trace through ``ContinuousBatchingEngine``, with
+        the launch counters set to 0 just before the first submit and read
+        after the drain.  Prefill time is the host clock around each
+        prefill call, synchronised; decode time the engine's
+        ``decode_step_s`` samples (each ends in the step's token copy).
+        ``window`` (a, b): the wall time of engine steps a to b - 1,
+        synchronised at both ends, with ``prof`` running over them."""
+        from repro_torch.serve.engine import ContinuousBatchingEngine
+
+        torch = self.torch
+        device = device or self.dev
+        saved = {k: os.environ.get(k) for k in ("REPRO_KERNEL_ATTN",
+                                                "REPRO_PAGED_KV")}
+        os.environ.update(env or {})
+        try:
+            eng = ContinuousBatchingEngine(cfg, params, device=device, **kw)
+            name = "_chunk" if eng.paged else "_prefill_one"
+            inner = getattr(eng, name)
+            prefill = {"s": 0.0, "one": 0, "many": 0, "tokens": 0}
+
+            def timed(*a):
+                t = time.perf_counter()
+                out = inner(*a)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                prefill["s"] += time.perf_counter() - t
+                seq = a[1] if eng.paged else a[0]
+                prefill["one" if len(seq) == 1 else "many"] += 1
+                prefill["tokens"] += len(seq)
+                return out
+
+            setattr(eng, name, timed)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            self.zero_counts()
+            t0 = time.perf_counter()
+            uids = [eng.submit(p, m) for p, m in zip(prompts, max_new)]
+            n_steps, bounds = 0, {}
+            while eng.slots.active or eng.queue:
+                if window and n_steps in window:
+                    if device.type == "cuda":
+                        torch.cuda.synchronize()
+                    bounds[n_steps] = time.perf_counter()
+                    if prof is not None:
+                        (prof.start if n_steps == window[0]
+                         else prof.stop)()
+                eng.step()
+                n_steps += 1
+            res = eng.run()                   # drained: collects the tokens
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = self.counts()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        summary = eng.metrics_summary()
+        steps = eng.metrics.histogram("decode_step_s")
+        if window and len(bounds) != 2:
+            raise RuntimeError(f"the run took {n_steps} engine steps, fewer "
+                               f"than the profiled window {window}")
+        return {"tokens": [res[u] for u in uids], "launches": launches,
+                "wall_s": wall, "prefill": prefill, "steps": steps.count,
+                "engine_steps": n_steps,
+                "window_s": (bounds[window[1]] - bounds[window[0]]
+                             if window else None),
+                "decode_s": steps.total, "summary": summary,
+                "paged": eng.paged, "layers": cfg.n_layers,
+                "stats": getattr(eng, "stats", {}), "device": device,
+                "free_pages_ok": (not eng.paged or eng.pages.free_pages
+                                  == eng.pages.n_pages - 1)}
+
+    def _check_trace(self, phase, cfg, r, route):
+        """Log a trace's metrics and hold its launch counts: per layer one
+        decode kernel per step (and per 1-token chunk), one flash_prefill
+        per longer prefill call, one megakernel per prefill call and
+        step; every request drained with finite tokens."""
+        n, pf = r["layers"], r["prefill"]
+        counted = r["device"].type == "cuda"
+        want = dict.fromkeys(self.wrappers, 0)
+        if counted:
+            decode = {"paged": "flash_decode_paged", "dense": "flash_decode",
+                      "int8": "flash_decode_paged_int8"}[route]
+            want.update({decode: n * (r["steps"] + pf["one"]),
+                         "flash_prefill": n * pf["many"],
+                         "dyad_ff_fused": n * (r["steps"] + pf["one"]
+                                               + pf["many"])})
+        toks = r["tokens"]
+        n_tok = sum(len(t) for t in toks)
+        vocab = cfg.vocab_size
+        tokens_ok = (all(t and all(0 <= x < vocab for x in t) for t in toks)
+                     and r["free_pages_ok"])
+        c, g, h = (r["summary"][k] for k in ("counters", "gauges",
+                                              "histograms"))
+        decode_tok = n_tok - len(toks)         # first tokens come from prefill
+        log(phase, arch=cfg.name, layers=n, dtype=cfg.compute_dtype,
+            kv=route, device=r["device"].type, requests=len(toks),
+            tokens=n_tok, distinct_tokens=len({x for t in toks for x in t}),
+            wall_s=f"{r['wall_s']:.3f}",
+            tok_s=f"{n_tok / r['wall_s']:.1f}",
+            decode_steps=r["steps"], decode_s=f"{r['decode_s']:.3f}",
+            decode_tok_s=f"{decode_tok / max(r['decode_s'], 1e-9):.1f}",
+            prefill_calls=pf["one"] + pf["many"],
+            prefill_s=f"{pf['s']:.3f}",
+            prefill_tokens=pf["tokens"],
+            prefill_tok_s=f"{pf['tokens'] / max(pf['s'], 1e-9):.1f}",
+            ttft_ms_p50=f"{1e3 * h['ttft_s']['p50']:.2f}",
+            ttft_ms_p99=f"{1e3 * h['ttft_s']['p99']:.2f}",
+            decode_step_ms_p50=f"{1e3 * h['decode_step_s']['p50']:.2f}",
+            prefix_hits=c.get("prefix_hits", 0),
+            page_pool_used_max=g.get("page_pool_used", {}).get("max", 0),
+            preemptions=c.get("preemptions", 0),
+            launches=json.dumps({k: v for k, v in r["launches"].items()
+                                 if v}, separators=(",", ":")),
+            tokens_ok=tokens_ok)
+        if counted and r["launches"] != want:
+            log(phase, failed=f"launches {r['launches']} want {want}")
+            return False
+        if not tokens_ok:
+            log(phase, failed="tokens out of range, empty or pages leaked")
+        return tokens_ok
+
+    def _same_tokens(self, label, cfg, params, prompts, got, want, tol,
+                     device=None):
+        """``got`` against ``want`` request by request: equal, or parting
+        at a step whose top-2 logit margin, teacher-forced on ``want``'s
+        tokens, is below ``tol`` x max(|logits|, 1)."""
+        device = device or self.dev
+        equal, ties, ok = 0, [], True
+        for p, g, w in zip(prompts, got, want):
+            if g == w:
+                equal += 1
+                continue
+            step = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                        None)
+            if step is None:                  # one stream is cut short
+                ok = False
+                continue
+            margin, scale = _paged_margin(self.torch, cfg, params, p,
+                                          w[:step], device)
+            ties.append(f"{step}:{margin:.3e}/{tol * scale:.3e}")
+            ok = ok and margin < tol * scale
+        log("tokens", compare=label, requests=len(want),
+            requests_equal=equal, first_divergence_margins=",".join(ties)
+            or "none", ok=ok)
+        return ok
+
 
 def _rel_err(got, want):
     """Largest |got - want| of any leaf over max(|want leaf|, 1e-3)."""
@@ -1187,6 +1697,63 @@ def _tree_to(tree, device):
     if isinstance(tree, list):
         return [_tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def _scale_ff(params, scale: float):
+    """``params`` with every ff weight (w1, w2) multiplied by ``scale``."""
+    layers = [dict(lp, mlp={name: {k: v * scale if k in ("w1", "w2") else v
+                                   for k, v in proj.items()}
+                            for name, proj in lp["mlp"].items()})
+              for lp in params["layers"]]
+    return dict(params, layers=layers)
+
+
+def _trace(vocab: int, seed: int, spec):
+    """The continuous path's requests, drawn from ``seed``: one shared
+    prefix, then per request a tail length and a token budget."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, vocab, spec["prefix"])
+    lo, hi = spec["tail"]
+    prompts = [np.concatenate([head, rng.integers(0, vocab, n)])
+               .astype(np.int32)
+               for n in rng.integers(lo, hi + 1, spec["requests"])]
+    lo, hi = spec["max_new"]
+    return prompts, [int(m) for m in rng.integers(lo, hi + 1,
+                                                  spec["requests"])]
+
+
+def _match_rate(got, want) -> float:
+    """Share of ``want``'s tokens that ``got`` matches position by
+    position."""
+    same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    return same / max(sum(len(w) for w in want), 1)
+
+
+def _paged_margin(torch, cfg, params, prompt, toks, device):
+    """(top-2 margin, max(|logits|, 1)) of the logits after ``prompt +
+    toks``, teacher-forced through one paged prefill (int8 pools when the
+    config says so): the logits that chose the next token."""
+    import numpy as np
+
+    from repro_torch.models import model
+
+    seq = np.concatenate([np.asarray(prompt, np.int64),
+                          np.asarray(toks, np.int64)])
+    P = 16
+    NB = -(-len(seq) // P)
+    with torch.no_grad():
+        cache = model.init_cache(cfg, 1, NB * P, torch.float32, device,
+                                 page_size=P, n_pages=1 + NB)
+        cache[0]["kv"]["block_table"].copy_(torch.arange(
+            1, 1 + NB, dtype=torch.int32)[None])
+        logits, _ = model.prefill(cfg, params, cache, torch.as_tensor(
+            seq, device=device)[None])
+    last = logits[0, -1].float()
+    top2 = last.topk(2).values
+    return (float(top2[0] - top2[1]),
+            max(float(last.abs().max()), 1.0))
 
 
 def _top2_margin(model, cfg, params, prompts, toks, step: int,

@@ -53,6 +53,9 @@ ENTRIES = {
                          [_P] * 5 + [_I] * 4 + [_LL] * 9 + [_I, _P]),
     "dyad_ff": ("repro_dyad_ff_fused",
                 [_P] * 11 + [_I] * 7 + [_LL] * 12 + [_I] * 3 + [_P]),
+    "flash_decode_paged": ("repro_flash_decode_paged",
+                           [_P] * 8 + [_I] * 7 + [_LL] * 3
+                           + [_I, _F, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

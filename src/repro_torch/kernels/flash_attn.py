@@ -14,8 +14,15 @@
   ``repro.kernels.flash_attn.flash_decode``: one query token against the
   ``(B, L, K, h)`` ring cache, slot ``j`` holding position
   ``idx - ((idx - j) mod L)``.
+* :func:`flash_decode_paged` (``csrc/flash_decode_paged.cu``) ports
+  ``repro.kernels.flash_attn.flash_decode_paged``: one query token against
+  ``(NP, P, K, h)`` page pools, slot b's position ``j`` in page
+  ``block_table[b, j // P]`` at row ``j % P``.  Its int8-pool variant,
+  :func:`flash_decode_paged_int8` (the same source, ported from
+  ``_decode_paged_kernel_q``), reads int8 pools with per-row fp32 scales;
+  ``flash_decode_paged`` routes there when it is given the scales.
 
-Both keep the TPU kernels' masking contract: masked scores are -1e30,
+All keep the TPU kernels' masking contract: masked scores are -1e30,
 masked probabilities are zeroed, the denominator is ``max(l, 1e-30)``, so
 a fully-masked row gives 0.  Each wrapper takes its plain version only for
 a CPU tensor; a CUDA tensor launches the kernel or raises.
@@ -303,3 +310,172 @@ def flash_decode(q, k, v, idx, *, window: Optional[int] = None):
 
 
 flash_decode.launches = 0
+
+
+def _check_paged(q, pages_k, pages_v, block_table, idx, scales_k, scales_v):
+    if (scales_k is None) != (scales_v is None):
+        raise ValueError("scales_k and scales_v must be passed together")
+    B = q.shape[0]
+    NP, P, K, h = pages_k.shape
+    if (q.shape[1:] != (K, q.shape[2], h) or pages_v.shape != pages_k.shape
+            or block_table.dim() != 2 or block_table.shape[0] != B):
+        raise ValueError(f"flash_decode_paged: q {tuple(q.shape)}, pools "
+                         f"{tuple(pages_k.shape)} / {tuple(pages_v.shape)}, "
+                         f"block table {tuple(block_table.shape)}")
+    if scales_k is not None and (scales_k.shape != (NP, P, K)
+                                 or scales_v.shape != (NP, P, K)):
+        raise ValueError(f"flash_decode_paged: scales {tuple(scales_k.shape)}"
+                         f" / {tuple(scales_v.shape)}, want {(NP, P, K)}")
+
+
+def flash_decode_paged_plain(q, pages_k, pages_v, block_table, idx, *,
+                             l_real: Optional[int] = None,
+                             window: Optional[int] = None, scales_k=None,
+                             scales_v=None):
+    """The paged decode kernel's function in plain torch: gather each
+    slot's pages into a dense ``(B, NB * P, K, h)`` view, then the masked
+    softmax with fp32 scores.  int8 pools: the gathered payload and scales,
+    each score column scaled by its key's K scale and each probability by
+    its V scale, as the kernel does."""
+    squeeze = q.dim() == 5
+    if squeeze:
+        q = q[:, 0]
+    _check_paged(q, pages_k, pages_v, block_table, idx, scales_k, scales_v)
+    B, K, G, h = q.shape
+    P, NB = pages_k.shape[1], block_table.shape[1]
+    cap = NB * P
+    dev = q.device
+    bt = block_table.to(torch.int64)
+    kd = pages_k[bt].reshape(B, cap, K, h)
+    vd = pages_v[bt].reshape(B, cap, K, h)
+    iv = _offsets(idx, B, dev)[:, None]
+    j = torch.arange(cap, device=dev)[None, :]
+    mask = (j <= iv) & (j < (cap if l_real is None else l_real))
+    if window is not None:
+        mask &= iv - j < window
+    mask = mask[:, None, None, :]                           # (B,1,1,cap)
+    scale = 1.0 / math.sqrt(h)
+    if scales_k is None:
+        ct = torch.promote_types(q.dtype, pages_k.dtype)
+        f = _acc(ct)
+        s = torch.einsum("bkgh,btkh->bkgt", q.to(ct).to(f),
+                         kd.to(ct).to(f)) * scale
+        o, _, l = _softmax_av(s, mask, pages_v.dtype, vd, "bkgt,btkh->bkgh")
+    else:
+        f = _acc(q.dtype)
+        sk = scales_k[bt].reshape(B, cap, K).permute(0, 2, 1)[:, :, None]
+        sv = scales_v[bt].reshape(B, cap, K).permute(0, 2, 1)[:, :, None]
+        s = torch.einsum("bkgh,btkh->bkgt", q.to(f), kd.to(f)) * sk * scale
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        e = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)),
+                        torch.zeros_like(s))
+        l = e.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bkgt,btkh->bkgh", e * sv.to(f), vd.to(f))
+    out = (o / l.clamp_min(_TINY)).to(q.dtype)
+    return out[:, None] if squeeze else out
+
+
+_POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_PAGED_HEAD_DIMS = (64, 128)
+
+
+def flash_decode_paged(q, pages_k, pages_v, block_table, idx, *,
+                       l_real: Optional[int] = None,
+                       window: Optional[int] = None, scales_k=None,
+                       scales_v=None):
+    """One-token decode over a paged KV cache.  q: (B, 1, K, G, h) or
+    (B, K, G, h); pages_k, pages_v: the (NP, P, K, h) post-write pools;
+    ``block_table`` (B, NB) int page ids (unallocated entries must name a
+    valid page: the engine's scratch page 0); ``idx`` (B,) write index of
+    the current token; ``l_real`` bounds the logical length when
+    ``NB * P`` overshoots it.  ``scales_k``/``scales_v`` (together) mark
+    int8 pools with (NP, P, K) fp32 per-row scales and route to
+    :func:`flash_decode_paged_int8`.  Returns o in q's rank and dtype.  The
+    pools are read in place, never cast."""
+    if q.device.type == "cpu":
+        return flash_decode_paged_plain(
+            q, pages_k, pages_v, block_table, idx, l_real=l_real,
+            window=window, scales_k=scales_k, scales_v=scales_v)
+    if scales_k is not None or scales_v is not None:
+        return flash_decode_paged_int8(
+            q, pages_k, pages_v, scales_k, scales_v, block_table, idx,
+            l_real=l_real, window=window)
+    out = _paged_launch(q, pages_k, pages_v, None, None, block_table, idx,
+                        l_real, window)
+    flash_decode_paged.launches += 1
+    return out
+
+
+flash_decode_paged.launches = 0
+
+
+def flash_decode_paged_int8(q, pages_k, pages_v, scales_k, scales_v,
+                            block_table, idx, *,
+                            l_real: Optional[int] = None,
+                            window: Optional[int] = None):
+    """:func:`flash_decode_paged` over int8 pools with their (NP, P, K)
+    fp32 per-row scales: scores scaled per key column, probabilities per
+    value row, the payload converted in registers."""
+    if q.device.type == "cpu":
+        return flash_decode_paged_plain(
+            q, pages_k, pages_v, block_table, idx, l_real=l_real,
+            window=window, scales_k=scales_k, scales_v=scales_v)
+    out = _paged_launch(q, pages_k, pages_v, scales_k, scales_v,
+                        block_table, idx, l_real, window)
+    flash_decode_paged_int8.launches += 1
+    return out
+
+
+flash_decode_paged_int8.launches = 0
+
+
+def _paged_launch(q, pages_k, pages_v, scales_k, scales_v, block_table, idx,
+                  l_real, window):
+    """Check the operands and launch ``csrc/flash_decode_paged.cu``."""
+    squeeze = q.dim() == 5
+    q4 = q[:, 0] if squeeze else q
+    _check_paged(q4, pages_k, pages_v, block_table, idx, scales_k, scales_v)
+    B, K, G, h = q4.shape
+    P, NB = pages_k.shape[1], block_table.shape[1]
+    quant = scales_k is not None
+    for t in (pages_k, pages_v, block_table, scales_k, scales_v):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"flash_decode_paged: tensors on {t.device} "
+                             f"and {q.device}")
+    if q4.dtype not in _DTYPES or pages_k.dtype not in _POOL_DTYPES \
+            or pages_v.dtype != pages_k.dtype \
+            or (pages_k.dtype == torch.int8) != quant:
+        raise TypeError(f"flash_decode_paged: q {q4.dtype}, pools "
+                        f"{pages_k.dtype}/{pages_v.dtype}, scales "
+                        f"{'given' if quant else 'none'}: want fp32 or bf16 q "
+                        "over fp32/bf16 pools, or int8 pools with scales")
+    if h not in _PAGED_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_decode_paged: head dim {h} not in {_PAGED_HEAD_DIMS}")
+    if G > _MAX_GQA_DECODE:
+        raise NotImplementedError(
+            f"flash_decode_paged: {G} query heads per KV head > "
+            f"{_MAX_GQA_DECODE}")
+    pools = [pages_k, pages_v] + ([scales_k, scales_v] if quant else [])
+    if quant and (scales_k.dtype != torch.float32
+                  or scales_v.dtype != torch.float32):
+        raise TypeError("flash_decode_paged: scales must be fp32")
+    if (q4.stride(-1) != 1 or not all(t.is_contiguous() for t in pools)
+            or any(t.data_ptr() % 16 for t in pools)):
+        raise ValueError("flash_decode_paged: the pools must be contiguous "
+                         "and 16-byte aligned, q's head dim contiguous")
+    bt = block_table.to(torch.int32).contiguous()
+    iv = _int_arg(idx, B, q.device)[0]
+    if iv is None:
+        iv = torch.full((B,), int(idx), dtype=torch.int32, device=q.device)
+    out = torch.empty(B, K, G, h, dtype=q4.dtype, device=q.device)
+    err = build.entry("flash_decode_paged")(
+        build.ptr(q4), build.ptr(pages_k), build.ptr(pages_v),
+        build.ptr(scales_k), build.ptr(scales_v), build.ptr(bt),
+        build.ptr(iv), build.ptr(out), B, K, G, h, P, NB,
+        NB * P if l_real is None else int(l_real), *q4.stride()[:3],
+        -1 if window is None else int(window), 1.0 / math.sqrt(h),
+        _DTYPES[q4.dtype], _POOL_DTYPES[pages_k.dtype],
+        build.stream(q.device))
+    build.check(err, "flash_decode_paged")
+    return out[:, None] if squeeze else out

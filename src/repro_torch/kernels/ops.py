@@ -31,12 +31,15 @@
   CPU, autograd of ``ref.sdpa_ref`` for ``use_kernel_bwd=False``.
 * :func:`attn_route` — ``flash`` (the CUDA flash kernels) on CUDA, ``xla``
   (the plain torch attention of ``layers.attention``) on the CPU.
-* :func:`flash_decode` — the decode kernel (inference only).
+* :func:`flash_decode` — the ring-cache decode kernel (inference only).
+* :func:`flash_decode_paged` — the paged-cache decode kernel, fp and int8
+  pools (inference only).
 
 Environment switches, with the reference's names and values:
 
 * ``REPRO_KERNEL_ATTN=flash|xla`` forces the attention route;
-* ``REPRO_KERNEL_FF=fused|split`` forces the ff forward route;
+* ``REPRO_KERNEL_FF=fused|split`` forces the ff forward route
+  (:func:`force_ff_route` overrides it within one context);
 * ``REPRO_KERNEL_BWD=pallas|xla`` forces the backward route of both ops.
   On the card ``pallas`` means the hand-written CUDA backward kernels (the
   default there) and ``xla`` the plain torch lowering; forcing ``pallas``
@@ -45,7 +48,10 @@ Environment switches, with the reference's names and values:
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -171,14 +177,32 @@ def dyad_mm(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
 # -- the ff megakernel op --------------------------------------------------------
 
 
+_FF_FORCED = contextvars.ContextVar("ff_route_forced", default=None)
+
+
 def ff_route() -> str:
     """Which forward route ``dyad_ff`` takes: ``fused`` (the default, the
     one-kernel megakernel) or ``split`` (up and gate through
     ``dyad_mm_blocks``, the activation in torch, down through
     ``dyad_mm_blocks_two``: the hidden goes through device memory).
-    ``REPRO_KERNEL_FF=fused|split`` forces either."""
-    forced = os.environ.get("REPRO_KERNEL_FF", "").lower()
+    ``REPRO_KERNEL_FF=fused|split`` forces either; :func:`force_ff_route`
+    overrides both for the calls inside it."""
+    forced = _FF_FORCED.get() or os.environ.get("REPRO_KERNEL_FF",
+                                                "").lower()
     return forced if forced in ("fused", "split") else "fused"
+
+
+@contextlib.contextmanager
+def force_ff_route(route: Optional[str]):
+    """Run the block's ``dyad_ff`` calls on ``route`` (``fused`` or
+    ``split``; None changes nothing).  The override holds for the calling
+    context only, so a continuous engine's ff demotion reaches no other
+    engine or trainer in the process."""
+    token = _FF_FORCED.set(route or _FF_FORCED.get())
+    try:
+        yield
+    finally:
+        _FF_FORCED.reset(token)
 
 
 def _ff_weights(ws, act: str):
@@ -452,3 +476,12 @@ def flash_attention(q, k, v, q_off=0, k_off=0, *, causal: bool = True,
 def flash_decode(q, k, v, idx, *, window=None):
     """One-token ring-cache decode attention (inference only)."""
     return flash_attn.flash_decode(q, k, v, idx, window=window)
+
+
+def flash_decode_paged(q, pages_k, pages_v, block_table, idx, *,
+                       l_real=None, window=None, scales_k=None,
+                       scales_v=None):
+    """One-token paged-cache decode attention (inference only)."""
+    return flash_attn.flash_decode_paged(
+        q, pages_k, pages_v, block_table, idx, l_real=l_real, window=window,
+        scales_k=scales_k, scales_v=scales_v)

@@ -1,22 +1,35 @@
-"""Multi-head / grouped-query attention with a dense ring KV cache (port of
-``repro.layers.attention`` for the ``lm`` serving path).
+"""Multi-head / grouped-query attention with KV caches (port of
+``repro.layers.attention`` for the ``lm`` serving paths).
 
 Ported: RoPE, qk-norm (RMSNorm of each query and key head before RoPE),
 the no-cache forward (the training path; on the flash route
-differentiable through the flash backward kernel) and the dense-ring cache
-with a scalar write index, in both the S == 1 (decode) and the S < L
-(prefill) branches, each on the flash route (``kernels.ops``) and the
-plain route (:func:`_naive_sdpa`).  ``chunk`` is consulted where the
-reference consults it, on the plain route only; the chunked einsum paths
-it selects there (``S > chunk``, or keys beyond ``chunk``), cross-
-attention, per-slot (vector) indices, paged pools and the S >= L
-windowed-ring prefill raise ``NotImplementedError``.
+differentiable through the flash backward kernel), and the reference's
+three cache branches, each on the flash route (``kernels.ops``) and the
+plain route (:func:`_naive_sdpa`):
 
-The cache is a dict ``{"k", "v": (B, L, K, h) tensors, "idx": int}``; the
-write index lives on the host (the batch engine knows every position).
-Unlike the reference's functional update, the new K/V rows are written into
-the cache tensors in place: the returned cache shares them, which saves a
-copy of every layer's cache per step.
+* a dense ring with a host-int write index (the batch ``Engine``);
+* per-slot dense rings, ``idx`` a ``(B,)`` tensor (the continuous
+  engine's dense mode): decode writes row b at ``idx[b] % L``, prefill at
+  ``idx[b]``, and key positions become ``(B, L)``;
+* the paged pool (the continuous engine's paged mode): slot b's position
+  j lives in page ``block_table[b, j // P]`` at row ``j % P``; int8 pools
+  quantize each new row with ``quant.quantize_kv_rows``.  S == 1 on the
+  flash route runs ``flash_decode_paged`` over the pools; every other
+  case attends a per-slot dense view gathered over ``NB * P`` rows
+  (dequantized for int8).
+
+``chunk`` is consulted where the reference consults it, on the plain route
+only; the chunked einsum paths it selects there (``S > chunk``, or keys
+beyond ``chunk``), cross-attention and the S >= L windowed-ring prefill
+raise ``NotImplementedError``.
+
+A cache is a dict: ``{"k", "v": (B, L, K, h), "idx"}`` (dense) or
+``{"pages_k", "pages_v": (NP, P, K, h), ["scales_k", "scales_v":
+(NP, P, K)], "block_table": (B, NB), "idx": (B,)}`` (paged).  Unlike the
+reference's functional update, the new K/V rows are written into the
+cache tensors in place: the returned cache shares them, which saves a
+copy of every layer's cache per step.  Writing the same rows again (a
+retried step) leaves the same state.
 """
 from __future__ import annotations
 
@@ -25,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import quant as quant_lib
 from repro_torch.core import factory
 from repro_torch.kernels import ops as kops
 from repro_torch.layers import norms
@@ -87,8 +101,13 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
               rope_theta: Optional[float] = None, positions=None,
               causal: bool = True, window: Optional[int] = None,
               chunk: Optional[int] = None, flash: bool = False,
-              kv_input=None, cache=None):
-    """Returns (out, new_cache)."""
+              kv_input=None, cache=None, shared: Optional[dict] = None):
+    """Returns (out, new_cache).  ``positions``: ``(S,)`` or per-slot
+    ``(B, S)`` absolute positions of the queries; derived from the cache's
+    write index when None.  ``shared``: a dict the model hands every layer
+    of one step, in which the first layer leaves the cache's index tensors
+    (write rows, gather indices, key positions) for the others: every
+    layer reads the same write index and block table."""
     if kv_input is not None:
         raise NotImplementedError(
             "cross-attention is not ported yet (ROADMAP A.13)")
@@ -106,61 +125,63 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
     use_flash = flash and kops.attn_route(x.device) == "flash"
     dev = x.device
 
-    if positions is not None and positions.dim() != 1:
-        raise NotImplementedError(
-            "per-batch positions are not ported yet (ROADMAP A.9)")
+    idx = cache["idx"] if cache is not None else 0
+    if positions is None and cache is not None:
+        positions = offset_positions(idx, S, dev)
     if rope_theta is not None:
         # roped before the cache write, so cached keys never re-rotate
-        rp = positions
-        if rp is None:
-            start = cache["idx"] if cache is not None else 0
-            rp = start + torch.arange(S, device=dev)
+        rp = (positions if positions is not None
+              else torch.arange(S, device=dev))
         q = apply_rope(q, rp, rope_theta)
         k = apply_rope(k, rp, rope_theta)
     qg = q.reshape(B, S, K, G, head_dim)
 
-    new_cache, idx = None, 0
-    if cache is not None:
-        if "block_table" in cache:
-            raise NotImplementedError(
-                "the paged KV cache is not ported yet (ROADMAP A.9)")
-        idx = cache["idx"]
-        if not isinstance(idx, int):
-            raise NotImplementedError(
-                "per-slot cache indices are not ported yet (ROADMAP A.9)")
-        ck, cv = cache["k"], cache["v"]
-        L = ck.shape[1]
-        if S == 1:
-            # ring-buffer write: slot = idx % L (plain write while idx < L)
-            ck[:, idx % L] = k[:, 0].to(ck.dtype)
-            cv[:, idx % L] = v[:, 0].to(cv.dtype)
-        elif S < L:
-            if idx + S > L:
-                raise ValueError(f"prefill of {S} tokens at {idx} overflows "
-                                 f"the {L}-slot cache")
-            ck[:, idx:idx + S] = k.to(ck.dtype)
-            cv[:, idx:idx + S] = v.to(cv.dtype)
-        else:
-            raise NotImplementedError(
-                "the S >= L windowed-ring prefill is not ported yet "
-                "(ROADMAP A.8)")
-        new_cache = {"k": ck, "v": cv, "idx": idx + S}
-        k, v = ck, cv
+    def once(name, make):
+        """``make()``, computed by the first layer of the step only (a
+        cache whose layers hold their own index tensors builds its own)."""
+        if shared is None:
+            return make()
+        key = (name, idx if isinstance(idx, int) else id(idx))
+        if key not in shared:
+            shared[key] = make()
+        return shared[key]
 
-    if use_flash and cache is not None and S == 1:
+    new_cache = None
+    paged = cache is not None and "block_table" in cache
+    if paged:
+        new_cache, k, v = _paged_write(cache, k, v, S, once,
+                                       gather=not (use_flash and S == 1))
+    elif cache is not None:
+        new_cache, k, v = _dense_write(cache, k, v, S, once)
+
+    if use_flash and paged and S == 1:
+        # paged decode: K/V rows are gathered through the block table
+        # inside the kernel; int8 pools ship their scale pools alongside
+        o = kops.flash_decode_paged(
+            qg, k, v, cache["block_table"], idx, window=window,
+            scales_k=new_cache.get("scales_k"),
+            scales_v=new_cache.get("scales_v"))
+    elif use_flash and cache is not None and S == 1:
         # ring-cache decode: slot positions derive from idx in-kernel
         o = kops.flash_decode(qg, k, v, idx, window=window)
-    elif use_flash and cache is None:
+    elif use_flash and cache is None and (positions is None
+                                          or positions.dim() == 1):
         # plain forward: contiguous positions q_off + arange(S), keys at
         # arange(T)
         q_off = 0 if positions is None else int(positions[0])
         o = kops.flash_attention(qg, k, v, q_off, 0, causal=causal,
                                  window=window,
                                  use_kernel_bwd=lin_cfg.use_kernel_bwd)
-    elif use_flash and causal:
-        # S < L cache prefill over the post-write cache: slot j holds
-        # position j, queries sit at idx + arange(S); tail slots past
-        # idx + S - 1 fall outside the causal band
+    elif use_flash and cache is None:
+        raise NotImplementedError(
+            "per-batch (B, S) positions without a cache: the reference "
+            "takes its einsum path here, which the flash route does not "
+            "(ROADMAP A.9)")
+    elif use_flash and cache is not None and causal:
+        # S < L cache prefill over the post-write cache (or the gathered
+        # paged view): slot j holds position j, queries sit at
+        # idx + arange(S); slots past idx + S - 1 fall outside the causal
+        # band
         o = kops.flash_attention(qg, k, v, idx, 0, causal=True,
                                  window=window)
     elif chunk is not None and cache is None and S > chunk and \
@@ -174,28 +195,172 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
             "(ROADMAP A.4)")
     else:
         qpos = (positions if positions is not None
-                else idx + torch.arange(S, device=dev))
-        o = _naive_sdpa(qg, k, v, qpos, _key_positions(cache, idx, S, k),
-                        causal, window)
+                else torch.arange(S, device=dev))
+        T = k.shape[1]
+        if cache is None:
+            kpos = torch.arange(T, device=dev)
+        else:
+            kpos = once("kpos", lambda: _key_positions(idx, S, T, dev,
+                                                       ring=not paged))
+        o = _naive_sdpa(qg, k, v, qpos, kpos, causal, window)
     o = o.reshape(B, S, n_heads * head_dim)
     return factory.apply(params["wo"], o, lin_cfg, site="attn"), new_cache
 
 
-def _key_positions(cache, idx: int, S: int, k):
-    """Absolute position held by each key slot (``_DEAD`` when empty)."""
-    j = torch.arange(k.shape[1], device=k.device)
-    if cache is None:
-        return j
-    if S == 1:
-        kpos = idx - torch.remainder(idx - j, k.shape[1])
+def offset_positions(idx, S: int, device):
+    """Absolute positions of S new tokens from a write index: ``(S,)`` for
+    a host int, ``(B, S)`` for a per-slot ``(B,)`` tensor."""
+    ar = torch.arange(S, device=device)
+    if isinstance(idx, int):
+        return idx + ar
+    return idx.to(torch.int64)[:, None] + ar
+
+
+def _key_positions(idx, S: int, T: int, device, ring: bool):
+    """Positions of the T keys the attention reads after a write of S rows
+    at ``idx`` (a host int, or a per-slot ``(B,)`` tensor, giving
+    ``(B, T)``), ``_DEAD`` where a row holds no key.  A ring's decode
+    (``ring`` and S == 1) reads row j as position ``idx - (idx - j) mod
+    T``; otherwise row j holds position j up to ``idx + S - 1``."""
+    j = torch.arange(T, device=device)
+    iv = idx if isinstance(idx, int) else idx.to(torch.int64)[:, None]
+    if ring and S == 1:
+        kpos = iv - torch.remainder(iv - j, T)
         return torch.where(kpos >= 0, kpos, torch.full_like(kpos, _DEAD))
-    return torch.where(j < idx + S, j, torch.full_like(j, _DEAD))
+    return torch.where(j < iv + S, j, torch.full_like(j, _DEAD))
+
+
+def _dense_write(cache, k, v, S: int, once):
+    """Write the new rows into a dense ring.  Returns (new cache, keys,
+    values): the post-write ring."""
+    idx = cache["idx"]
+    ck, cv = cache["k"], cache["v"]
+    B, L = ck.shape[0], ck.shape[1]
+    dev = ck.device
+    if S >= L:
+        raise NotImplementedError(
+            "the S >= L windowed-ring prefill is not ported yet "
+            "(ROADMAP A.8)")
+    if isinstance(idx, int):
+        # one write offset for the whole batch (the batch Engine)
+        if S == 1:
+            # ring-buffer write: slot = idx % L (plain write while idx < L)
+            ck[:, idx % L] = k[:, 0].to(ck.dtype)
+            cv[:, idx % L] = v[:, 0].to(cv.dtype)
+        else:
+            if idx + S > L:
+                raise ValueError(f"prefill of {S} tokens at {idx} overflows "
+                                 f"the {L}-slot cache")
+            ck[:, idx:idx + S] = k.to(ck.dtype)
+            cv[:, idx:idx + S] = v.to(cv.dtype)
+    else:
+        # per-slot write offsets (the continuous engine's dense rings):
+        # decode wraps row b at idx[b] % L, prefill writes at idx[b]
+        rows, cols = once("write", lambda: _ring_rows(idx, S, B, L, dev))
+        ck[rows, cols] = k.to(ck.dtype)
+        cv[rows, cols] = v.to(cv.dtype)
+    return {"k": ck, "v": cv, "idx": idx + S}, ck, cv
+
+
+def _ring_rows(idx, S: int, B: int, L: int, device):
+    """(rows (B, 1), columns (B, S)) of the per-slot ring write at ``idx``
+    (B,): decode wraps at ``idx[b] % L``, prefill writes from ``idx[b]``."""
+    iv = idx.to(torch.int64)[:, None]
+    cols = iv % L if S == 1 else iv + torch.arange(S, device=device)
+    return torch.arange(B, device=device)[:, None], cols
+
+
+def _page_rows(idx, bt, S: int, P: int):
+    """(page ids, rows in the page) ``(B, S)`` of slot b's positions
+    ``idx[b] + arange(S)`` through the block table ``bt`` (B, NB), or with
+    ``idx`` None of positions ``arange(S)`` (the gathered view)."""
+    j = torch.arange(S, device=bt.device)
+    if idx is None:
+        return bt.to(torch.int64)[:, j // P], j % P
+    j = idx.to(torch.int64)[:, None] + j
+    pid = torch.gather(bt.to(torch.int64), 1,
+                       (j // P).clamp(0, bt.shape[1] - 1))
+    return pid, j % P
+
+
+def _paged_write(cache, k, v, S: int, once, gather: bool):
+    """Write the new rows through the block table: slot b's position j
+    lives in page ``bt[b, j // P]`` at row ``j % P``.  Positions never
+    wrap (the engine hands out fresh pages), and the engine points free
+    and mid-prefill lanes at the scratch page 0.  Returns (new cache,
+    keys, values): the pools themselves (the paged decode kernel reads
+    them through the block table), or with ``gather`` a per-slot dense
+    view ``(B, NB * P, K, h)`` of them, dequantized to the new rows' dtype
+    for int8 pools."""
+    idx, bt = cache["idx"], cache["block_table"]
+    pk, pv = cache["pages_k"], cache["pages_v"]
+    P, NB = pk.shape[1], bt.shape[1]
+    pid, row = once("write", lambda: _page_rows(idx, bt, S, P))
+    quant_kv = "scales_k" in cache
+    if quant_kv:
+        kq, ksc = quant_lib.quantize_kv_rows(k)
+        vq, vsc = quant_lib.quantize_kv_rows(v)
+        pk[pid, row] = kq
+        pv[pid, row] = vq
+        cache["scales_k"][pid, row] = ksc
+        cache["scales_v"][pid, row] = vsc
+    else:
+        pk[pid, row] = k.to(pk.dtype)
+        pv[pid, row] = v.to(pv.dtype)
+    new_cache = dict(cache, idx=idx + S)
+    if not gather:
+        return new_cache, pk, pv
+
+    gpid, gj = once("gather", lambda: _page_rows(None, bt, NB * P, P))
+    kd, vd = pk[gpid, gj], pv[gpid, gj]
+    if quant_kv:
+        kd = (kd.to(torch.float32)
+              * cache["scales_k"][gpid, gj][..., None]).to(k.dtype)
+        vd = (vd.to(torch.float32)
+              * cache["scales_v"][gpid, gj][..., None]).to(v.dtype)
+    return new_cache, kd, vd
 
 
 def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
-                  dtype=torch.float32, device=None):
-    """Dense ring KV cache for one layer, write index 0."""
+                  dtype=torch.float32, device=None, *,
+                  per_slot: bool = False):
+    """Dense ring KV cache for one layer, write index 0: a host int, or
+    with ``per_slot`` a ``(batch,)`` int32 tensor so each row (a
+    continuous-batching slot) advances on its own."""
     shape = (batch, max_len, n_kv, head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "idx": 0}
+            "idx": (torch.zeros(batch, dtype=torch.int32, device=device)
+                    if per_slot else 0)}
+
+
+def init_paged_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
+                        dtype=torch.bfloat16, device=None, *, page_size: int,
+                        n_pages: int, quant: Optional[str] = None):
+    """Paged KV cache for one layer: one shared ``(n_pages, page_size, K,
+    h)`` pool per K and V, a per-slot ``(batch, ceil(max_len /
+    page_size))`` int32 block table and per-slot int32 write indices.
+    Page 0 is the reserved scratch page: block tables start at it, so
+    unallocated entries (and the writes of the lanes the engine points at
+    it) land off the live pages.
+
+    ``quant="int8"`` stores int8 payloads plus per-token-row fp32 scale
+    pools ``scales_k``/``scales_v`` ``(n_pages, page_size, K)``."""
+    n_blocks = -(-max_len // page_size)
+    pool = (n_pages, page_size, n_kv, head_dim)
+    cache = {"block_table": torch.zeros(batch, n_blocks, dtype=torch.int32,
+                                        device=device),
+             "idx": torch.zeros(batch, dtype=torch.int32, device=device)}
+    if quant is not None:
+        if quant != "int8":
+            raise ValueError(f"kv_quant supports 'int8' only, got {quant!r}")
+        cache["pages_k"] = torch.zeros(pool, dtype=torch.int8, device=device)
+        cache["pages_v"] = torch.zeros(pool, dtype=torch.int8, device=device)
+        cache["scales_k"] = torch.zeros(pool[:3], dtype=torch.float32,
+                                        device=device)
+        cache["scales_v"] = torch.zeros(pool[:3], dtype=torch.float32,
+                                        device=device)
+    else:
+        cache["pages_k"] = torch.zeros(pool, dtype=dtype, device=device)
+        cache["pages_v"] = torch.zeros(pool, dtype=dtype, device=device)
+    return cache

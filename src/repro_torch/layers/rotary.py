@@ -15,7 +15,8 @@ def rope_freqs(head_dim: int, theta: float = 10000.0,
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0) -> torch.Tensor:
-    """x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S).
+    """x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S):
+    ``(S,)`` for a homogeneous batch, ``(B, S)`` for per-slot positions.
 
     Angles in fp32 (positions can exceed bf16 range); the rotation math
     stays in the activation dtype."""

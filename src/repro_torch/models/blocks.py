@@ -5,6 +5,7 @@ axis: there is no ``scan`` to feed (``checkpoint.bridge`` unstacks the
 reference's layout)."""
 from __future__ import annotations
 
+from repro_torch import quant as quant_lib
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers import norms
@@ -45,16 +46,21 @@ def init_block(generator, cfg: ModelCfg, kind: str, device=None):
     }
 
 
-def apply_block(params, x, cfg: ModelCfg, kind: str, *, cache=None):
-    """Returns (x, new_cache); ``cache`` is this layer's ``{"kv": ...}``."""
+def apply_block(params, x, cfg: ModelCfg, kind: str, *, cache=None,
+                positions=None, shared=None):
+    """Returns (x, new_cache); ``cache`` is this layer's ``{"kv": ...}``,
+    ``positions`` the tokens' ``(S,)`` or per-slot ``(B, S)`` positions,
+    ``shared`` the step's index work shared across layers (see
+    ``layers.attention.attention``)."""
     _require_lm(kind)
     h = apply_norm(cfg, params["norm1"], x)
     a, kv = attn_lib.attention(
         params["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         head_dim=cfg.hd, lin_cfg=cfg.linear,
         rope_theta=cfg.rope_theta if cfg.pos_embed == "rope" else None,
-        causal=True, window=cfg.window, chunk=cfg.attn_chunk,
-        flash=cfg.flash_attn, cache=cache["kv"] if cache else None)
+        positions=positions, causal=True, window=cfg.window,
+        chunk=cfg.attn_chunk, flash=cfg.flash_attn,
+        cache=cache["kv"] if cache else None, shared=shared)
     x = x + a
     h = apply_norm(cfg, params["norm2"], x)
     x = x + mlp_lib.apply_mlp(params["mlp"], h, cfg.linear, act=cfg.act)
@@ -62,9 +68,19 @@ def apply_block(params, x, cfg: ModelCfg, kind: str, *, cache=None):
 
 
 def init_block_cache(cfg: ModelCfg, kind: str, batch: int, max_len: int,
-                     dtype, device=None):
-    """Dense KV ring of one block (bounded to the window when there is one)."""
+                     dtype, device=None, *, per_slot: bool = False,
+                     page_size: int = None, n_pages: int = None):
+    """KV cache of one block: a dense ring (bounded to the window when
+    there is one; a per-slot write index with ``per_slot``), or with
+    ``page_size`` a paged pool (``layers.attention.init_paged_kv_cache``,
+    int8 when ``cfg.kv_quant`` says so and ``REPRO_KERNEL_QUANT`` is not
+    off)."""
     _require_lm(kind)
+    if page_size is not None:
+        kvq = cfg.kv_quant if quant_lib.enabled() else None
+        return {"kv": attn_lib.init_paged_kv_cache(
+            batch, max_len, cfg.n_kv_heads, cfg.hd, dtype, device,
+            page_size=page_size, n_pages=n_pages, quant=kvq)}
     L = min(max_len, cfg.window) if cfg.window else max_len
     return {"kv": attn_lib.init_kv_cache(batch, L, cfg.n_kv_heads, cfg.hd,
-                                         dtype, device)}
+                                         dtype, device, per_slot=per_slot)}

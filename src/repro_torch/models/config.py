@@ -48,6 +48,9 @@ class ModelCfg:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     remat: bool = False                   # recompute each block in backward
+    # paged KV pools quantized per token row ("int8"), dequantized in the
+    # paged decode kernel; None keeps fp pools
+    kv_quant: Optional[str] = None
     # training-shape hint read by make_train_step
     grad_accum: int = 1
 

@@ -10,6 +10,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
+from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import embed as embed_lib
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelCfg
@@ -45,13 +46,16 @@ def init_params(cfg: ModelCfg, generator: torch.Generator,
     return p
 
 
-def _embed_inputs(cfg: ModelCfg, params, tokens, offset: int = 0):
+def _embed_inputs(cfg: ModelCfg, params, tokens, offset=0):
+    """Embedded tokens in the compute dtype, and their positions: ``(S,)``
+    from a host-int offset, ``(B, S)`` from a per-slot ``(B,)`` offset
+    (each slot's own rows of a learned position table)."""
     x = embed_lib.embed(params["embed"], tokens, iota=cfg.iota_embed)
+    positions = attn_lib.offset_positions(offset, tokens.shape[1],
+                                          tokens.device)
     if cfg.pos_embed == "learned":
-        positions = offset + torch.arange(tokens.shape[1],
-                                          device=tokens.device)
         x = x + embed_lib.embed(params["pos"], positions)
-    return x.to(cfg.cdtype)
+    return x.to(cfg.cdtype), positions
 
 
 def _logits(cfg: ModelCfg, params, x):
@@ -63,7 +67,7 @@ def forward(cfg: ModelCfg, params, tokens, *, last_only: bool = False):
     """Full-sequence forward without a cache.  tokens: (B, S) int.
     Returns fp32 logits (B, S, V), or (B, 1, V) with ``last_only``."""
     kind = _kind(cfg)
-    x = _embed_inputs(cfg, params, tokens)
+    x, _ = _embed_inputs(cfg, params, tokens)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
         if remat:
@@ -93,19 +97,38 @@ def loss_fn(cfg: ModelCfg, params, batch):
 
 
 def init_cache(cfg: ModelCfg, batch: int, max_len: int,
-               dtype=torch.float32, device=None) -> list:
+               dtype=torch.float32, device=None, *, per_slot: bool = False,
+               page_size: int = None, n_pages: int = None) -> list:
+    """One cache dict per layer.  ``per_slot`` gives each batch row (a
+    continuous-batching slot) its own write index; ``page_size`` and
+    ``n_pages`` swap the dense rings for per-layer page pools addressed
+    through per-slot block tables (one page id names the same logical
+    page in every layer).  The per-slot write index and the block table
+    are one tensor each, shared by every layer, so a host update of them
+    is one copy, not one per layer."""
     kind = _kind(cfg)
     device = device_lib.resolve(device)
-    return [blocks.init_block_cache(cfg, kind, batch, max_len, dtype, device)
-            for _ in range(cfg.n_layers)]
+    cache = [blocks.init_block_cache(cfg, kind, batch, max_len, dtype, device,
+                                     per_slot=per_slot, page_size=page_size,
+                                     n_pages=n_pages)
+             for _ in range(cfg.n_layers)]
+    for name in ("block_table", "idx"):
+        first = cache[0]["kv"].get(name)
+        if torch.is_tensor(first):
+            for lc in cache[1:]:
+                lc["kv"][name] = first
+    return cache
 
 
 def _run_cached(cfg: ModelCfg, params, cache, tokens):
     kind = _kind(cfg)
-    x = _embed_inputs(cfg, params, tokens, offset=cache_pos(cache))
+    x, positions = _embed_inputs(cfg, params, tokens, offset=cache_pos(cache))
+    # the cache's index tensors, built by the first layer for all of them
+    shared = {}
     new_cache = []
     for lp, lc in zip(params["layers"], cache):
-        x, nc = blocks.apply_block(lp, x, cfg, kind, cache=lc)
+        x, nc = blocks.apply_block(lp, x, cfg, kind, cache=lc,
+                                   positions=positions, shared=shared)
         new_cache.append(nc)
     return x, new_cache
 
@@ -125,7 +148,8 @@ def decode_step(cfg: ModelCfg, params, cache, tokens):
     return _logits(cfg, params, x), new_cache
 
 
-def cache_pos(cache) -> int:
+def cache_pos(cache):
+    """The write index: a host int, or a per-slot ``(B,)`` tensor."""
     return cache[0]["kv"]["idx"]
 
 

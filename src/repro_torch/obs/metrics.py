@@ -1,11 +1,15 @@
 """Counters, gauges and histograms (port of ``repro.obs.metrics``, the part
-the trainer reads).  Each trainer owns a :class:`MetricsRegistry`; the
-instruments are plain Python arithmetic and snapshot to plain dicts for
-``--metrics-json`` and the launcher's summary line.
+the trainer and the continuous engine read).  Each trainer and engine owns
+a :class:`MetricsRegistry`; the instruments are plain Python arithmetic
+and snapshot to plain dicts for ``--metrics-json`` and the launchers'
+summary lines.
 
 The trainer's set: ``step_time_s`` and ``data_time_s`` (histograms),
 ``tokens_per_s`` and ``loss`` (gauges), ``tokens_trained``,
 ``straggler_count``, ``nonfinite_steps`` and ``rollbacks`` (counters).
+The engine's: ``ttft_s``, ``itl_s`` and ``decode_step_s`` (histograms),
+``queue_depth``, ``active_slots`` and ``page_pool_used`` (gauges), and
+request, token, prefix, preemption and retirement counters.
 """
 from __future__ import annotations
 
@@ -114,3 +118,33 @@ class MetricsRegistry:
             json.dump(doc, f, indent=1, sort_keys=True)
             f.write("\n")
         return path
+
+
+def _fmt(v: float) -> str:
+    if v >= 100:
+        return f"{v:.0f}"
+    return f"{v:.3g}"
+
+
+def format_serving_line(m: MetricsRegistry) -> str:
+    """The periodic one-line serving report (and the final summary body)."""
+    snap = m.snapshot()
+    c, g, h = snap["counters"], snap["gauges"], snap["histograms"]
+    toks = c.get("tokens_generated", 0)
+    el = max(snap["elapsed_s"], 1e-9)
+    ttft = h.get("ttft_s", {})
+    itl = h.get("itl_s", {})
+    pool = g.get("page_pool_used", {"value": 0, "max": 0})
+    return (f"reqs={c.get('requests_finished', 0)} tok={toks} "
+            f"tok/s={_fmt(toks / el)} "
+            f"ttft_ms p50={_fmt(1e3 * ttft.get('p50', 0.0))} "
+            f"p99={_fmt(1e3 * ttft.get('p99', 0.0))} "
+            f"itl_ms p50={_fmt(1e3 * itl.get('p50', 0.0))} "
+            f"queue={g.get('queue_depth', {}).get('value', 0)} "
+            f"active={g.get('active_slots', {}).get('value', 0)} "
+            f"pages={pool['value']}/{pool['max']}peak "
+            f"prefix_hits={c.get('prefix_hits', 0)} "
+            f"prefix_tok_skipped={c.get('prefix_tokens_skipped', 0)} "
+            f"rejects={c.get('admission_rejects', 0)} "
+            f"preempts={c.get('preemptions', 0)} "
+            f"faulted={c.get('retired_faulted', 0)}")

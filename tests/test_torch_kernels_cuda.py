@@ -468,3 +468,130 @@ def test_qwen3_train_step_on_the_card_runs_the_kernels(cuda, monkeypatch):
         assert bool(torch.isfinite(metrics["loss"]))
     for a, b in zip(tree.leaves(grads["pallas"]), tree.leaves(grads["xla"])):
         _close(a, b, torch.float32)
+
+
+# -- flash_decode_paged (fp pools) and its int8-pool variant -----------------
+
+
+def _paged_inputs(device, seed, B, K, G, h, P, NB, idxs, q_dtype,
+                  pool_dtype):
+    """Random q and pools with per-slot block tables drawn as a permutation
+    of the non-scratch pages (two spare pages, so the tables are not the
+    identity layout).  int8 pools are quantized fp32 pools with their
+    per-row scales."""
+    from repro_torch import quant
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    NP = 1 + B * NB + 2
+    q = _randn(gen, B, K, G, h, device=device, dtype=q_dtype)
+    pk = _randn(gen, NP, P, K, h, device=device)
+    pv = _randn(gen, NP, P, K, h, device=device)
+    perm = torch.randperm(NP - 1, generator=torch.Generator().manual_seed(
+        seed))[:B * NB] + 1
+    bt = perm.reshape(B, NB).to(torch.int32).to(device)
+    idx = torch.tensor(idxs, dtype=torch.int32, device=device)
+    scales = {}
+    if pool_dtype == torch.int8:
+        pk, sk = quant.quantize_kv_rows(pk)
+        pv, sv = quant.quantize_kv_rows(pv)
+        scales = {"scales_k": sk, "scales_v": sv}
+    else:
+        pk, pv = pk.to(pool_dtype), pv.to(pool_dtype)
+    return q, pk, pv, bt, idx, scales
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16,
+                                        torch.int8])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,G,h,P,NB,idxs,l_real,window", [
+    # Qwen3's decode shape: 8 slots, contexts 1 to 512
+    (8, 8, 2, 128, 16, 32, [0, 15, 16, 100, 255, 300, 480, 511], None,
+     None),
+    (3, 2, 2, 64, 8, 5, [5, 36, 20], 37, None),      # P does not divide
+    (1, 2, 2, 64, 4, 3, [11], 12, 5),                 # sliding window
+    (2, 2, 4, 64, 16, 1, [0, 7], None, None),         # one page; idx = 0
+    (2, 1, 1, 128, 16, 4, [63, 17], None, None),      # G = 1
+])
+def test_flash_decode_paged_kernel_matches_plain(cuda, B, K, G, h, P, NB,
+                                                 idxs, l_real, window,
+                                                 q_dtype, pool_dtype):
+    q, pk, pv, bt, idx, scales = _paged_inputs(
+        cuda, B + P + NB, B, K, G, h, P, NB, idxs, q_dtype, pool_dtype)
+    kw = dict(l_real=l_real, window=window, **scales)
+    counted = (flash_attn.flash_decode_paged_int8 if scales
+               else flash_attn.flash_decode_paged)
+    other = (flash_attn.flash_decode_paged if scales
+             else flash_attn.flash_decode_paged_int8)
+    before, before_other = counted.launches, other.launches
+    got = flash_attn.flash_decode_paged(q[:, None], pk, pv, bt, idx, **kw)
+    torch.cuda.synchronize()
+    assert counted.launches == before + 1
+    assert other.launches == before_other
+    assert got.shape == (B, 1, K, G, h) and got.dtype == q_dtype
+    want = flash_attn.flash_decode_paged_plain(q[:, None], pk, pv, bt, idx,
+                                               **kw)
+    # fp32 bound only where nothing is bf16: a bf16 q makes a bf16 output,
+    # and the plain version rounds p to a bf16 pool's dtype for P.V
+    exact = q_dtype == torch.float32 and pool_dtype != torch.bfloat16
+    _close(got, want, torch.float32 if exact else torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16,
+                                        torch.int8])
+def test_flash_decode_paged_scratch_poison_is_isolated(cuda, pool_dtype):
+    """Scratch page 0, every unreferenced page and the live pages past
+    each slot's write index hold huge values: the output does not move
+    by one bit, since rows past idx are never read."""
+    B, K, G, h, P, NB = 3, 8, 2, 128, 16, 6
+    idxs = [2, 40, 95]
+    q, pk, pv, bt, idx, scales = _paged_inputs(
+        cuda, 7, B, K, G, h, P, NB, idxs, torch.bfloat16, pool_dtype)
+    want = flash_attn.flash_decode_paged(q, pk, pv, bt, idx, **scales)
+    live = set(bt.flatten().tolist())
+    dead = [p for p in range(pk.shape[0]) if p not in live]
+    for b, i in enumerate(idxs):
+        dead += bt[b, i // P + 1:].tolist()
+    assert 0 in dead
+    big = 127 if pool_dtype == torch.int8 else 1e30
+    for t in (pk, pv):
+        t[dead] = big
+    for s in scales.values():
+        s[dead] = 1e30
+    got = flash_attn.flash_decode_paged(q, pk, pv, bt, idx, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool(torch.isfinite(got.float()).all())
+
+
+@pytest.mark.gpu
+def test_flash_decode_paged_wrapper_raises(cuda):
+    q, pk, pv, bt, idx, scales = _paged_inputs(
+        cuda, 3, 2, 2, 2, 64, 4, 2, [1, 5], torch.float32, torch.int8)
+    with pytest.raises(ValueError, match="together"):
+        flash_attn.flash_decode_paged(q, pk, pv, bt, idx,
+                                      scales_k=scales["scales_k"])
+    with pytest.raises(TypeError):
+        flash_attn.flash_decode_paged(q, pk, pv, bt, idx)    # int8, no scales
+    q, pk, pv, bt, idx, _ = _paged_inputs(
+        cuda, 3, 2, 2, 2, 16, 4, 2, [1, 5], torch.float32, torch.float32)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        flash_attn.flash_decode_paged(q, pk, pv, bt, idx)
+    with pytest.raises(ValueError):
+        flash_attn.flash_decode_paged(q, pk.cpu(), pv.cpu(), bt, idx)
+
+
+def test_cpu_paged_decode_takes_the_plain_version():
+    q, pk, pv, bt, idx, scales = _paged_inputs(
+        torch.device("cpu"), 5, 2, 2, 2, 16, 4, 3, [3, 9], torch.float32,
+        torch.int8)
+    counts = (flash_attn.flash_decode_paged.launches,
+              flash_attn.flash_decode_paged_int8.launches)
+    got = ops.flash_decode_paged(q, pk, pv, bt, idx, **scales)
+    want = flash_attn.flash_decode_paged_plain(q, pk, pv, bt, idx, **scales)
+    assert torch.equal(got, want)
+    assert torch.equal(flash_attn.flash_decode_paged_int8(
+        q, pk, pv, scales["scales_k"], scales["scales_v"], bt, idx), want)
+    assert counts == (flash_attn.flash_decode_paged.launches,
+                      flash_attn.flash_decode_paged_int8.launches)

@@ -13,10 +13,13 @@ exit and no result line):
 3. each kernel against its plain PyTorch version on the card, fp32 and
    bf16, at the OPT-125m and Qwen3-0.6B serving and training shapes and
    the edge cases (the paged decode kernels also over bf16 and int8
-   pools, and with a poisoned scratch page);
+   pools, and with a poisoned scratch page; the quantized-weight kernels
+   over int8 and fp8 payloads);
 4. the time of each kernel, its plain version and a library yardstick
    (CUDA events around device work queued ahead, L2 flushed before each
-   run, median of 25 after warm-up);
+   run, median of 25 after warm-up); for the quantized-weight kernels the
+   yardstick is torch.bmm over weights dequantized before the timing, and
+   the same with the dequantization timed too;
 5. the OPT serving path: OPT-125m at full width with ``dyad_it_4_kernel``,
    random weights from ``--seed``, ``Engine.generate`` at batch 8, prompt
    128, 32 new tokens, with the kernels' launch counters read around it;
@@ -60,7 +63,20 @@ exit and no result line):
    tokens equal to the unpressured run's exactly and dense rings against
    the paged run at the fp32 bound; and int8 pools at 2 layers on the
    card against the CPU port;
-13. the ``kernels`` JSON line, then the result line.
+13. quantized serving: (a) OPT-125m at full width with int8 weight
+   sidecars (``dyad_it_4_kernel_w8``) through ``Engine.generate`` as in
+   phase 5, launch counters exact, its decode time in turns with the fp
+   route on the same weights, profiled, and against the CPU port;
+   (b) the README's quantized serving command on Qwen3-0.6B at full width
+   and depth, int8 weights (quantized after the ff weights x 4) and int8
+   pools, in phase 12's engine and trace, launch counters exact, then a
+   profiled window; (c) the same at 2 layers on the split ff route
+   (``REPRO_KERNEL_FF=split``) with fp8 weights, held against the fused
+   fp8 run by the bf16 tie rule; (d) at 2 layers in fp32 the card's
+   greedy tokens against the CPU port's, int8 and fp8 weights, fused and
+   split: exactly equal; (e) ``REPRO_KERNEL_QUANT=off`` at 2 layers in
+   fp32: exactly the unquantized run's tokens and launches;
+14. the ``kernels`` JSON line, then the result line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -138,6 +154,28 @@ CONT_PARITY = {"layers": 2, "slots": 4, "max_len": 128, "page_size": 16,
 # 1/127 of its row's largest magnitude
 LOGIT_TOL_BF16 = 2e-2
 LOGIT_TOL_INT8 = 1e-2
+# the quantized-weight kernels in phase 3, (M, n, d_in_b, d_out_b): OPT's
+# up and down and Qwen3's up (and gate) and down projections at decode,
+# prefill-chunk and prefill rows, then ragged edges (odd rows, dims off the
+# tile and off a multiple of 4)
+QUANT_MM_CASES = {
+    "opt_up_M8": (8, 4, 192, 768), "opt_down_M8": (8, 4, 768, 192),
+    "opt_up_M1024": (1024, 4, 192, 768), "opt_down_M1024": (1024, 4, 768, 192),
+    "qwen3_up_M8": (8, 4, 256, 768), "qwen3_up_M128": (128, 4, 256, 768),
+    "qwen3_down_M8": (8, 4, 768, 256), "qwen3_down_M1024": (1024, 4, 768, 256),
+    "ragged_M77": (77, 3, 129, 67), "ragged_M5": (5, 2, 70, 131)}
+# (M, n, d_in_b, d_ff_b, d_out_b, act): Qwen3's ff at decode, prefill-chunk
+# and prefill rows, swiglu and gelu, then ragged edges
+QUANT_FF_CASES = {
+    "qwen3_M8": (8, 4, 256, 768, 256, "swiglu"),
+    "qwen3_M128": (128, 4, 256, 768, 256, "swiglu"),
+    "qwen3_M1024": (1024, 4, 256, 768, 256, "swiglu"),
+    "qwen3_gelu_M8": (8, 4, 256, 768, 256, "gelu"),
+    "qwen3_gelu_M1024": (1024, 4, 256, 768, 256, "gelu"),
+    "ragged_swiglu": (5, 2, 129, 130, 17, "swiglu"),
+    "ragged_relu_wide_out": (45, 3, 33, 200, 300, "relu")}
+# quantized serving at 2 layers (phase 13 c-e)
+QUANT_LAYERS = 2
 
 
 _T0 = time.perf_counter()
@@ -339,6 +377,191 @@ def _time_paged(torch, randn, record, time_ms):
             **{f"ms_{k}": v for k, v in times.items()})
 
 
+def _qweight(randn, shape, qdtype, scale=1.0):
+    """(payload, scales) of a random weight at the init scale (times
+    ``scale``), quantized per (block, out_row)."""
+    from repro_torch import quant
+
+    w = randn(*shape) * (scale / shape[-1] ** 0.5)
+    return quant.quantize_dyad_weight(w, qdtype)
+
+
+def _dequant(q, s, dtype):
+    """The weight a payload stands for, in ``dtype`` (the yardsticks')."""
+    return (q.float() * s[..., None]).to(dtype)
+
+
+def _ff_q_args(randn, M, n, d_in, d_ff, d_out, act, dtype, qdtype):
+    """dyad_ff_fused_q's arguments: the IT views of one (M, n * d_in)
+    activation in ``dtype``, the up (and gate) payloads of weights x 4 (the
+    scale the serving phases run at) and the down payloads, with scales."""
+    x = randn(M, n * d_in, dtype=dtype)
+    x1, x2 = x.reshape(M, n, d_in), x.reshape(M, d_in, n).transpose(1, 2)
+    ups = [_qweight(randn, (n, d_ff, d_in), qdtype, 4.0)
+           for _ in range(4 if act == "swiglu" else 2)]
+    downs = [_qweight(randn, (n, d_out, d_ff), qdtype) for _ in range(2)]
+    gate = (dict(wg1=ups[2][0], wg2=ups[3][0], sg1=ups[2][1], sg2=ups[3][1])
+            if act == "swiglu" else {})
+    return ((x1, x2, ups[0][0], ups[1][0], downs[0][0], downs[1][0],
+             ups[0][1], ups[1][1], downs[0][1], downs[1][1]), gate)
+
+
+def _check_quant_kernels(torch, randn, check, failures, dt, max_err):
+    """Phase 3 for the quantized-weight kernels at x dtype ``dt``: int8 and
+    fp8 payloads, dyad_mm_blocks_q and dyad_mm_blocks_two_q over the IT
+    (stride-n x2) and OT views, dyad_ff_fused_q with a second call that
+    must give the same bits (the hidden split adds in a fixed order)."""
+    from repro_torch.kernels import dyad_mm
+
+    dn = str(dt).split(".")[1]
+
+    def note(name, err):
+        if dt == torch.float32:
+            max_err[name] = max(max_err[name], err)
+
+    for qdt in ("int8", "fp8"):
+        for label, (M, n, d_in, d_out) in QUANT_MM_CASES.items():
+            x = randn(M, n * d_in, dtype=dt)
+            x1 = x.reshape(M, n, d_in)
+            (q1, s1), (q2, s2) = (_qweight(randn, (n, d_out, d_in), qdt)
+                                  for _ in range(2))
+            for xl, xb in (("it", x.reshape(M, d_in, n).transpose(1, 2)),
+                           ("ot", x1)):
+                args = (x1, xb, q1, q2, s1, s2)
+                note("dyad_mm_blocks_q", check(
+                    f"dyad_mm_blocks_q/{label}/{xl}/{qdt}",
+                    dyad_mm.dyad_mm_blocks_q(*args),
+                    dyad_mm.dyad_mm_blocks_q_plain(*args), dn))
+                got = dyad_mm.dyad_mm_blocks_two_q(*args)
+                want = dyad_mm.dyad_mm_blocks_two_q_plain(*args)
+                for c in (0, 1):
+                    note("dyad_mm_blocks_two_q", check(
+                        f"dyad_mm_blocks_two_q/{label}/{xl}/{qdt}/z{c + 1}",
+                        got[c], want[c], dn))
+        for label, (M, n, d_in, d_ff, d_out, act) in QUANT_FF_CASES.items():
+            args, gate = _ff_q_args(randn, M, n, d_in, d_ff, d_out, act, dt,
+                                    qdt)
+            got = dyad_mm.dyad_ff_fused_q(*args, act=act, **gate)
+            want = dyad_mm.dyad_ff_fused_q_plain(*args, act=act, **gate)
+            for c in (0, 1):
+                note("dyad_ff_fused_q", check(
+                    f"dyad_ff_fused_q/{label}/{qdt}/z{c + 1}", got[c],
+                    want[c], dn))
+            again = dyad_mm.dyad_ff_fused_q(*args, act=act, **gate)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            log("check", case=f"dyad_ff_fused_q/{label}/{qdt}/bitwise_repeat",
+                dtype=dn, ok=same)
+            if not same:
+                failures.append(
+                    f"dyad_ff_fused_q/{label}/{qdt}/bitwise_repeat")
+
+
+def _time_quant(torch, randn, record, time_ms):
+    """Phase 4 for the quantized-weight kernels, each at the shapes and
+    with the payload of the path that launches it: dyad_mm_blocks_q at one
+    OPT-125m layer's up + down (fp32 x, int8: phase 13a) at prefill and
+    decode rows; dyad_mm_blocks_two_q at Qwen3's split-route down
+    projection (bf16 x, fp8: phase 13c) at decode and prefill-chunk rows;
+    dyad_ff_fused_q at one Qwen3 ff (bf16 x, int8: phase 13b) at decode,
+    prefill-chunk and prefill rows.  Yardstick: torch.bmm over the -CAT
+    operands with the weights dequantized to x's dtype before the timing
+    (library_ms), and the same with the dequantization timed too; for the
+    ff, the quantized split route and both bmm chains.  Bounds: the inputs
+    read once (one byte a payload, four a scale), the output written once,
+    and the operations at the peak of x's type (the payloads counted as
+    converted)."""
+    from repro_torch.kernels import dyad_mm
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    for label in ("opt_up_M1024", "opt_down_M1024", "opt_up_M8",
+                  "opt_down_M8"):
+        M, n, d_in, d_out = QUANT_MM_CASES[label]
+        x = randn(M, n * d_in)
+        x1, x2 = x.reshape(M, n, d_in), x.reshape(M, d_in, n).transpose(1, 2)
+        (q1, s1), (q2, s2) = (_qweight(randn, (n, d_out, d_in), "int8")
+                              for _ in range(2))
+        xc = torch.cat([x1, x2], dim=-1).transpose(0, 1).contiguous()
+
+        def wcat():
+            return torch.cat([_dequant(q1, s1, f32), _dequant(q2, s2, f32)],
+                             dim=-1).transpose(1, 2)
+        wc = wcat().contiguous()
+        record("dyad_mm_blocks_q",
+               time_ms(lambda: dyad_mm.dyad_mm_blocks_q(x1, x2, q1, q2, s1,
+                                                        s2)),
+               time_ms(lambda: dyad_mm.dyad_mm_blocks_q_plain(
+                   x1, x2, q1, q2, s1, s2)),
+               time_ms(lambda: torch.bmm(xc, wc)),
+               4 * M * n * d_in + 2 * n * d_out * d_in + 4 * 2 * n * d_out
+               + 4 * M * n * d_out, 4.0 * M * n * d_out * d_in, label,
+               FP32_FLOPS, "float32 x, int8 payloads",
+               dequant_bmm_ms=time_ms(lambda: torch.bmm(xc, wcat())))
+
+    for label, M in (("qwen3_split_down_M8", 8),
+                     ("qwen3_split_down_M128", 128)):
+        _, n, d_in, d_out = QUANT_MM_CASES["qwen3_down_M8"]
+        h = randn(M, n, d_in, dtype=bf16)
+        (q1, s1), (q2, s2) = (_qweight(randn, (n, d_out, d_in), "fp8")
+                              for _ in range(2))
+        hc = torch.cat([h, h], dim=1).transpose(0, 1).contiguous()
+
+        def wcat():
+            return torch.cat([_dequant(q1, s1, bf16), _dequant(q2, s2, bf16)],
+                             dim=0).transpose(1, 2)
+        wc = wcat().contiguous()
+        record("dyad_mm_blocks_two_q",
+               time_ms(lambda: dyad_mm.dyad_mm_blocks_two_q(h, h, q1, q2, s1,
+                                                            s2)),
+               time_ms(lambda: dyad_mm.dyad_mm_blocks_two_q_plain(
+                   h, h, q1, q2, s1, s2)),
+               time_ms(lambda: torch.bmm(hc, wc)),
+               2 * M * n * d_in + 2 * n * d_out * d_in + 4 * 2 * n * d_out
+               + 2 * 2 * M * n * d_out, 4.0 * M * n * d_out * d_in, label,
+               BF16_FLOPS, "bfloat16 x, fp8 payloads",
+               dequant_bmm_ms=time_ms(lambda: torch.bmm(hc, wcat())))
+
+    for label, suffix in (("qwen3_M8", ""), ("qwen3_M128", "@chunk"),
+                          ("qwen3_M1024", "@prefill")):
+        M, n, d_in, d_ff, d_out, act = QUANT_FF_CASES[label]
+        args, gate = _ff_q_args(randn, M, n, d_in, d_ff, d_out, act, bf16,
+                                "int8")
+        x1, x2, wu1, wu2, wd1, wd2, su1, su2, sd1, sd2 = args
+        wg1, wg2, sg1, sg2 = (gate[k] for k in ("wg1", "wg2", "sg1", "sg2"))
+
+        def split():
+            u = dyad_mm.dyad_mm_blocks_q(x1, x2, wu1, wu2, su1, su2)
+            h = torch.nn.functional.silu(dyad_mm.dyad_mm_blocks_q(
+                x1, x2, wg1, wg2, sg1, sg2)) * u
+            return dyad_mm.dyad_mm_blocks_two_q(h, h, wd1, wd2, sd1, sd2)
+        xc = torch.cat([x1, x2], dim=2).transpose(0, 1).contiguous()
+
+        def weights():
+            dq = [_dequant(q, s_, bf16) for q, s_ in
+                  ((wu1, su1), (wu2, su2), (wg1, sg1), (wg2, sg2),
+                   (wd1, sd1), (wd2, sd2))]
+            return (torch.cat(dq[0:2], dim=2).transpose(1, 2),
+                    torch.cat(dq[2:4], dim=2).transpose(1, 2),
+                    torch.cat(dq[4:6], dim=1).transpose(1, 2))
+        pre = [w.contiguous() for w in weights()]
+
+        def chain(wuc, wgc, wdc):
+            h = torch.nn.functional.silu(torch.bmm(xc, wgc)) * torch.bmm(
+                xc, wuc)
+            return torch.bmm(h, wdc)
+        flops = 2.0 * M * n * (4 * d_ff * d_in + 2 * d_out * d_ff)
+        nbytes = (2 * M * n * d_in + 4 * n * d_ff * d_in + 2 * n * d_out * d_ff
+                  + 4 * (4 * n * d_ff + 2 * n * d_out) + 2 * 2 * M * n * d_out)
+        record("dyad_ff_fused_q" + suffix,
+               time_ms(lambda: dyad_mm.dyad_ff_fused_q(*args, act=act,
+                                                       **gate)),
+               time_ms(lambda: dyad_mm.dyad_ff_fused_q_plain(*args, act=act,
+                                                             **gate)),
+               None, nbytes, flops, label, BF16_FLOPS,
+               "bfloat16 x, int8 payloads", split_route_ms=time_ms(split),
+               bmm_chain_ms=time_ms(lambda: chain(*pre)),
+               dequant_bmm_chain_ms=time_ms(lambda: chain(*weights())))
+
+
 def _ff_args(randn, M, n, d_in, d_ff, d_out, act, dtype, wdtype):
     """dyad_ff_fused's arguments: the IT views of one (M, n * d_in)
     activation in ``dtype``, up (and gate) and down weights in ``wdtype``
@@ -456,7 +679,8 @@ def main() -> int:
                "dyad_mm_wgrad": 0.0, "flash_prefill_grads": 0.0,
                "dyad_mm_blocks_two": 0.0, "dyad_mm_dgrad": 0.0,
                "dyad_ff_fused": 0.0, "flash_decode_paged": 0.0,
-               "flash_decode_paged_int8": 0.0}
+               "flash_decode_paged_int8": 0.0, "dyad_mm_blocks_q": 0.0,
+               "dyad_mm_blocks_two_q": 0.0, "dyad_ff_fused_q": 0.0}
     # the paged decode: Qwen3's decode step (8 slots, K 8, G 2, h 128, pages
     # of 16) with contexts of 1 to 512 tokens, and the edge cases of the
     # reference's tests: P not dividing l_real, a window, idx 0 on one page
@@ -759,6 +983,7 @@ def main() -> int:
                 ok=same)
             if not same:
                 failures.append(f"dyad_ff_fused/{label}/bitwise_repeat")
+        _check_quant_kernels(torch, randn, check, failures, dt, max_err)
     torch.cuda.synchronize()
     if failures:
         log("check", failed=",".join(failures))
@@ -914,6 +1139,7 @@ def main() -> int:
            10.0 * h * pairs, f"B{Bt}_S{St}_K{K}_h{h}_causal")
     _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases)
     _time_paged(torch, randn, record, time_ms)
+    _time_quant(torch, randn, record, time_ms)
     del flush, sout
 
     # -- 5. the OPT serving path ---------------------------------------------
@@ -928,7 +1154,10 @@ def main() -> int:
                 "dyad_ff_fused": dyad_mm.dyad_ff_fused,
                 "flash_decode_paged": flash_attn.flash_decode_paged,
                 "flash_decode_paged_int8":
-                    flash_attn.flash_decode_paged_int8}
+                    flash_attn.flash_decode_paged_int8,
+                "dyad_mm_blocks_q": dyad_mm.dyad_mm_blocks_q,
+                "dyad_mm_blocks_two_q": dyad_mm.dyad_mm_blocks_two_q,
+                "dyad_ff_fused_q": dyad_mm.dyad_ff_fused_q}
     run = _Run(torch, dev, args.seed, wrappers)
 
     steps = new - 1
@@ -1007,7 +1236,18 @@ def main() -> int:
     if cont is None:
         return 1
 
-    # -- 13. the kernels line ------------------------------------------------
+    # -- 13. quantized serving -----------------------------------------------
+    qopt = run.serve("opt125m", "dyad_it_4_kernel_w8", B, S, new,
+                     {"dyad_mm_blocks_q": 2 * (1 + steps), "flash_prefill": 1,
+                      "flash_decode": steps}, "quant_opt", "quant_opt_profile",
+                     quant="int8")
+    if qopt is None:
+        return 1
+    qcont = run.quant_continuous()
+    if qcont is None:
+        return 1
+
+    # -- 14. the kernels line ------------------------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
     files = {"dyad_mm_blocks": ("dyad_mm.cu", "dyad_mm.py:286"),
              "flash_prefill": ("flash_prefill.cu", "flash_attn.py:288"),
@@ -1021,13 +1261,18 @@ def main() -> int:
              "flash_decode_paged": ("flash_decode_paged.cu",
                                     "flash_attn.py:920"),
              "flash_decode_paged_int8": ("flash_decode_paged.cu",
-                                         "flash_attn.py:886")}
+                                         "flash_attn.py:886"),
+             "dyad_mm_blocks_q": ("dyad_mm_q.cu", "dyad_mm.py:991"),
+             "dyad_mm_blocks_two_q": ("dyad_mm_q.cu", "dyad_mm.py:1020"),
+             "dyad_ff_fused_q": ("dyad_ff.cu", "dyad_mm.py:1179")}
     # each kernel's launches come from the path that brought it in: OPT
     # serving for slice 1's, OPT training for slice 2's backward kernels,
     # the Qwen3 train step for the megakernel and dyad_mm_dgrad, the OPT
     # OT train step for dyad_mm_blocks_two, the continuous engine's paged
-    # run (fp32 pools) and its int8 run for the paged decode kernels; every
-    # path's counts were checked exactly where it ran
+    # run (fp32 pools) and its int8 run for the paged decode kernels, the
+    # quantized OPT generate, the quantized Qwen3 continuous run and its
+    # split route for the quantized kernels; every path's counts were
+    # checked exactly where it ran
     ot_train = variant_launches["dyad_ot_4_kernel"]
     main_path = {"dyad_mm_dgrad_two": train_launches,
                  "dyad_mm_wgrad": train_launches,
@@ -1035,7 +1280,10 @@ def main() -> int:
                  "dyad_ff_fused": qtrain, "dyad_mm_dgrad": qtrain,
                  "dyad_mm_blocks_two": ot_train,
                  "flash_decode_paged": cont["paged"],
-                 "flash_decode_paged_int8": cont["int8"]}
+                 "flash_decode_paged_int8": cont["int8"],
+                 "dyad_mm_blocks_q": qopt,
+                 "dyad_ff_fused_q": qcont["continuous"],
+                 "dyad_mm_blocks_two_q": qcont["split"]}
     line = []
     for name, (src, replaces) in files.items():
         tm = timing[name]
@@ -1054,11 +1302,15 @@ def main() -> int:
             "launches_qwen3_continuous": cont["paged"][name],
             "launches_qwen3_continuous_int8": cont["int8"][name],
             "launches_qwen3_continuous_dense": cont["dense"][name],
+            "launches_opt_quant_serve": qopt[name],
+            "launches_qwen3_quant_continuous": qcont["continuous"][name],
+            "launches_qwen3_quant_split_2_layers": qcont["split"][name],
             "max_abs_err": max_err[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": by, "library_ms": tm["library_ms"],
             "shape": "+".join(tm["shape"]), "dtype": tm["dtype"]}
-        for key in ("split_route_ms", "bmm_chain_ms"):
+        for key in ("split_route_ms", "bmm_chain_ms", "dequant_bmm_ms",
+                    "dequant_bmm_chain_ms"):
             if key in tm:
                 entry[key] = tm[key]
         line.append(entry)
@@ -1090,13 +1342,16 @@ class _Run:
         want.update({k: v * n_layers for k, v in per_layer.items()})
         return want
 
-    def serve(self, arch, spec, B, S, new, per_layer, phase, prof_phase):
+    def serve(self, arch, spec, B, S, new, per_layer, phase, prof_phase,
+              quant=None):
         """Engine.generate at full width, counted; then one profiled
-        generate and the card against the CPU port.  Returns the launch
-        counts, None on a failure."""
+        generate and the card against the CPU port.  ``quant``: the
+        weights' sidecars are added (``quant.quantize_params``) before the
+        engine is built.  Returns the launch counts, None on a failure."""
         from torch.profiler import ProfilerActivity, profile
 
         from repro_torch import configs
+        from repro_torch import quant as quant_lib
         from repro_torch.models import model
         from repro_torch.serve.engine import Engine
 
@@ -1104,6 +1359,8 @@ class _Run:
         cfg = configs.get(arch, linear=configs.linear_cfg(spec))
         pgen = torch.Generator(device=dev).manual_seed(self.seed)
         params = model.init_params(cfg, pgen, dev)
+        if quant:
+            params = quant_lib.quantize_params(params, quant)
         prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=pgen,
                                 device=dev)
         engine = Engine(cfg, params, max_len=S + new, device=dev)
@@ -1117,7 +1374,8 @@ class _Run:
         shape_ok = (tuple(toks.shape) == (B, new) and int(toks.min()) >= 0
                     and int(toks.max()) < cfg.vocab_size)
         log(phase, arch=cfg.name, linear=spec, dtype=cfg.compute_dtype,
-            batch=B, prompt=S, new=new, prefill_s=f"{t['prefill_s']:.4f}",
+            quant_weights=quant, batch=B, prompt=S, new=new,
+            prefill_s=f"{t['prefill_s']:.4f}",
             decode_s=f"{t['decode_s']:.4f}",
             decode_tok_s=f"{B * steps / t['decode_s']:.1f}",
             tok_s=f"{B * new / (t['prefill_s'] + t['decode_s']):.1f}",
@@ -1126,6 +1384,24 @@ class _Run:
         if launches != want or not shape_ok:
             log(phase, failed=f"launches {launches} want {want}")
             return None
+        if quant:
+            # the same weights on the fp route (no quant in the config),
+            # in turns with the quantized route: fp, quant, quant, fp, twice
+            fp = Engine(cfg.replace(linear=cfg.linear.replace(quant=None)),
+                        params, max_len=S + new, device=dev)
+            fp.generate(prompts, new)
+            decode = {"fp": [], "quant": []}
+            for name in ("fp", "quant", "quant", "fp") * 2:
+                eng = fp if name == "fp" else engine
+                eng.generate(prompts, new)
+                decode[name].append(eng.timings["decode_s"])
+            med = {k: statistics.median(v) for k, v in decode.items()}
+            log(phase + "_vs_fp", decode_s_fp=",".join(
+                f"{v:.4f}" for v in decode["fp"]), decode_s_quant=",".join(
+                f"{v:.4f}" for v in decode["quant"]),
+                quant_over_fp_decode_s=f"{med['quant'] / med['fp']:.3f}",
+                note="printed, not gated")
+            del fp
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             engine.generate(prompts, new)
@@ -1493,6 +1769,139 @@ class _Run:
                                       host["tokens"], LOGIT_TOL_INT8,
                                       device=self.cpu))
 
+    # -- 13. quantized serving ---------------------------------------------
+    def _quant_setup(self, spec, qdtype, **over):
+        """(cfg, params): Qwen3-0.6B with ``spec``, random weights from the
+        seed, the ff weights x 4 (CONT's scale), then the sidecars."""
+        from repro_torch import configs, quant
+        from repro_torch.models import model
+
+        cfg = configs.get("qwen3_0_6b", linear=configs.linear_cfg(spec),
+                          **over)
+        params = _scale_ff(model.init_params(
+            cfg, self.torch.Generator(device=self.dev).manual_seed(
+                self.seed), self.dev), CONT["ff_scale"])
+        return cfg, quant.quantize_params(params, qdtype)
+
+    def quant_continuous(self):
+        """Phase 13 (b)-(e).  Returns the launch counts of the full-depth
+        run and of the split run, None on a failure."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        q_fused = {"dyad_ff_fused_q": 1}
+        q_split = {"dyad_mm_blocks_q": 2, "dyad_mm_blocks_two_q": 1}
+        # (b) the README's command: int8 weights and int8 pools, full depth
+        cfg, params = self._quant_setup(QWEN_FF + "_w8", "int8",
+                                        kv_quant="int8")
+        prompts, max_new = _trace(cfg.vocab_size, self.seed, CONT)
+        kw = dict(n_slots=CONT["slots"], max_len=CONT["max_len"],
+                  page_size=CONT["page_size"], prefill_chunk=CONT["chunk"],
+                  prefix_cache=True)
+        self._serve_trace(cfg, params, prompts[:2], [4, 4], **kw)  # warm-up
+        window = CONT["profile_steps"]
+        full = self._serve_trace(cfg, params, prompts, max_new,
+                                 window=window, **kw)
+        if not self._check_trace("quant_continuous", cfg, full, "int8",
+                                 ff=q_fused):
+            return None
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        self._serve_trace(cfg, params, prompts, max_new, window=window,
+                          prof=prof, **kw)
+        _log_profile(prof, full["window_s"] * 1e3,
+                     "quant_continuous_profile")
+        log("quant_continuous_profile", steps=f"{window[0]}-{window[1] - 1}",
+            of_steps=full["engine_steps"])
+        del params
+        torch.cuda.empty_cache()
+
+        # (c) the split ff route at 2 layers, fp8 weights, against the fused
+        # route on the same weights by the bf16 tie rule
+        cfg, params = self._quant_setup(QWEN_FF + "_wfp8", "fp8",
+                                        kv_quant="int8",
+                                        n_layers=QUANT_LAYERS)
+        fused = self._serve_trace(cfg, params, prompts, max_new, **kw)
+        split = self._serve_trace(cfg, params, prompts, max_new,
+                                  env={"REPRO_KERNEL_FF": "split"}, **kw)
+        if not (self._check_trace("quant_fused_fp8", cfg, fused, "int8",
+                                  ff=q_fused)
+                and self._check_trace("quant_split_fp8", cfg, split, "int8",
+                                      ff=q_split)
+                and self._same_tokens("quant_split_vs_fused_fp8", cfg, params,
+                                      prompts, split["tokens"],
+                                      fused["tokens"], LOGIT_TOL_BF16)):
+            return None
+        del params
+        if not (self.quant_parity() and self.quant_off()):
+            return None
+        return {"continuous": full["launches"], "split": split["launches"]}
+
+    def quant_parity(self):
+        """(d) At 2 layers in fp32 (compute and pools), int8 and fp8
+        weights, fused and split: the card's greedy tokens equal the CPU
+        port's on the same weights and trace."""
+        from repro_torch import configs
+
+        cp = CONT_PARITY
+        prompts, max_new = _trace(configs.get("qwen3_0_6b").vocab_size,
+                                  self.seed + 1, cp)
+        kw = dict(n_slots=cp["slots"], max_len=cp["max_len"],
+                  page_size=cp["page_size"], prefill_chunk=cp["chunk"],
+                  prefix_cache=True)
+        ok = True
+        for spec, qdt in ((QWEN_FF + "_w8", "int8"),
+                          (QWEN_FF + "_wfp8", "fp8")):
+            cfg, params = self._quant_setup(spec, qdt, n_layers=cp["layers"],
+                                            compute_dtype="float32")
+            params_cpu = _tree_to(params, self.cpu)
+            for route, ff in (("fused", {"dyad_ff_fused_q": 1}),
+                              ("split", {"dyad_mm_blocks_q": 2,
+                                         "dyad_mm_blocks_two_q": 1})):
+                env = {"REPRO_KERNEL_FF": route}
+                card = self._serve_trace(cfg, params, prompts, max_new,
+                                         env=env, **kw)
+                host = self._serve_trace(cfg, params_cpu, prompts, max_new,
+                                         env=env, device=self.cpu, **kw)
+                phase = f"quant_parity_{qdt}_{route}"
+                equal = sum(a == b for a, b in zip(card["tokens"],
+                                                   host["tokens"]))
+                good = (self._check_trace(phase, cfg, card, "paged", ff=ff)
+                        and equal == len(prompts))
+                log("tokens", compare=f"{qdt}_{route}_card_vs_cpu_fp32",
+                    requests=len(prompts), requests_equal=equal,
+                    rule="exact", ok=good)
+                ok = ok and good
+        return ok
+
+    def quant_off(self):
+        """(e) ``REPRO_KERNEL_QUANT=off`` at 2 layers in fp32: the
+        quantized tree serves exactly the unquantized run's tokens, with
+        its launches (the megakernel, no quantized kernel)."""
+        from repro_torch import configs
+
+        cp = CONT_PARITY
+        prompts, max_new = _trace(configs.get("qwen3_0_6b").vocab_size,
+                                  self.seed + 1, cp)
+        kw = dict(n_slots=cp["slots"], max_len=cp["max_len"],
+                  page_size=cp["page_size"], prefill_chunk=cp["chunk"],
+                  prefix_cache=True)
+        cfg, params = self._quant_setup(QWEN_FF + "_w8", "int8",
+                                        n_layers=cp["layers"],
+                                        compute_dtype="float32")
+        off = self._serve_trace(cfg, params, prompts, max_new,
+                                env={"REPRO_KERNEL_QUANT": "off"}, **kw)
+        fp_cfg = cfg.replace(linear=cfg.linear.replace(quant=None))
+        fp = self._serve_trace(fp_cfg, params, prompts, max_new, **kw)
+        same = (off["tokens"] == fp["tokens"]
+                and off["launches"] == fp["launches"])
+        ok = (self._check_trace("quant_off", cfg, off, "paged")
+              and self._check_trace("quant_off_fp", fp_cfg, fp, "paged")
+              and same)
+        log("tokens", compare="quant_off_vs_unquantized_fp32",
+            requests=len(prompts), tokens_and_launches_equal=same,
+            rule="exact", ok=ok)
+        return ok
+
     def _serve_trace(self, cfg, params, prompts, max_new, env=None,
                      device=None, window=None, prof=None, **kw):
         """One run of the trace through ``ContinuousBatchingEngine``, with
@@ -1506,8 +1915,9 @@ class _Run:
 
         torch = self.torch
         device = device or self.dev
-        saved = {k: os.environ.get(k) for k in ("REPRO_KERNEL_ATTN",
-                                                "REPRO_PAGED_KV")}
+        saved = {k: os.environ.get(k) for k in (
+            "REPRO_KERNEL_ATTN", "REPRO_PAGED_KV", "REPRO_KERNEL_FF",
+            "REPRO_KERNEL_QUANT")}
         os.environ.update(env or {})
         try:
             eng = ContinuousBatchingEngine(cfg, params, device=device, **kw)
@@ -1570,21 +1980,23 @@ class _Run:
                 "free_pages_ok": (not eng.paged or eng.pages.free_pages
                                   == eng.pages.n_pages - 1)}
 
-    def _check_trace(self, phase, cfg, r, route):
+    def _check_trace(self, phase, cfg, r, route, ff=None):
         """Log a trace's metrics and hold its launch counts: per layer one
         decode kernel per step (and per 1-token chunk), one flash_prefill
-        per longer prefill call, one megakernel per prefill call and
-        step; every request drained with finite tokens."""
+        per longer prefill call, and per prefill call and step the ff
+        kernels ``ff`` ({kernel: launches per layer}; the megakernel once
+        by default); every request drained with finite tokens."""
         n, pf = r["layers"], r["prefill"]
         counted = r["device"].type == "cuda"
         want = dict.fromkeys(self.wrappers, 0)
         if counted:
             decode = {"paged": "flash_decode_paged", "dense": "flash_decode",
                       "int8": "flash_decode_paged_int8"}[route]
+            calls = r["steps"] + pf["one"] + pf["many"]
             want.update({decode: n * (r["steps"] + pf["one"]),
-                         "flash_prefill": n * pf["many"],
-                         "dyad_ff_fused": n * (r["steps"] + pf["one"]
-                                               + pf["many"])})
+                         "flash_prefill": n * pf["many"]})
+            want.update({k: v * n * calls for k, v in
+                         (ff or {"dyad_ff_fused": 1}).items()})
         toks = r["tokens"]
         n_tok = sum(len(t) for t in toks)
         vocab = cfg.vocab_size

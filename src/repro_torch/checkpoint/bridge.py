@@ -10,8 +10,12 @@ dict keys such as ``layers/mlp/up/w1`` ``(n_layers, n, d_out, d_in)``,
 and ``opt/master/...`` for a train state.  The port keeps every ``layers``
 subtree as a list of per-layer dicts.  :func:`to_flat` turns any port tree
 into that flat dict of numpy arrays (each list stacked on a leading axis;
-bf16 leaves are written as fp32, which numpy can hold, and cast back by
-the reader); :func:`from_flat` is its inverse, onto a device.
+bf16 and fp8 leaves are written as fp32, which numpy can hold exactly, and
+cast back by the reader); :func:`from_flat` is its inverse, onto a device.
+It takes the reference's quantized sidecars as they are: int8 payloads as
+int8, and ``float8_e4m3fn`` payloads (a numpy extension dtype, which
+``torch.from_numpy`` refuses) by their bytes, so the port needs no numpy
+fp8 package.
 """
 from __future__ import annotations
 
@@ -69,7 +73,18 @@ def _unstack(node: dict) -> dict:
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    # numpy holds neither bf16 nor fp8: both go out as fp32, exactly
+    if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        t = t.float()
+    return t.numpy()
+
+
+def _from_numpy(a) -> torch.Tensor:
+    a = np.array(a, copy=True)
+    if a.dtype.name == "float8_e4m3fn":
+        # one byte per element: carried over as bytes, then viewed
+        return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
+    return torch.from_numpy(a)
 
 
 def from_flat(flat: Dict[str, np.ndarray], device=None) -> dict:
@@ -78,7 +93,7 @@ def from_flat(flat: Dict[str, np.ndarray], device=None) -> dict:
     device = device_lib.resolve(device)
 
     def tensor(a):
-        return torch.from_numpy(np.array(a, copy=True)).to(device)
+        return _from_numpy(a).to(device)
 
     return tree_lib.map(tensor, _unstack(_nest(dict(flat))))
 

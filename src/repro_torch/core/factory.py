@@ -11,6 +11,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import quant as quant_lib
 from repro_torch.core import dyad, linear
 
 Params = Dict[str, torch.Tensor]
@@ -36,10 +37,12 @@ class LinearCfg:
     use_kernel: bool = False
     use_kernel_bwd: bool = True    # kernel backward (with use_kernel)
     scope: str = "ff"              # which sites receive DYAD when impl == "dyad"
-    # parsed as in the reference, not ported yet: the fused ff tiers and
-    # weight quantization (layers.mlp and apply raise)
+    # the fused ff tiers (layers.mlp)
     fuse_mlp: bool = False
     fuse_ff_kernel: bool = False
+    # serving over quantized weights ("int8" | "fp8"; spec tokens "w8",
+    # "wfp8"): with use_kernel, a DYAD module that carries the sidecars of
+    # repro_torch.quant.quantize_params runs its forward over them
     quant: Optional[str] = None
 
     def dyad_at(self, site: str) -> bool:
@@ -76,9 +79,18 @@ def init(generator: torch.Generator, f_in: int, f_out: int, cfg: LinearCfg,
 def apply(params: Params, x: torch.Tensor, cfg: LinearCfg, *,
           site: str = "ff") -> torch.Tensor:
     if "w1" in params:  # dyad params
-        if cfg.quant and cfg.use_kernel:
-            raise NotImplementedError(
-                "quantized DYAD weights are not ported yet (ROADMAP A.10)")
+        if (cfg.quant and cfg.use_kernel and quant_lib.enabled()
+                and quant_lib.module_quantized(params)):
+            # forward-only, over the sidecars; a tree without them (the
+            # training params) keeps the fp route
+            from repro_torch.kernels import ops as kops
+
+            y = kops.dyad_mm_quant(x, params["w1_q"], params["w2_q"],
+                                   params["w1_s"], params["w2_s"],
+                                   variant=cfg.variant)
+            if "b" in params:
+                y = y + params["b"].to(y.dtype)
+            return y
         n, d_out, d_in = params["w1"].shape
         return dyad.apply(params, x, cfg.spec(n * d_in, n * d_out))
     return linear.apply(params, x)

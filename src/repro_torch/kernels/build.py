@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels of ``kernels/csrc``.
 
-Each ``csrc/<name>.cu`` is compiled at first use by its own ``nvcc``
-(all started together) into ``build/repro_torch_kernels/lib<name>-<hash>.so``
-under the repository root, with a plain C interface, and loaded with
-``ctypes``.  The hash covers the source, the shared headers and the flags,
-so an edited source is rebuilt and an unchanged one is loaded as built.
-A failed build raises with nvcc's output.
+Each ``csrc/<source>.cu`` is compiled at first use by its own ``nvcc``
+(all started together) into
+``build/repro_torch_kernels/lib<source>-<hash>.so`` under the repository
+root, with a plain C interface, and loaded with ``ctypes``; a source may
+hold several C entry points (``ENTRIES``).  The hash covers the source,
+the shared headers and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as built.  A failed build raises with nvcc's
+output.
 """
 from __future__ import annotations
 
@@ -29,37 +31,45 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
-# C entry point of each source: (symbol, argtypes); every entry returns the
+# each C entry point: (source, symbol, argtypes); every entry returns the
 # cudaError_t of its launch
 ENTRIES = {
-    "dyad_mm": ("repro_dyad_mm_blocks",
+    "dyad_mm": ("dyad_mm", "repro_dyad_mm_blocks",
                 [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _P]),
-    "flash_prefill": ("repro_flash_prefill",
+    "flash_prefill": ("flash_prefill", "repro_flash_prefill",
                       [_P, _P, _P, _P, _P, _P, _I, _P, _I]
                       + [_I] * 6 + [_LL] * 10 + [_I, _I, _F, _I, _P]),
-    "flash_decode": ("repro_flash_decode",
+    "flash_decode": ("flash_decode", "repro_flash_decode",
                      [_P, _P, _P, _P, _P, _I] + [_I] * 5 + [_LL] * 9
                      + [_I, _F, _I, _P]),
-    "dyad_dgrad": ("repro_dyad_mm_dgrad_two",
+    "dyad_dgrad": ("dyad_dgrad", "repro_dyad_mm_dgrad_two",
                    [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_I, _P]),
-    "dyad_wgrad": ("repro_dyad_mm_wgrad",
+    "dyad_wgrad": ("dyad_wgrad", "repro_dyad_mm_wgrad",
                    [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_I, _I, _P]),
-    "flash_bwd": ("repro_flash_prefill_grads",
+    "flash_bwd": ("flash_bwd", "repro_flash_prefill_grads",
                   [_P] * 9 + [_P, _I, _P, _I] + [_I] * 6 + [_LL] * 14
                   + [_I, _I, _F, _I, _P]),
-    "dyad_mm_two": ("repro_dyad_mm_blocks_two",
+    "dyad_mm_two": ("dyad_mm_two", "repro_dyad_mm_blocks_two",
                     [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_I, _P]),
-    "dyad_dgrad_fused": ("repro_dyad_mm_dgrad",
+    "dyad_dgrad_fused": ("dyad_dgrad_fused", "repro_dyad_mm_dgrad",
                          [_P] * 5 + [_I] * 4 + [_LL] * 9 + [_I, _P]),
-    "dyad_ff": ("repro_dyad_ff_fused",
+    "dyad_ff": ("dyad_ff", "repro_dyad_ff_fused",
                 [_P] * 11 + [_I] * 7 + [_LL] * 12 + [_I] * 3 + [_P]),
-    "flash_decode_paged": ("repro_flash_decode_paged",
+    "flash_decode_paged": ("flash_decode_paged", "repro_flash_decode_paged",
                            [_P] * 8 + [_I] * 7 + [_LL] * 3
                            + [_I, _F, _I, _I, _P]),
+    "dyad_mm_q": ("dyad_mm_q", "repro_dyad_mm_blocks_q",
+                  [_P] * 7 + [_I] * 4 + [_LL] * 9 + [_I, _I, _P]),
+    "dyad_mm_two_q": ("dyad_mm_q", "repro_dyad_mm_blocks_two_q",
+                      [_P] * 8 + [_I] * 4 + [_LL] * 12 + [_I, _I, _P]),
+    "dyad_ff_q": ("dyad_ff", "repro_dyad_ff_fused_q",
+                  [_P] * 17 + [_I] * 7 + [_LL] * 12 + [_I] * 3 + [_P]),
 }
+SOURCES = sorted({src for src, _, _ in ENTRIES.values()})
 
 _lock = threading.Lock()
-_entries: dict = {}     # loaded C entry points, one library per source
+_entries: dict = {}     # loaded C entry points
+_libs: dict = {}        # loaded libraries, one per source
 
 
 def _nvcc() -> str:
@@ -88,7 +98,7 @@ def build_all() -> dict:
     """Compile every stale source, one nvcc each, all in parallel.
     Returns {name: seconds} for the sources built by this call."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = {n: _lib_path(n) for n in ENTRIES}
+    todo = {n: _lib_path(n) for n in SOURCES}
     todo = {n: p for n, p in todo.items() if not p.exists()}
     if not todo:
         return {}
@@ -118,15 +128,19 @@ def build_all() -> dict:
 
 
 def entry(name: str):
-    """The ctypes function of kernel source ``name``, built on first use."""
+    """The ctypes function of C entry point ``name``, its source built on
+    first use."""
     with _lock:
         fn = _entries.get(name)
         if fn is None:
-            path = _lib_path(name)
-            if not path.exists():
-                build_all()
-            symbol, argtypes = ENTRIES[name]
-            fn = getattr(ctypes.CDLL(str(path)), symbol)
+            source, symbol, argtypes = ENTRIES[name]
+            lib = _libs.get(source)
+            if lib is None:
+                path = _lib_path(source)
+                if not path.exists():
+                    build_all()
+                lib = _libs[source] = ctypes.CDLL(str(path))
+            fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _entries[name] = fn

@@ -8,7 +8,9 @@
 // the IT up projection (and the gate), the activation and the OT down
 // projection; the caller applies the OT re-view of z2 (ref.combine).
 // Replaces the TPU kernel src/repro/kernels/dyad_mm.py: dyad_ff_fused
-// (_ff_kernel, _ff_kernel_swiglu, pallas_call in _dyad_ff_impl).
+// (_ff_kernel, _ff_kernel_swiglu, pallas_call in _dyad_ff_impl), and with
+// quantized weights (the entry repro_dyad_ff_fused_q) dyad_ff_fused_q
+// (_ff_kernel_q, _ff_kernel_swiglu_q, pallas_call in _dyad_ff_q_impl).
 //
 // The hidden never goes to device memory.  A block owns 32 rows of one
 // dyad block g and up to 256 output columns of both components, whose fp32
@@ -32,6 +34,20 @@
 // activations: each is then rounded to bf16 as it is loaded, which is what
 // a cast before the call computes, without the copy of every weight.
 //
+// Quantized weights (dyad_ff_fused_q): int8 or fp8 e4m3 payloads, read as
+// bytes and converted exactly to fp32 as they are staged (quant.cuh), with
+// one fp32 scale per (block, hidden column) for the up and gate payloads
+// and per (block, output column) for the down payloads.  The two up (and
+// gate) components then sum in accumulators of their own, and their
+// scales multiply the finished fp32 sums before the activation, as the TPU
+// kernel scales each partial before its activation epilogue.  The hidden
+// is rounded to the activation dtype before the down products, as above.
+// The down scales multiply each output's fp32 sum once: before it is
+// stored, or before it is written as a partial of the hidden split, whose
+// second pass only adds; never in both places.  The unquantized kernels
+// are the same code as before (the quantized steps are compiled only for
+// payload types).
+//
 // Parallelism: at the training rows (M = 4096) the grid has n x M / 32 =
 // 512 blocks, but at the decode rows (M = 8) only n = 4.  The TPU kernel's
 // other parallel axis, the output tiles, would recompute the up tile once
@@ -48,10 +64,11 @@
 // Bound on the H100: one Qwen3-0.6B layer (n 4, d_in_b 256, d_ff_b 768,
 // d_out_b 256, swiglu) does 38.7 GFLOP at M = 4096, 0.58 ms on fp32 FMA;
 // at M = 8 it moves its 4.7 M weights, 9.4 MB in bf16, 2.8 us at
-// 3.35 TB/s.  This first version runs on FMA, not the tensor cores.
+// 3.35 TB/s (4.7 MB of int8 or fp8 payloads and 57 KB of scales: 1.4 us).
+// This first version runs on FMA, not the tensor cores.
 #include <type_traits>
 
-#include "common.cuh"
+#include "quant.cuh"
 
 namespace repro {
 namespace {
@@ -84,13 +101,17 @@ struct FFArgs {
   int M, n, d_in, d_ff, d_out;
   int split, span;     // hidden columns [s * span, (s + 1) * span) per split
   int act;
+  // quantized weights only: the scales of wu[w], (n, d_ff), and of wd[c],
+  // (n, d_out), fp32 and contiguous
+  const float* su[4];
+  const float* sd[2];
 };
 
 // a weight as the activation dtype T holds it, in fp32
 template <typename T, typename TW>
 __device__ __forceinline__ float load_w(const TW* p) {
-  if constexpr (std::is_same<T, TW>::value)
-    return to_f32(*p);
+  if constexpr (std::is_same<T, TW>::value || is_payload<TW>::value)
+    return to_f32(*p);   // a payload is exact in T: no rounding to do
   else
     return to_f32(from_f32<T>(to_f32(*p)));
 }
@@ -115,6 +136,7 @@ __global__ void __launch_bounds__(kThreads) dyad_ff_kernel(FFArgs a) {
   __shared__ __align__(16) float stage[kStageFloats];
   __shared__ __align__(16) float hs[kBJ * kPH];   // hidden tile [j][row]
   constexpr int kUps = kGated ? 4 : 2;
+  constexpr bool kQ = is_payload<TW>::value;
 
   const int o_tiles = (a.d_out + kBO - 1) / kBO;
   const int o0 = (blockIdx.x % o_tiles) * kBO;
@@ -150,12 +172,14 @@ __global__ void __launch_bounds__(kThreads) dyad_ff_kernel(FFArgs a) {
     for (int c = 0; c < 8; ++c) acc1[r][c] = acc2[r][c] = 0.f;
 
   for (int j0 = j_begin; j0 < j_end; j0 += kBJ) {
-    // 1. the up (and gate) tile, fp32 over k
-    float hu[2][4], hg[2][4];
+    // 1. the up (and gate) tile, fp32 over k; quantized, component 2 sums
+    // apart (hu2, hg2) until the scales are applied
+    float hu[2][4], hg[2][4], hu2[2][4], hg2[2][4];
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) hu[r][c] = hg[r][c] = 0.f;
+      for (int c = 0; c < 4; ++c)
+        hu[r][c] = hg[r][c] = hu2[r][c] = hg2[r][c] = 0.f;
     for (int k0 = 0; k0 < a.d_in; k0 += kBK) {
       for (int e = tid; e < kBB * kBK; e += kThreads) {
         const int r = e / kBK, k = e % kBK;
@@ -189,17 +213,50 @@ __global__ void __launch_bounds__(kThreads) dyad_ff_kernel(FFArgs a) {
           const int j = ux + 16 * c;
           const float b1 = ws[k * kPW + j];
           const float b2 = ws[(kBK + k) * kPW + j];
-          hu[0][c] = fmaf(a2.x, b2, fmaf(a1.x, b1, hu[0][c]));
-          hu[1][c] = fmaf(a2.y, b2, fmaf(a1.y, b1, hu[1][c]));
+          if constexpr (kQ) {
+            hu[0][c] = fmaf(a1.x, b1, hu[0][c]);
+            hu[1][c] = fmaf(a1.y, b1, hu[1][c]);
+            hu2[0][c] = fmaf(a2.x, b2, hu2[0][c]);
+            hu2[1][c] = fmaf(a2.y, b2, hu2[1][c]);
+          } else {
+            hu[0][c] = fmaf(a2.x, b2, fmaf(a1.x, b1, hu[0][c]));
+            hu[1][c] = fmaf(a2.y, b2, fmaf(a1.y, b1, hu[1][c]));
+          }
           if (kGated) {
             const float c1 = ws[(2 * kBK + k) * kPW + j];
             const float c2 = ws[(3 * kBK + k) * kPW + j];
-            hg[0][c] = fmaf(a2.x, c2, fmaf(a1.x, c1, hg[0][c]));
-            hg[1][c] = fmaf(a2.y, c2, fmaf(a1.y, c1, hg[1][c]));
+            if constexpr (kQ) {
+              hg[0][c] = fmaf(a1.x, c1, hg[0][c]);
+              hg[1][c] = fmaf(a1.y, c1, hg[1][c]);
+              hg2[0][c] = fmaf(a2.x, c2, hg2[0][c]);
+              hg2[1][c] = fmaf(a2.y, c2, hg2[1][c]);
+            } else {
+              hg[0][c] = fmaf(a2.x, c2, fmaf(a1.x, c1, hg[0][c]));
+              hg[1][c] = fmaf(a2.y, c2, fmaf(a1.y, c1, hg[1][c]));
+            }
           }
         }
       }
       __syncthreads();
+    }
+
+    // quantized: the scaled sums, s1 * (x1 . q1) + s2 * (x2 . q2) per
+    // hidden column (columns past the range have zero sums: scale 0)
+    if constexpr (kQ) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int jj = j0 + ux + 16 * c;
+        const long long sj = (long long)g * a.d_ff + jj;
+        const bool in = jj < j_end;
+        const float u1 = in ? a.su[0][sj] : 0.f, u2 = in ? a.su[1][sj] : 0.f;
+        const float g1 = kGated && in ? a.su[2][sj] : 0.f;
+        const float g2 = kGated && in ? a.su[3][sj] : 0.f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          hu[r][c] = hu[r][c] * u1 + hu2[r][c] * u2;
+          if (kGated) hg[r][c] = hg[r][c] * g1 + hg2[r][c] * g2;
+        }
+      }
     }
 
     // 2-4. the activation on the fp32 sums, rounded to T, staged
@@ -258,6 +315,11 @@ __global__ void __launch_bounds__(kThreads) dyad_ff_kernel(FFArgs a) {
     for (int c = 0; c < 8; ++c) {
       const int o = o0 + lane + 32 * c;
       if (o >= a.d_out) continue;
+      if constexpr (kQ) {   // the down scales, once per output sum
+        const long long so = (long long)g * a.d_out + o;
+        acc1[r][c] *= a.sd[0][so];
+        acc2[r][c] *= a.sd[1][so];
+      }
       if (a.part) {
         const long long e = ((long long)m * a.n + g) * a.d_out + o;
         a.part[(2LL * s) * per + e] = acc1[r][c];
@@ -335,5 +397,39 @@ extern "C" int repro_dyad_ff_fused(
     return launch<__nv_bfloat16, __nv_bfloat16>(a, s);
   if (dtype == kBF16 && wdtype == kF32)
     return launch<__nv_bfloat16, float>(a, s);
+  return cudaErrorInvalidValue;
+}
+
+// the quantized weights: wdtype is the payload (kInt8 or kE4M3); su1, su2
+// (and sg1, sg2) scale the up (and gate) payloads, sd1, sd2 the down ones
+extern "C" int repro_dyad_ff_fused_q(
+    const void* x1, const void* x2, const void* wu1, const void* wu2,
+    const void* wg1, const void* wg2, const void* wd1, const void* wd2,
+    const float* su1, const float* su2, const float* sg1, const float* sg2,
+    const float* sd1, const float* sd2, void* z1, void* z2, float* part,
+    int M, int n, int d_in, int d_ff, int d_out, int split, int span,
+    long long x1_sb, long long x1_sg, long long x1_sk, long long x2_sb,
+    long long x2_sg, long long x2_sk, long long z1_sb, long long z1_sg,
+    long long z1_so, long long z2_sb, long long z2_sg, long long z2_so,
+    int act, int dtype, int wdtype, void* stream) {
+  using namespace repro;
+  if (split < 1 || span < 1 || (split > 1 && !part) || act < kGelu ||
+      act > kSwiglu || !(su1 && su2 && sd1 && sd2) ||
+      (act == kSwiglu && !(wg1 && wg2 && sg1 && sg2)))
+    return cudaErrorInvalidValue;
+  if (M == 0 || n == 0 || d_out == 0) return cudaSuccess;
+  FFArgs a{x1,    x2,    x1_sb, x1_sg, x1_sk, x2_sb, x2_sg, x2_sk,
+           {wu1, wu2, wg1, wg2},  {wd1, wd2},  {z1, z2},
+           {z1_sb, z2_sb}, {z1_sg, z2_sg}, {z1_so, z2_so},
+           split > 1 ? part : nullptr, M, n, d_in, d_ff, d_out, split, span,
+           act, {su1, su2, sg1, sg2}, {sd1, sd2}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32 && wdtype == kInt8) return launch<float, int8_t>(a, s);
+  if (dtype == kF32 && wdtype == kE4M3)
+    return launch<float, __nv_fp8_e4m3>(a, s);
+  if (dtype == kBF16 && wdtype == kInt8)
+    return launch<__nv_bfloat16, int8_t>(a, s);
+  if (dtype == kBF16 && wdtype == kE4M3)
+    return launch<__nv_bfloat16, __nv_fp8_e4m3>(a, s);
   return cudaErrorInvalidValue;
 }

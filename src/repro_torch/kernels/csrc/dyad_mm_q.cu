@@ -1,0 +1,332 @@
+// dyad_mm_blocks_q and dyad_mm_blocks_two_q: the DYAD forward over
+// quantized weights (int8 or fp8 e4m3 payloads, one fp32 scale per
+// (block, out_row)),
+//
+//   z1[b, g, o] = s1[g, o] * sum_k x1[b, g, k] * q1[g, o, k]
+//   z2[b, g, o] = s2[g, o] * sum_k x2[b, g, k] * q2[g, o, k]
+//
+// dyad_mm_blocks_q writes z1 + z2 (the IT forward: both components share
+// the output layout); dyad_mm_blocks_two_q writes z1 and z2 apart (OT and
+// DT, and the split ff route's down projection; the caller applies
+// ref.combine).  Replaces the TPU kernels src/repro/kernels/dyad_mm.py:
+// dyad_mm_blocks_q and dyad_mm_blocks_two_q (_dyad_kernel_q and
+// _dyad_kernel_two_q, pallas_call in _dyad_mm_q_impl).
+//
+// The payload goes from device memory to registers as bytes and is
+// converted to fp32 there (quant.cuh); no dequantized weight exists in
+// device memory.  Each component sums in its own fp32 accumulator and its
+// scale multiplies the finished sum once, after the k loop (the TPU kernel
+// multiplies each k step's partial: the same in exact arithmetic, apart in
+// fp32 rounding only).  x1, x2, z1 and z2 are read and written through
+// their (b, g, inner) strides, so the IT/DT x2 is the stride-n view of the
+// flat input and z2 can be a view of a (M, d_out, n) buffer, as in
+// dyad_mm_two.cu.  Ragged edges are masked on load and store; there are no
+// padded copies (the TPU kernel's padded output rows and their scales do
+// not exist here).
+//
+// Bound on the H100: at decode rows (M = 8) the payload bytes (one byte a
+// weight: 1.2 MB for one OPT-125m projection, 1.6 MB for a Qwen3-0.6B up
+// projection) against a few KB of x; at prefill rows (M = 1024) fp32 FMA,
+// as dyad_mm.cu.  The two designs of dyad_mm.cu, chosen by M:
+//  - M <= 8: one warp per output row o of block g; the block stages both
+//    x views of its group in shared memory, then each warp streams its two
+//    payload rows once, four bytes a lane per load (one 32-bit word where
+//    d_in allows), and reduces the M dot products with shuffles;
+//  - larger M: a (64 x 64) output tile of one block g per CTA, 32-deep
+//    slices of x1, x2 and both payloads through shared memory as fp32, a
+//    4 x 4 register tile per thread and component.
+// The tensor cores (int8 and fp8 mma) are later work.
+#include "quant.cuh"
+
+namespace repro {
+namespace {
+
+struct QArgs {
+  const void* x[2];
+  long long x_sb[2], x_sg[2], x_sk[2];
+  const void* w[2];     // (n, d_out, d_in) payloads, contiguous
+  const float* s[2];    // (n, d_out) scales, contiguous
+  void* z[2];           // z[1] unused when the components are summed
+  long long z_sb[2], z_sg[2], z_so[2];
+  int M, n, d_in, d_out;
+};
+
+// the finished sums of output (m, g, o), scaled; summed into z[0] or
+// written apart
+template <typename T, bool kTwo>
+__device__ __forceinline__ void store_out(const QArgs& a, int m, int g, int o,
+                                          float acc1, float acc2) {
+  const long long so = (long long)g * a.d_out + o;
+  const float v1 = acc1 * a.s[0][so], v2 = acc2 * a.s[1][so];
+  T* z1 = static_cast<T*>(a.z[0]);
+  const long long e1 = m * a.z_sb[0] + g * a.z_sg[0] + o * a.z_so[0];
+  if constexpr (kTwo) {
+    z1[e1] = from_f32<T>(v1);
+    static_cast<T*>(a.z[1])[m * a.z_sb[1] + g * a.z_sg[1] + o * a.z_so[1]] =
+        from_f32<T>(v2);
+  } else {
+    z1[e1] = from_f32<T>(v1 + v2);
+  }
+}
+
+template <typename T, typename W, bool kTwo, int BM, int BN, int BK, int TM,
+          int TN>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+dyad_mm_q_kernel(QArgs a) {
+  constexpr int NX = BN / TN;
+  constexpr int NY = BM / TM;
+  constexpr int NT = NX * NY;
+  __shared__ float xs1[BK][BM + 1];
+  __shared__ float xs2[BK][BM + 1];
+  __shared__ float ws1[BK][BN + 1];
+  __shared__ float ws2[BK][BN + 1];
+
+  const int g = blockIdx.z;
+  const int m0 = blockIdx.y * BM;
+  const int o0 = blockIdx.x * BN;
+  const int tid = threadIdx.x;
+  const int tx = tid % NX;
+  const int ty = tid / NX;
+  const T* x1 = static_cast<const T*>(a.x[0]) + g * a.x_sg[0];
+  const T* x2 = static_cast<const T*>(a.x[1]) + g * a.x_sg[1];
+  const long long wbase = (long long)g * a.d_out * a.d_in;
+  const W* w1 = static_cast<const W*>(a.w[0]) + wbase;
+  const W* w2 = static_cast<const W*>(a.w[1]) + wbase;
+
+  float acc1[TM][TN], acc2[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc1[i][j] = acc2[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < a.d_in; k0 += BK) {
+    for (int e = tid; e < BM * BK; e += NT) {
+      const int r = e / BK, c = e % BK;
+      const int m = m0 + r, k = k0 + c;
+      float u = 0.f, v = 0.f;
+      if (m < a.M && k < a.d_in) {
+        u = to_f32(x1[m * a.x_sb[0] + k * a.x_sk[0]]);
+        v = to_f32(x2[m * a.x_sb[1] + k * a.x_sk[1]]);
+      }
+      xs1[c][r] = u;
+      xs2[c][r] = v;
+    }
+    for (int e = tid; e < BN * BK; e += NT) {
+      const int r = e / BK, c = e % BK;
+      const int o = o0 + r, k = k0 + c;
+      float u = 0.f, v = 0.f;
+      if (o < a.d_out && k < a.d_in) {
+        const long long off = (long long)o * a.d_in + k;
+        u = to_f32(w1[off]);
+        v = to_f32(w2[off]);
+      }
+      ws1[c][r] = u;
+      ws2[c][r] = v;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      float a1[TM], a2[TM], b1[TN], b2[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        a1[i] = xs1[kk][ty + i * NY];
+        a2[i] = xs2[kk][ty + i * NY];
+      }
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        b1[j] = ws1[kk][tx + j * NX];
+        b2[j] = ws2[kk][tx + j * NX];
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          acc1[i][j] = fmaf(a1[i], b1[j], acc1[i][j]);
+          acc2[i][j] = fmaf(a2[i], b2[j], acc2[i][j]);
+        }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty + i * NY;
+    if (m >= a.M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int o = o0 + tx + j * NX;
+      if (o < a.d_out) store_out<T, kTwo>(a, m, g, o, acc1[i][j], acc2[i][j]);
+    }
+  }
+}
+
+constexpr int kMaxRowsMv = 8;     // rows of x the decode kernel takes
+constexpr int kMvWarps = 8;       // output rows per decode block
+
+// four payloads from k on (those at or past d_in read as 0), as one
+// little-endian word
+template <typename W>
+__device__ __forceinline__ uint32_t load4(const W* row, int k, int d_in,
+                                          bool vec) {
+  const uint8_t* p = reinterpret_cast<const uint8_t*>(row) + k;
+  if (vec) return *reinterpret_cast<const uint32_t*>(p);
+  uint32_t w = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (k + i < d_in) w |= (uint32_t)p[i] << (8 * i);
+  return w;
+}
+
+template <typename T, typename W, bool kTwo>
+__global__ void __launch_bounds__(kMvWarps * 32)
+dyad_mv_q_kernel(QArgs a, int vec) {
+  extern __shared__ __align__(16) float xs[];  // [M][d_in] of x1, then x2
+  const int g = blockIdx.y;
+  const int M = a.M, d_in = a.d_in;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const T* x1 = static_cast<const T*>(a.x[0]) + g * a.x_sg[0];
+  const T* x2 = static_cast<const T*>(a.x[1]) + g * a.x_sg[1];
+  // stage both views, kStage elements per thread per round, the loads of a
+  // round issued before its stores
+  constexpr int kStage = 8, NT = kMvWarps * 32;
+  const int total = M * d_in;
+  for (int e0 = 0; e0 < total; e0 += kStage * NT) {
+    float v1[kStage], v2[kStage];
+#pragma unroll
+    for (int i = 0; i < kStage; ++i) {
+      const int e = e0 + tid + i * NT;
+      const int m = e / d_in, k = e % d_in;
+      const bool in = e < total;
+      v1[i] = in ? to_f32(x1[m * a.x_sb[0] + k * a.x_sk[0]]) : 0.f;
+      v2[i] = in ? to_f32(x2[m * a.x_sb[1] + k * a.x_sk[1]]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kStage; ++i) {
+      const int e = e0 + tid + i * NT;
+      if (e < total) {
+        xs[e] = v1[i];
+        xs[total + e] = v2[i];
+      }
+    }
+  }
+  __syncthreads();
+  const int o = blockIdx.x * kMvWarps + warp;
+  if (o >= a.d_out) return;
+  const long long row = ((long long)g * a.d_out + o) * d_in;
+  const W* r1 = static_cast<const W*>(a.w[0]) + row;
+  const W* r2 = static_cast<const W*>(a.w[1]) + row;
+  float acc1[kMaxRowsMv], acc2[kMaxRowsMv];
+#pragma unroll
+  for (int m = 0; m < kMaxRowsMv; ++m) acc1[m] = acc2[m] = 0.f;
+#pragma unroll 2
+  for (int k = 4 * lane; k < d_in; k += 128) {
+    const uint32_t q1 = load4(r1, k, d_in, vec);
+    const uint32_t q2 = load4(r2, k, d_in, vec);
+    float b1[4], b2[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      b1[i] = byte_f32<W>(q1, i);
+      b2[i] = byte_f32<W>(q2, i);
+    }
+#pragma unroll
+    for (int m = 0; m < kMaxRowsMv; ++m) {
+      if (m >= M) break;
+      const float* s1 = xs + m * d_in + k;
+      const float* s2 = xs + (M + m) * d_in + k;
+      if (vec) {   // 16-byte rows: d_in % 4 == 0
+        const float4 u = *reinterpret_cast<const float4*>(s1);
+        const float4 v = *reinterpret_cast<const float4*>(s2);
+        acc1[m] = fmaf(u.w, b1[3], fmaf(u.z, b1[2],
+                       fmaf(u.y, b1[1], fmaf(u.x, b1[0], acc1[m]))));
+        acc2[m] = fmaf(v.w, b2[3], fmaf(v.z, b2[2],
+                       fmaf(v.y, b2[1], fmaf(v.x, b2[0], acc2[m]))));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k + i < d_in) {
+            acc1[m] = fmaf(s1[i], b1[i], acc1[m]);
+            acc2[m] = fmaf(s2[i], b2[i], acc2[m]);
+          }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kMaxRowsMv; ++m) {
+    if (m >= M) break;
+    const float u = warp_sum(acc1[m]), v = warp_sum(acc2[m]);
+    if (lane == 0) store_out<T, kTwo>(a, m, g, o, u, v);
+  }
+}
+
+template <typename T, typename W, bool kTwo>
+cudaError_t launch(const QArgs& a, cudaStream_t stream) {
+  // decode rows: the payload-streaming kernel, while both views of the
+  // group's x rows fit in shared memory
+  const size_t smem = sizeof(float) * 2 * (size_t)a.M * a.d_in;
+  if (a.M <= kMaxRowsMv && smem <= 200 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dyad_mv_q_kernel<T, W, kTwo>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const bool aligned =
+        (reinterpret_cast<uintptr_t>(a.w[0]) % 4 == 0) &&
+        (reinterpret_cast<uintptr_t>(a.w[1]) % 4 == 0);
+    const int vec = (a.d_in % 4 == 0) && aligned;
+    dim3 grid((a.d_out + kMvWarps - 1) / kMvWarps, a.n);
+    dyad_mv_q_kernel<T, W, kTwo><<<grid, kMvWarps * 32, smem, stream>>>(a,
+                                                                        vec);
+    return cudaGetLastError();
+  }
+  constexpr int BM = 64, BN = 64, BK = 32, TM = 4, TN = 4;
+  dim3 grid((a.d_out + BN - 1) / BN, (a.M + BM - 1) / BM, a.n);
+  dyad_mm_q_kernel<T, W, kTwo, BM, BN, BK, TM, TN>
+      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kTwo>
+int dispatch(const QArgs& a, int dtype, int wdtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.M == 0 || a.n == 0 || a.d_out == 0) return cudaSuccess;
+  if (dtype == kF32 && wdtype == kInt8)
+    return launch<float, int8_t, kTwo>(a, s);
+  if (dtype == kF32 && wdtype == kE4M3)
+    return launch<float, __nv_fp8_e4m3, kTwo>(a, s);
+  if (dtype == kBF16 && wdtype == kInt8)
+    return launch<__nv_bfloat16, int8_t, kTwo>(a, s);
+  if (dtype == kBF16 && wdtype == kE4M3)
+    return launch<__nv_bfloat16, __nv_fp8_e4m3, kTwo>(a, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+}  // namespace repro
+
+extern "C" int repro_dyad_mm_blocks_q(
+    const void* x1, const void* x2, const void* w1, const void* w2,
+    const float* s1, const float* s2, void* out, int M, int n, int d_in,
+    int d_out, long long x1_sb, long long x1_sg, long long x1_sk,
+    long long x2_sb, long long x2_sg, long long x2_sk, long long o_sb,
+    long long o_sg, long long o_so, int dtype, int wdtype, void* stream) {
+  repro::QArgs a{{x1, x2},     {x1_sb, x2_sb}, {x1_sg, x2_sg},
+                 {x1_sk, x2_sk}, {w1, w2},     {s1, s2},
+                 {out, nullptr}, {o_sb, 0},    {o_sg, 0},
+                 {o_so, 0},      M,            n,
+                 d_in,           d_out};
+  return repro::dispatch<false>(a, dtype, wdtype, stream);
+}
+
+extern "C" int repro_dyad_mm_blocks_two_q(
+    const void* x1, const void* x2, const void* w1, const void* w2,
+    const float* s1, const float* s2, void* z1, void* z2, int M, int n,
+    int d_in, int d_out, long long x1_sb, long long x1_sg, long long x1_sk,
+    long long x2_sb, long long x2_sg, long long x2_sk, long long z1_sb,
+    long long z1_sg, long long z1_so, long long z2_sb, long long z2_sg,
+    long long z2_so, int dtype, int wdtype, void* stream) {
+  repro::QArgs a{{x1, x2},     {x1_sb, x2_sb}, {x1_sg, x2_sg},
+                 {x1_sk, x2_sk}, {w1, w2},     {s1, s2},
+                 {z1, z2},       {z1_sb, z2_sb}, {z1_sg, z2_sg},
+                 {z1_so, z2_so}, M,            n,
+                 d_in,           d_out};
+  return repro::dispatch<true>(a, dtype, wdtype, stream);
+}

@@ -17,7 +17,13 @@ same name in ``repro.kernels.dyad_mm``:
 * :func:`dyad_mm_wgrad` (``dyad_wgrad.cu``), both weight cotangents,
   ``dw_c[g, o, i] = sum_b z_c[b, g, o] * x_c[b, g, i]``;
 * :func:`dyad_ff_fused` (``dyad_ff.cu``), the whole ff module: IT up (and
-  gate), the activation, OT down, with the hidden kept on chip.
+  gate), the activation, OT down, with the hidden kept on chip;
+* :func:`dyad_mm_blocks_q` and :func:`dyad_mm_blocks_two_q`
+  (``dyad_mm_q.cu``) and :func:`dyad_ff_fused_q` (``dyad_ff.cu``'s second
+  entry): the forward kernels over quantized weights, int8 or fp8 payloads
+  with one fp32 scale per (block, out_row) (``repro_torch.quant``).  The
+  payload reaches the kernel as it is stored and is converted in
+  registers; each scale multiplies its fp32 sum.
 
 All but ``dyad_mm_blocks`` read their (b, g, inner) operands through
 strides, so the strided views (``x2``, ``z2bar``) are passed as they are.
@@ -435,3 +441,191 @@ def dyad_ff_fused(x1, x2, wu1, wu2, wd1, wd2, wg1=None, wg2=None, *,
 
 
 dyad_ff_fused.launches = 0
+
+
+# -- the quantized-weight kernels -------------------------------------------
+
+# the payload codes of csrc/quant.cuh
+_PAYLOADS = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
+
+def _check_payload(name: str, q: torch.Tensor, s: torch.Tensor) -> None:
+    """A payload of int8 or fp8 (never a dequantized or cast weight) and
+    its fp32 (n, rows) scales, both contiguous on the payload's device."""
+    if q.dtype not in _PAYLOADS:
+        raise TypeError(f"{name}: weight payload dtype {q.dtype}; want int8 "
+                        "or float8_e4m3fn")
+    if s.dtype != torch.float32 or tuple(s.shape) != tuple(q.shape[:2]):
+        raise TypeError(f"{name}: scales {s.dtype} {tuple(s.shape)}; want "
+                        f"float32 {tuple(q.shape[:2])}")
+    if q.device != s.device or not (q.is_contiguous() and s.is_contiguous()):
+        raise ValueError(f"{name}: payloads and scales must be contiguous, "
+                         "on one device")
+
+
+def _qmm(x, q, s):
+    """``s[g, o] * sum_k x[b, g, k] q[g, o, k]`` in fp32 (fp64 for fp64)."""
+    f = _acc(x.dtype)
+    return torch.einsum("bgk,gok->bgo", x.to(f), q.to(f)) * s.to(f)[None]
+
+
+def dyad_mm_blocks_q_plain(x1, x2, w1, w2, s1, s2):
+    """The quantized forward kernel's function in plain torch: (M, n,
+    d_out) in x1's dtype, each component's fp32 sum times its scale."""
+    return (_qmm(x1, w1, s1) + _qmm(x2, w2, s2)).to(x1.dtype)
+
+
+def dyad_mm_blocks_two_q_plain(x1, x2, w1, w2, s1, s2):
+    """The quantized two-output kernel's function in plain torch: ``(z1,
+    z2)``, each (M, n, d_out) in x1's dtype."""
+    return _qmm(x1, w1, s1).to(x1.dtype), _qmm(x2, w2, s2).to(x1.dtype)
+
+
+def _check_mm_q(name, x1, x2, w1, w2, s1, s2):
+    _check_views(name, x1, x2)
+    M, n, d_in = x1.shape
+    if (x2.shape != x1.shape or w1.dim() != 3 or w1.shape[0] != n
+            or w1.shape[2] != d_in or w2.shape != w1.shape
+            or w1.dtype != w2.dtype or w1.device != x1.device):
+        raise ValueError(f"{name}: x {tuple(x1.shape)}/{tuple(x2.shape)} vs "
+                         f"w {tuple(w1.shape)}/{tuple(w2.shape)} "
+                         f"{w1.dtype}/{w2.dtype} on {w1.device}")
+
+
+def dyad_mm_blocks_q(x1, x2, w1, w2, s1, s2):
+    """:func:`dyad_mm_blocks` over quantized weights (each wrapper of this
+    section raises for a payload that is not int8 or fp8, on either
+    device).  x1, x2: (M, n, d_in)
+    input views (any strides; the IT/DT ``x2`` is the stride-n view), fp32
+    or bf16; w1, w2: (n, d_out, d_in) int8 or fp8 payloads; s1, s2: (n,
+    d_out) fp32 scales.  Returns (M, n, d_out) in x's dtype."""
+    for q, s in ((w1, s1), (w2, s2)):
+        _check_payload("dyad_mm_blocks_q", q, s)
+    if x1.device.type == "cpu":
+        return dyad_mm_blocks_q_plain(x1, x2, w1, w2, s1, s2)
+    _check_mm_q("dyad_mm_blocks_q", x1, x2, w1, w2, s1, s2)
+    M, n, d_in = x1.shape
+    d_out = w1.shape[1]
+    out = torch.empty(M, n, d_out, dtype=x1.dtype, device=x1.device)
+    err = build.entry("dyad_mm_q")(
+        build.ptr(x1), build.ptr(x2), build.ptr(w1), build.ptr(w2),
+        build.ptr(s1), build.ptr(s2), build.ptr(out), M, n, d_in, d_out,
+        *x1.stride(), *x2.stride(), *out.stride(), _DTYPES[x1.dtype],
+        _PAYLOADS[w1.dtype], build.stream(x1.device))
+    build.check(err, "dyad_mm_blocks_q")
+    dyad_mm_blocks_q.launches += 1
+    return out
+
+
+dyad_mm_blocks_q.launches = 0
+
+
+def dyad_mm_blocks_two_q(x1, x2, w1, w2, s1, s2):
+    """:func:`dyad_mm_blocks_two` over quantized weights (arguments as
+    :func:`dyad_mm_blocks_q`).  Returns ``(z1, z2)``, each (M, n, d_out)
+    in x's dtype; on CUDA ``z2`` is a view of a contiguous (M, d_out, n)
+    buffer, so the OT/DT ``ref.combine`` reshapes it for free."""
+    for q, s in ((w1, s1), (w2, s2)):
+        _check_payload("dyad_mm_blocks_two_q", q, s)
+    if x1.device.type == "cpu":
+        return dyad_mm_blocks_two_q_plain(x1, x2, w1, w2, s1, s2)
+    _check_mm_q("dyad_mm_blocks_two_q", x1, x2, w1, w2, s1, s2)
+    M, n, d_in = x1.shape
+    d_out = w1.shape[1]
+    z1 = torch.empty(M, n, d_out, dtype=x1.dtype, device=x1.device)
+    z2 = _permuted_out(M, n, d_out, x1)
+    err = build.entry("dyad_mm_two_q")(
+        build.ptr(x1), build.ptr(x2), build.ptr(w1), build.ptr(w2),
+        build.ptr(s1), build.ptr(s2), build.ptr(z1), build.ptr(z2), M, n,
+        d_in, d_out, *x1.stride(), *x2.stride(), *z1.stride(), *z2.stride(),
+        _DTYPES[x1.dtype], _PAYLOADS[w1.dtype], build.stream(x1.device))
+    build.check(err, "dyad_mm_blocks_two_q")
+    dyad_mm_blocks_two_q.launches += 1
+    return z1, z2
+
+
+dyad_mm_blocks_two_q.launches = 0
+
+
+def _check_ff_q_args(wg1, wg2, sg1, sg2, act: str) -> None:
+    _check_ff_args(wg1, wg2, act)
+    if act == "swiglu" and (sg1 is None or sg2 is None):
+        raise ValueError("sg1/sg2 must be passed when act='swiglu'")
+
+
+def dyad_ff_fused_q_plain(x1, x2, wu1, wu2, wd1, wd2, su1, su2, sd1, sd2, *,
+                          wg1=None, wg2=None, sg1=None, sg2=None,
+                          act: str = "gelu"):
+    """The quantized megakernel's function in plain torch: ``(z1, z2)``,
+    each (M, n, d_out) in x1's dtype.  Each up (and gate) component's fp32
+    sum is scaled before the activation, the hidden is rounded to x's
+    dtype before the down products, and each down sum is scaled, as the
+    TPU kernel does."""
+    _check_ff_q_args(wg1, wg2, sg1, sg2, act)
+    u = _qmm(x1, wu1, su1) + _qmm(x2, wu2, su2)
+    if act == "swiglu":
+        h = torch.nn.functional.silu(_qmm(x1, wg1, sg1)
+                                     + _qmm(x2, wg2, sg2)) * u
+    else:
+        h = ref.ACTS[act](u)
+    h = h.to(x1.dtype)
+    return _qmm(h, wd1, sd1).to(x1.dtype), _qmm(h, wd2, sd2).to(x1.dtype)
+
+
+def dyad_ff_fused_q(x1, x2, wu1, wu2, wd1, wd2, su1, su2, sd1, sd2, *,
+                    wg1=None, wg2=None, sg1=None, sg2=None,
+                    act: str = "gelu"):
+    """:func:`dyad_ff_fused` over quantized weights; the hidden stays on
+    chip.
+
+    x1, x2:   (M, n, d_in) IT input views, fp32 or bf16;
+    wu*, wg*: (n, d_ff_b, d_in) int8 or fp8 payloads with su*, sg* (n,
+              d_ff_b) fp32 scales (the gate's exactly when ``act ==
+              "swiglu"``);
+    wd*:      (n, d_out, d_ff_b) payloads with sd* (n, d_out) scales.
+    Every payload has one dtype.  Returns ``(z1, z2)``, each (M, n, d_out)
+    in x's dtype, ``z2`` a view of a contiguous (M, d_out, n) buffer on
+    CUDA; the caller applies ``ref.combine``."""
+    _check_ff_q_args(wg1, wg2, sg1, sg2, act)
+    gated = act == "swiglu"
+    ups = ((wu1, su1), (wu2, su2)) + (((wg1, sg1), (wg2, sg2)) if gated
+                                      else ())
+    downs = ((wd1, sd1), (wd2, sd2))
+    for q, s in ups + downs:
+        _check_payload("dyad_ff_fused_q", q, s)
+    if x1.device.type == "cpu":
+        return dyad_ff_fused_q_plain(x1, x2, wu1, wu2, wd1, wd2, su1, su2,
+                                     sd1, sd2, wg1=wg1, wg2=wg2, sg1=sg1,
+                                     sg2=sg2, act=act)
+    _check_views("dyad_ff_fused_q", x1, x2)
+    M, n, d_in = x1.shape
+    d_ff = wu1.shape[1]
+    d_out = wd1.shape[1]
+    if (x2.shape != x1.shape
+            or any(q.shape != (n, d_ff, d_in) for q, _ in ups)
+            or any(q.shape != (n, d_out, d_ff) for q, _ in downs)
+            or any(q.dtype != wu1.dtype or q.device != x1.device
+                   for q, _ in ups + downs)):
+        raise ValueError(f"dyad_ff_fused_q: x {tuple(x1.shape)}, up "
+                         f"{tuple(wu1.shape)}, down {tuple(wd1.shape)}, "
+                         f"payloads {[q.dtype for q, _ in ups + downs]}")
+    dev = x1.device
+    z1 = torch.empty(M, n, d_out, dtype=x1.dtype, device=dev)
+    z2 = _permuted_out(M, n, d_out, x1)
+    split, span = ff_split(M, n, d_ff, d_out, sm_count(dev))
+    part = (torch.empty(split, 2, M, n, d_out, dtype=torch.float32,
+                        device=dev) if split > 1 else None)
+    err = build.entry("dyad_ff_q")(
+        build.ptr(x1), build.ptr(x2), build.ptr(wu1), build.ptr(wu2),
+        build.ptr(wg1), build.ptr(wg2), build.ptr(wd1), build.ptr(wd2),
+        build.ptr(su1), build.ptr(su2), build.ptr(sg1), build.ptr(sg2),
+        build.ptr(sd1), build.ptr(sd2), build.ptr(z1), build.ptr(z2),
+        build.ptr(part), M, n, d_in, d_ff, d_out, split, span, *x1.stride(),
+        *x2.stride(), *z1.stride(), *z2.stride(), _ACT_CODES[act],
+        _DTYPES[x1.dtype], _PAYLOADS[wu1.dtype], build.stream(dev))
+    build.check(err, "dyad_ff_fused_q")
+    dyad_ff_fused_q.launches += 1
+    return z1, z2
+
+
+dyad_ff_fused_q.launches = 0

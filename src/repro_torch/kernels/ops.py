@@ -29,6 +29,15 @@
 * :func:`flash_attention` — the flash forward kernel with its backward,
   ``flash_prefill_grads`` on CUDA, the same dataflow in plain torch on the
   CPU, autograd of ``ref.sdpa_ref`` for ``use_kernel_bwd=False``.
+* :func:`dyad_mm_quant` and :func:`dyad_ff_quant` — forward-only DYAD
+  linear and ff over the quantized weight sidecars (``w*_q``/``w*_s`` from
+  ``repro_torch.quant.quantize_params``): ``dyad_mm_blocks_q`` (IT) or
+  ``dyad_mm_blocks_two_q`` and ``ref.combine`` (OT/DT); the ff on the
+  route of :func:`ff_route`, ``fused`` through ``dyad_ff_fused_q``,
+  ``split`` through ``dyad_mm_blocks_q`` for up (and gate), the activation
+  in torch and ``dyad_mm_blocks_two_q`` for down.  The quantized weights
+  are a frozen snapshot, so these are plain functions, not autograd ones,
+  and they never read the retained fp weights or cast a payload.
 * :func:`attn_route` — ``flash`` (the CUDA flash kernels) on CUDA, ``xla``
   (the plain torch attention of ``layers.attention``) on the CPU.
 * :func:`flash_decode` — the ring-cache decode kernel (inference only).
@@ -57,8 +66,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attn, ref
-from repro_torch.kernels.dyad_mm import (dyad_ff_fused, dyad_mm_blocks,
-                                         dyad_mm_blocks_two, dyad_mm_dgrad,
+from repro_torch.kernels.dyad_mm import (dyad_ff_fused, dyad_ff_fused_q,
+                                         dyad_mm_blocks, dyad_mm_blocks_q,
+                                         dyad_mm_blocks_two,
+                                         dyad_mm_blocks_two_q, dyad_mm_dgrad,
                                          dyad_mm_dgrad_two, dyad_mm_wgrad)
 
 
@@ -403,6 +414,58 @@ def dyad_ff(params, x, *, act: str = "gelu", use_kernel_bwd: bool = True):
     names = (("gate", "up", "down") if act == "swiglu" else ("up", "down"))
     ws = [params[k][w] for k in names for w in ("w1", "w2")]
     return _DyadFF.apply(x, act, use_kernel_bwd, *ws)
+
+
+# -- the quantized forward routes ------------------------------------------------
+
+
+def dyad_mm_quant(x, w1q, w2q, s1, s2, *, variant: str = "it"):
+    """Forward-only :func:`dyad_mm` over quantized weights: (..., n * d_in)
+    -> (..., n * d_out).  w1q, w2q: (n, d_out, d_in) int8/fp8 payloads;
+    s1, s2: (n, d_out) fp32 scales."""
+    n, d_out, _ = w1q.shape
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, x.shape[-1])
+    x1, x2 = ref.block_views(x2d, n, variant)
+    if variant == "it":
+        y = dyad_mm_blocks_q(x1, x2, w1q, w2q, s1, s2)
+    else:
+        y = ref.combine(*dyad_mm_blocks_two_q(x1, x2, w1q, w2q, s1, s2),
+                        variant)
+    return y.reshape(*lead, n * d_out)
+
+
+def dyad_ff_quant(params, x, *, act: str = "gelu"):
+    """Forward-only :func:`dyad_ff` over quantized weights.  ``params`` is
+    the ``layers.mlp`` param dict after ``quant.quantize_params`` (every
+    projection carries ``w1_q``/``w1_s``/``w2_q``/``w2_s``)."""
+    up, down = params["up"], params["down"]
+    n = up["w1_q"].shape[0]
+    d_out = down["w1_q"].shape[1]
+    lead = x.shape[:-1]
+    x1, x2 = ref.block_views(x.reshape(-1, x.shape[-1]), n, "it")
+
+    def q(p):
+        return p["w1_q"], p["w2_q"], p["w1_s"], p["w2_s"]
+
+    gate = params["gate"] if act == "swiglu" else None
+    if ff_route() == "fused":
+        gate_kw = {}
+        if gate is not None:
+            wg1, wg2, sg1, sg2 = q(gate)
+            gate_kw = dict(wg1=wg1, wg2=wg2, sg1=sg1, sg2=sg2)
+        wu1, wu2, su1, su2 = q(up)
+        wd1, wd2, sd1, sd2 = q(down)
+        z1, z2 = dyad_ff_fused_q(x1, x2, wu1, wu2, wd1, wd2, su1, su2, sd1,
+                                 sd2, act=act, **gate_kw)
+    else:
+        u = dyad_mm_blocks_q(x1, x2, *q(up))
+        if gate is not None:
+            h = F.silu(dyad_mm_blocks_q(x1, x2, *q(gate))) * u
+        else:
+            h = ref.ACTS[act](u)
+        z1, z2 = dyad_mm_blocks_two_q(h, h, *q(down))
+    return ref.combine(z1, z2, "ot").reshape(*lead, n * d_out)
 
 
 def attn_route(device: torch.device) -> str:

@@ -12,6 +12,11 @@
   int8``); without it, or under ``REPRO_PAGED_KV=off``, dense per-slot
   rings.
 
+``--quant-weights int8|fp8`` quantizes the DYAD weights after they are
+built (``quant.quantize_params`` sidecars) and serves them through the
+quantized kernels; it needs a kernel-routed linear spec, and
+``REPRO_KERNEL_QUANT=off`` restores the fp routes.
+
 Runs on CUDA unless ``--device cpu``; without CUDA it exits non-zero.
 
 Example:
@@ -20,6 +25,9 @@ Example:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b \
         --linear dyad_it_4_kernel_ffused --engine continuous --requests 32 \
         --slots 8 --page-size 16 --prefill-chunk 32 --prefix-cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b \
+        --linear dyad_it_4_kernel_ffused --engine continuous --page-size 16 \
+        --quant-weights int8 --quant-kv int8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt125m \
         --smoke --device cpu
 """
@@ -32,6 +40,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch import device as device_lib
+from repro_torch import quant
 from repro_torch.models import model
 from repro_torch.serve.engine import ContinuousBatchingEngine, Engine
 
@@ -76,6 +85,13 @@ def main(argv=None):
                     help="continuous engine: per-request wall-clock budget; "
                          "expired requests retire with reason=deadline "
                          "keeping their partial output")
+    ap.add_argument("--quant-weights", choices=("int8", "fp8"),
+                    default=None,
+                    help="quantize the DYAD weights (per-(block, out_row) "
+                         "scale sidecars) and serve them through the "
+                         "quantized kernels; needs a kernel-routed linear "
+                         "spec.  REPRO_KERNEL_QUANT=off restores the fp "
+                         "routes")
     ap.add_argument("--quant-kv", choices=("int8",), default=None,
                     help="paged mode: int8 KV page pools with per-token-row "
                          "fp32 scale pools, dequantized in the paged decode "
@@ -90,6 +106,8 @@ def main(argv=None):
         raise SystemExit(f"[serve] {e}") from None
     linear = configs.linear_cfg(args.linear) if args.linear else None
     cfg = configs.get(args.arch, smoke=args.smoke, linear=linear)
+    if args.quant_weights:
+        cfg = cfg.replace(linear=cfg.linear.replace(quant=args.quant_weights))
     if args.quant_kv:
         if args.engine != "continuous" or args.page_size is None:
             raise SystemExit("--quant-kv requires --engine continuous with "
@@ -98,6 +116,9 @@ def main(argv=None):
         cfg = cfg.replace(kv_quant=args.quant_kv)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model.init_params(cfg, gen, dev)
+    if args.quant_weights:
+        params = quant.quantize_params(params, args.quant_weights)
+        print(f"[serve] quantized DYAD weight sidecars: {args.quant_weights}")
     max_len = args.prompt_len + args.new_tokens
     if args.engine == "continuous":
         _continuous(args, cfg, params, gen, dev, max_len)

@@ -21,7 +21,7 @@ import torch
 from repro_torch import configs
 from repro_torch import device as device_lib
 from repro_torch.data import SyntheticLM
-from repro_torch.optim import AdamW, schedule
+from repro_torch.optim import AdamW, Compressor, schedule
 from repro_torch.train import Trainer, init_train_state, make_train_step
 
 
@@ -29,19 +29,22 @@ def build_trainer(arch: str, *, smoke: bool = False, linear=None,
                   steps: int = 100, seq_len: int = 64, batch: int = 8,
                   lr: float = 1e-3, ckpt_dir=None, ckpt_every: int = 50,
                   nan_strikes: int = 3, seed: int = 0, device=None,
-                  log_fn=print):
+                  compress: str = "none", log_fn=print):
     """(cfg, trainer): the launcher's model, data, optimizer and loop.
     ``linear`` is a spec string (``configs.linear_cfg``) or None for the
-    config's own."""
+    config's own; ``compress`` the gradient codec (``int8``, ``topk`` or
+    ``none``)."""
     dev = device_lib.resolve(device)
     lin = configs.linear_cfg(linear) if linear else None
     cfg = configs.get(arch, smoke=smoke, linear=lin)
     opt = AdamW(lr=schedule.warmup_cosine(lr, steps // 10 + 1, steps))
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len,
                        global_batch=batch, seed=seed, device=str(dev))
+    comp = Compressor(codec=compress)
     state = init_train_state(
-        cfg, opt, torch.Generator(device=dev).manual_seed(seed), device=dev)
-    trainer = Trainer(make_train_step(cfg, opt), state, data,
+        cfg, opt, torch.Generator(device=dev).manual_seed(seed),
+        compressor=comp, device=dev)
+    trainer = Trainer(make_train_step(cfg, opt, compressor=comp), state, data,
                       ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
                       nan_strikes=nan_strikes, log_fn=log_fn)
     return cfg, trainer
@@ -65,6 +68,10 @@ def main(argv=None):
     ap.add_argument("--nan-strikes", type=int, default=3,
                     help="consecutive non-finite steps before rolling back "
                          "to the last checkpoint")
+    ap.add_argument("--compress", default="none",
+                    choices=("none", "int8", "topk"),
+                    help="gradient compression (with error feedback) "
+                         "before the optimizer update")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -77,10 +84,12 @@ def main(argv=None):
         args.arch, smoke=args.smoke, linear=args.linear, steps=args.steps,
         seq_len=args.seq_len, batch=args.batch, lr=args.lr,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-        nan_strikes=args.nan_strikes, seed=args.seed, device=dev)
+        nan_strikes=args.nan_strikes, seed=args.seed, device=dev,
+        compress=args.compress)
     print(f"[train] arch={cfg.name} family={cfg.family} "
           f"linear={cfg.linear.impl}({cfg.linear.variant},"
-          f"n={cfg.linear.n_dyad}) device={dev}", flush=True)
+          f"n={cfg.linear.n_dyad}) compress={args.compress} device={dev}",
+          flush=True)
     # SIGTERM (spot reclaim, scheduler) and SIGINT (ctrl-C) both finish the
     # step in flight, write a blocking checkpoint and exit 0
     trainer.install_preemption_handler(

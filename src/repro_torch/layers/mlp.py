@@ -13,16 +13,21 @@ every projection is created through the linear factory with
   ``use_kernel`` and bias-free DYAD params on every projection; a
   ``fuse_ff_kernel`` module that cannot take it drops to the ``fuse_mlp``
   dataflow, the megakernel's own function, not to the all-IT plain chain.
+  With ``quant`` and the sidecars of ``quant.quantize_params`` on every
+  projection, the forward runs over the quantized weights instead
+  (``kernels.ops.dyad_ff_quant``: ``dyad_ff_fused_q``, or the split
+  quantized kernels); ``REPRO_KERNEL_QUANT=off`` keeps the fp route.
 
-Not ported: the quantized megakernel route (ROADMAP A.10) raises;
-tensor parallelism (A.11) has no sharding context in the port, so the
-reference's per-shard branches have nothing to dispatch on.
+Not ported: tensor parallelism (A.11) has no sharding context in the
+port, so the reference's per-shard branches have nothing to dispatch on,
+and the fault-injection hook on the quantized route waits for A.12.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import quant as quant_lib
 from repro_torch.core import dyad as dyad_lib
 from repro_torch.core import factory
 from repro_torch.kernels import ops as kops
@@ -64,6 +69,16 @@ def _ff_kernel_ready(params, lin_cfg: factory.LinearCfg, act: str) -> bool:
             and _ff_module_ok(params, act))
 
 
+def _ff_quant_ready(params, lin_cfg: factory.LinearCfg, act: str) -> bool:
+    """Route this ff module through the quantized kernels?  Needs the
+    ``quant`` opt-in on top of the megakernel's conditions, the quantized
+    routes enabled, and the sidecars on every projection: a tree without
+    them (the training params) keeps the fp routes."""
+    return (bool(lin_cfg.quant) and lin_cfg.use_kernel
+            and lin_cfg.fuse_ff_kernel and _ff_module_ok(params, act)
+            and quant_lib.enabled() and quant_lib.ff_quantized(params))
+
+
 def _fused_dyad_mlp(params, x, lin_cfg: factory.LinearCfg, act: str):
     """Mixed-variant ff as einsums: up = IT returning the block layout,
     down = OT consuming it, so the hidden never takes the flat layout."""
@@ -79,10 +94,9 @@ def _fused_dyad_mlp(params, x, lin_cfg: factory.LinearCfg, act: str):
 
 
 def apply_mlp(params, x, lin_cfg: factory.LinearCfg, *, act: str = "swiglu"):
-    if lin_cfg.quant and _ff_kernel_ready(params, lin_cfg, act):
-        raise NotImplementedError(
-            "the quantized ff megakernel route is not ported yet "
-            "(ROADMAP A.10)")
+    if _ff_quant_ready(params, lin_cfg, act):
+        # forward-only: the quantized snapshot is frozen
+        return kops.dyad_ff_quant(params, x, act=act)
     if _ff_kernel_ready(params, lin_cfg, act):
         return kops.dyad_ff(params, x, act=act,
                             use_kernel_bwd=lin_cfg.use_kernel_bwd)

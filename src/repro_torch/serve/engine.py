@@ -28,14 +28,15 @@
   mid-prefill lanes point at scratch page 0 with index 0), and the step's
   tokens and its non-finite-lane mask come back in one copy.  A NaN guard
   retries a step with non-finite logits once on the same route, then
-  demotes the ff forward from the fused megakernel to the split kernels
-  for this engine alone; lanes still non-finite retire ``FAULTED``.  The
-  reference's ladder has two more rungs, ``quant`` and ``attn``
-  (flash -> einsum), which the port does not take: it has no quantized
-  weights yet (A.10), and on the card it never gives way to plain torch
-  attention (ROADMAP C.5).  The caches are written in place and a
-  retried step rewrites the same rows, so the last tokens are committed
-  only once a step is accepted.
+  walks a ladder of demotions, one rung per retry, for this engine alone:
+  ``quant`` (the quantized weight sidecars ignored: the fp routes) and
+  ``ff`` (the ff forward from the fused megakernel to the split kernels).
+  A rung already on its safe route is passed without a retry.  Lanes
+  still non-finite retire ``FAULTED``.  The reference's third rung,
+  ``attn`` (flash -> einsum), is not taken: on the card the port never
+  gives way to plain torch attention (ROADMAP C.5).  The caches are
+  written in place and a retried step rewrites the same rows, so the last
+  tokens are committed only once a step is accepted.
 
 Not ported yet (ROADMAP A.12): the reference's fault-injection sites,
 spans, instants and route events, and ``autotune``.
@@ -43,6 +44,7 @@ spans, instants and route events, and ``autotune``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import enum
 import hashlib
@@ -56,6 +58,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch import obs
+from repro_torch import quant as quant_lib
 from repro_torch.errors import (AdmissionError, DeadlineExceeded,
                                 PageAccountingError, PageExhausted)
 from repro_torch.kernels import ops as kops
@@ -346,9 +349,12 @@ class ContinuousBatchingEngine:
         self.nan_guard = bool(nan_guard)
         self.preempt_enabled = bool(preempt)
         self._admit_seq = itertools.count()
-        # the demoted rungs; the port's one rung forces this engine's ff
-        # forward to ``split`` (kops.force_ff_route around its calls)
+        # the demoted rungs, held in this engine's calls (``_routes``):
+        # ``quant`` ignores the weight sidecars, ``ff`` forces the ff
+        # forward to ``split``
         self.demoted: List[str] = []
+        self._sidecars = any(quant_lib.ff_quantized(lp.get("mlp"))
+                             for lp in params["layers"])
 
     def _ctl_views(self, cache, ctl, batch: int) -> None:
         """Point every layer's block table and write index at views of the
@@ -739,23 +745,39 @@ class ContinuousBatchingEngine:
         self.finished.append(req)
 
     # -- NaN guard + demotion ladder ----------------------------------------
+    # the demotion ladder, in the order it is walked
+    LADDER = ("quant", "ff")
+
+    @contextlib.contextmanager
     def _routes(self):
         """The context of this engine's model calls: its demoted routes."""
-        return kops.force_ff_route("split" if "ff" in self.demoted
-                                   else None)
+        with quant_lib.disabled("quant" in self.demoted), \
+                kops.force_ff_route("split" if "ff" in self.demoted
+                                    else None):
+            yield
+
+    def _on_safe_route(self, rung: str) -> bool:
+        """Does ``rung`` run its safe route already?  ``quant``: the
+        quantized routes are off, or no ff module of the params carries
+        sidecars; ``ff``: the ff forward runs split anyway."""
+        if rung == "quant":
+            return not (quant_lib.enabled() and self._sidecars)
+        return kops.ff_route() == "split"
 
     def _demote_next(self) -> bool:
-        """Take the ladder's one rung, the ff forward from the fused
-        megakernel to the split kernels, for this engine's calls.  False
-        when it is taken already, or when the ff runs split anyway: the
-        caller then retires the still-bad lanes as ``FAULTED``."""
-        if "ff" in self.demoted:
-            return False
-        self.demoted.append("ff")
-        if kops.ff_route() == "split":
-            return False            # already on the safe route
-        self.metrics.counter("demotions").inc()
-        return True
+        """Take the next rung of :attr:`LADDER` for this engine's calls,
+        passing over (but recording) rungs already on their safe route.
+        False when no rung is left to take: the caller then retires the
+        still-bad lanes as ``FAULTED``."""
+        for rung in self.LADDER:
+            if rung in self.demoted:
+                continue
+            self.demoted.append(rung)
+            if self._on_safe_route(rung):
+                continue
+            self.metrics.counter("demotions").inc()
+            return True
+        return False
 
     def reset_demotions(self) -> None:
         """Restore the routes from before any demotion (after the fault

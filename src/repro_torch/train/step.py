@@ -2,12 +2,14 @@
 micro-batch accumulation, AdamW, and the non-finite skip-step.
 
 The train state is ``{"params": tree, "opt": {"m", "v", "step"[,
-"master"]}}`` of device tensors.  ``train_step(state, batch)`` updates it
-in place and returns ``(state, metrics)`` with 0-dim device tensors as
-metrics: nothing is read back to the host, so the caller decides when to
-synchronise.
+"master"]}[, "compress": {"err": tree}]}`` of device tensors.
+``train_step(state, batch)`` updates it in place and returns ``(state,
+metrics)`` with 0-dim device tensors as metrics: nothing is read back to
+the host, so the caller decides when to synchronise.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -15,23 +17,22 @@ from repro_torch import tree
 from repro_torch.models import model
 from repro_torch.models.config import ModelCfg
 from repro_torch.optim.adamw import AdamW
-
-
-def _check_compressor(compressor) -> None:
-    if compressor is not None and getattr(compressor, "codec", "none") != "none":
-        raise NotImplementedError(
-            "gradient compression is not ported yet (ROADMAP A.10)")
+from repro_torch.optim.compress import Compressor
 
 
 def init_train_state(cfg: ModelCfg, opt: AdamW, generator: torch.Generator,
-                     compressor=None, device=None) -> dict:
+                     compressor: Optional[Compressor] = None,
+                     device=None) -> dict:
     """Random params drawn from ``generator`` (on ``device``; ``None``
     means cuda) and the optimizer state, each tree packed into one buffer
     (``tree.pack``) so the update and the skip-step run on whole vectors
-    without concatenating the leaves."""
-    _check_compressor(compressor)
+    without concatenating the leaves; with a ``compressor`` other than
+    ``none``, its error-feedback state too."""
     params = tree.pack(model.init_params(cfg, generator, device))
-    return {"params": params, "opt": opt.init(params)}
+    state = {"params": params, "opt": opt.init(params)}
+    if compressor is not None and compressor.codec != "none":
+        state["compress"] = compressor.init(params)
+    return state
 
 
 def loss_and_grads(cfg: ModelCfg, params, batch):
@@ -43,7 +44,8 @@ def loss_and_grads(cfg: ModelCfg, params, batch):
     return metrics, tree.map(lambda _: next(it), live)
 
 
-def make_train_step(cfg: ModelCfg, opt: AdamW, compressor=None,
+def make_train_step(cfg: ModelCfg, opt: AdamW,
+                    compressor: Optional[Compressor] = None,
                     nan_guard: bool = True):
     """Build ``train_step(state, batch) -> (state, metrics)``.
 
@@ -59,9 +61,11 @@ def make_train_step(cfg: ModelCfg, opt: AdamW, compressor=None,
 
     A ``"_fault_poison"`` batch key (a float scalar) multiplies the
     gradients and the loss metric by NaN when nonzero; it is removed before
-    the batch reaches the model.  A compressor with a codec other than
-    ``none`` raises (ROADMAP A.10)."""
-    _check_compressor(compressor)
+    the batch reaches the model.
+
+    With a ``compressor`` and a ``"compress"`` entry in the state, the
+    gradients go through its lossy round trip (error feedback) before the
+    optimizer update; the skip-step keeps the error state too."""
     accum = max(cfg.grad_accum, 1)
 
     def grads_of(params, batch):
@@ -96,9 +100,13 @@ def make_train_step(cfg: ModelCfg, opt: AdamW, compressor=None,
                                  torch.tensor(1.0, device=dev))
             grads = tree.map(lambda g: g * nanify.to(g.dtype), grads)
             metrics = dict(metrics, loss=metrics["loss"] * nanify)
+        new = {}
+        if "compress" in state and compressor is not None:
+            grads, new["compress"] = compressor.compress_decompress(
+                grads, state["compress"])
         new_params, new_opt, om = opt.update(grads, state["opt"], params)
         metrics = dict(metrics, **om)
-        new = {"params": new_params, "opt": new_opt}
+        new.update(params=new_params, opt=new_opt)
         ok = None
         if nan_guard:
             ok = (torch.isfinite(metrics["loss"])
@@ -117,11 +125,14 @@ def _copy_in(state, new, ok) -> None:
     bitwise unchanged, without a host sync.  Each of the params, the
     moments and the master copy is selected as one vector (its packed
     buffer, see ``tree.pack``, or a concatenation) and copied back in one
-    go."""
+    go, and so is a compressor's error state."""
     for key in sorted(new["opt"]):
         _copy_vec(tree.leaves(state["opt"][key]),
                   tree.leaves(new["opt"][key]), ok)
     _copy_vec(tree.leaves(state["params"]), tree.leaves(new["params"]), ok)
+    if "compress" in new and new["compress"]:
+        _copy_vec(tree.leaves(state["compress"]),
+                  tree.leaves(new["compress"]), ok)
 
 
 def _copy_vec(olds, news, ok) -> None:

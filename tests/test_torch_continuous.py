@@ -394,12 +394,12 @@ def test_transient_nan_costs_one_retry_and_no_tokens(page_size,
 
 
 def test_nan_weights_walk_the_ladder_to_faulted(clean_routes):
-    """NaN weights defeat the retry and the port's one rung (the ff
-    forward, fused -> split): the decoding lanes retire FAULTED with their
-    prefill token only, the demotion shows in the metrics, the process
-    environment is untouched, and ``reset_demotions`` clears it.  The
-    reference's ``quant`` and ``attn`` rungs are not taken (ROADMAP
-    C.5)."""
+    """NaN weights defeat the retry and the ladder: the ``quant`` rung is
+    passed without a retry (these params carry no sidecars), the ff
+    forward goes fused -> split, and the decoding lanes retire FAULTED
+    with their prefill token only; the demotion shows in the metrics, the
+    process environment is untouched, and ``reset_demotions`` clears it.
+    The reference's ``attn`` rung is not taken (ROADMAP C.5)."""
     _, _, tcfg, tp = _model()
     bad = dict(tp, final_norm={k: torch.full_like(v, float("nan"))
                                for k, v in tp["final_norm"].items()})
@@ -409,9 +409,9 @@ def test_nan_weights_walk_the_ladder_to_faulted(clean_routes):
     c = eng.metrics_summary()["counters"]
     assert c["retired_faulted"] == 2
     assert all(len(res[u]) == 1 for u in uids)
-    assert eng.demoted == ["ff"]
+    assert eng.demoted == ["quant", "ff"]
     assert c["demotions"] == 1 and c["nan_steps"] == 3
-    assert eng.metrics_summary()["demoted"] == ["ff"]
+    assert eng.metrics_summary()["demoted"] == ["quant", "ff"]
     assert not any(v in os.environ for v in ("REPRO_KERNEL_FF",
                                              "REPRO_KERNEL_ATTN",
                                              "REPRO_KERNEL_QUANT"))
@@ -424,7 +424,8 @@ def test_ff_demotion_stays_with_its_engine(clean_routes, monkeypatch):
     """A demoted engine runs its ff split while another engine in the same
     process stays on the fused route and serves the tokens it served
     before; ``REPRO_KERNEL_FF=split`` already set leaves nothing to
-    demote."""
+    demote.  The ``quant`` rung, passed without a retry (no sidecars),
+    comes first in ``demoted``."""
     from repro_torch.kernels import ops as kops
 
     _, _, tcfg, tp = _model()
@@ -437,7 +438,7 @@ def test_ff_demotion_stays_with_its_engine(clean_routes, monkeypatch):
                                for k, v in tp["final_norm"].items()})
     eng = _port(tcfg, bad, n_slots=2, max_len=32)
     _drive(eng, prompts, [5, 5])
-    assert eng.demoted == ["ff"] and routes[-1] == "split"
+    assert eng.demoted == ["quant", "ff"] and routes[-1] == "split"
     routes.clear()
     assert _drive(_port(tcfg, tp, n_slots=2, max_len=32), prompts,
                   [5, 5]) == want
@@ -446,7 +447,7 @@ def test_ff_demotion_stays_with_its_engine(clean_routes, monkeypatch):
     eng = _port(tcfg, bad, n_slots=2, max_len=32)
     _drive(eng, prompts, [5, 5])
     c = eng.metrics_summary()["counters"]
-    assert eng.demoted == ["ff"] and "demotions" not in c
+    assert eng.demoted == ["quant", "ff"] and "demotions" not in c
     assert c["nan_steps"] == 2 and c["retired_faulted"] == 2
 
 

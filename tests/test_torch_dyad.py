@@ -163,10 +163,24 @@ def test_factory_sites_and_apply(scope):
 
 
 def test_unported_routes_raise():
-    cfg = tbase.linear_cfg("dyad_it_4_kernel_ffused_w8")
-    p = factory.init(torch.Generator().manual_seed(0), 16, 16, cfg)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        factory.apply(p, torch.zeros(2, 16), cfg)
+    """The quantized ``_w8`` route computes: with sidecars the reference's
+    output over them, without them the fp route's.  An arch of another
+    family than the ported ones raises."""
+    from repro import quant as jquant
+    from repro_torch import quant
+
+    tcfg = tbase.linear_cfg("dyad_it_4_kernel_ffused_w8")
+    jcfg = jbase.linear_cfg("dyad_it_4_kernel_ffused_w8")
+    p = factory.init(torch.Generator().manual_seed(0), 16, 16, tcfg)
+    x = np.random.default_rng(0).standard_normal((2, 16)).astype(np.float32)
+    jp = {k: jnp.asarray(v.numpy()) for k, v in p.items()}
+    _close(factory.apply(p, torch.from_numpy(x), tcfg),
+           jfactory.apply(jp, jnp.asarray(x), jcfg))
+    q = quant.quantize_params(p, "int8")
+    jq = jquant.quantize_params(jp, "int8")
+    assert all(np.array_equal(q[k].numpy(), np.asarray(jq[k])) for k in jq)
+    _close(factory.apply(q, torch.from_numpy(x), tcfg),
+           jfactory.apply(jq, jnp.asarray(x), jcfg))
     # Qwen3-0.6B is ported now; an arch of another family is not
     with pytest.raises(NotImplementedError, match="A.13"):
         tbase.get("mamba2_780m", smoke=True)

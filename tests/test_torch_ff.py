@@ -390,12 +390,29 @@ def _spy(fn, seen, name):
 
 
 def test_quantized_megakernel_route_raises():
+    """The quantized megakernel route of ``apply_mlp`` against the
+    reference's on the same sidecars; the quantized kernel raises for a
+    weight that is not an int8 or fp8 payload."""
+    from repro import quant as jquant
+    from repro.core import factory as jfactory
+    from repro_torch import quant
+    from repro_torch.checkpoint import bridge
+
     tcfg = factory.LinearCfg(impl="dyad", use_kernel=True,
                              fuse_ff_kernel=True, quant="int8")
-    p = mlp.init_mlp(torch.Generator().manual_seed(0), 16, 32, tcfg,
-                     act="gelu")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        mlp.apply_mlp(p, torch.zeros(2, 16), tcfg, act="gelu")
+    jcfg = jfactory.LinearCfg(impl="dyad", use_kernel=True,
+                              fuse_ff_kernel=True, quant="int8")
+    jp = jquant.quantize_params(
+        jmlp.init_mlp(jax.random.PRNGKey(0), 16, 32, jcfg, act="gelu"),
+        "int8")
+    tp = bridge.from_flat({f"{m}/{k}": np.asarray(v) for m, d in jp.items()
+                           for k, v in d.items()}, "cpu")
+    x = np.random.default_rng(1).standard_normal((2, 16)).astype(np.float32)
+    _close(mlp.apply_mlp(tp, torch.from_numpy(x), tcfg, act="gelu"),
+           jmlp.apply_mlp(jp, jnp.asarray(x), jcfg, act="gelu"), 32)
+    tp["up"]["w1_q"] = tp["up"]["w1_q"].float()
+    with pytest.raises(TypeError, match="payload"):
+        mlp.apply_mlp(tp, torch.from_numpy(x), tcfg, act="gelu")
 
 
 def test_dyad_ff_ref_matches_the_reference_oracle():

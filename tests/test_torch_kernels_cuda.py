@@ -595,3 +595,123 @@ def test_cpu_paged_decode_takes_the_plain_version():
         q, pk, pv, scales["scales_k"], scales["scales_v"], bt, idx), want)
     assert counts == (flash_attn.flash_decode_paged.launches,
                       flash_attn.flash_decode_paged_int8.launches)
+
+
+# -- the quantized-weight kernels ------------------------------------------
+
+Q_WRAPPERS = (dyad_mm.dyad_mm_blocks_q, dyad_mm.dyad_mm_blocks_two_q,
+              dyad_mm.dyad_ff_fused_q)
+PAYLOADS = ["int8", "fp8"]
+
+
+def _qweight(gen, shape, qdtype, device, scale=1.0):
+    """(payload, scales) of a weight at the init scale, times ``scale``."""
+    from repro_torch import quant
+
+    w = _randn(gen, *shape, device=device) * (scale / shape[-1] ** 0.5)
+    return quant.quantize_dyad_weight(w, qdtype)
+
+
+def _mm_q_case(device, M, n, d_in, d_out, dtype, qdtype, view):
+    gen = torch.Generator(device=device).manual_seed(M + d_in + d_out)
+    x = _randn(gen, M, n * d_in, device=device, dtype=dtype)
+    x1 = x.reshape(M, n, d_in)
+    x2 = x.reshape(M, d_in, n).transpose(1, 2) if view == "it" else x1
+    (q1, s1), (q2, s2) = (_qweight(gen, (n, d_out, d_in), qdtype, device)
+                          for _ in range(2))
+    return x1, x2, q1, q2, s1, s2
+
+
+def test_cpu_quant_tensors_take_the_plain_versions():
+    cpu = torch.device("cpu")
+    counts = [w.launches for w in Q_WRAPPERS]
+    for qdtype in PAYLOADS:
+        args = _mm_q_case(cpu, 5, 2, 12, 8, torch.float32, qdtype, "it")
+        assert torch.equal(dyad_mm.dyad_mm_blocks_q(*args),
+                           dyad_mm.dyad_mm_blocks_q_plain(*args))
+        got = dyad_mm.dyad_mm_blocks_two_q(*args)
+        want = dyad_mm.dyad_mm_blocks_two_q_plain(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        x1, x2, q1, q2, s1, s2 = args
+        qd, sd = _qweight(torch.Generator().manual_seed(1), (2, 3, 8),
+                          qdtype, cpu)
+        got = dyad_mm.dyad_ff_fused_q(x1, x2, q1, q2, qd, qd, s1, s2, sd, sd)
+        want = dyad_mm.dyad_ff_fused_q_plain(x1, x2, q1, q2, qd, qd, s1, s2,
+                                             sd, sd)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert counts == [w.launches for w in Q_WRAPPERS]
+
+
+# (M, n, d_in_b, d_out_b): OPT-125m's up and down at decode and prefill
+# rows, Qwen3-0.6B's up, then ragged edges (odd rows, dims off the tile
+# and off a multiple of 4)
+Q_MM_SHAPES = [(8, 4, 192, 768), (1024, 4, 768, 192), (8, 4, 256, 768),
+               (77, 3, 129, 67), (5, 2, 70, 131)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qdtype", PAYLOADS)
+@pytest.mark.parametrize("M,n,d_in,d_out", Q_MM_SHAPES)
+def test_dyad_mm_q_kernels_match_plain(cuda, M, n, d_in, d_out, qdtype,
+                                       dtype):
+    for view in ("it", "ot"):
+        args = _mm_q_case(cuda, M, n, d_in, d_out, dtype, qdtype, view)
+        before = [w.launches for w in Q_WRAPPERS]
+        out = dyad_mm.dyad_mm_blocks_q(*args)
+        z1, z2 = dyad_mm.dyad_mm_blocks_two_q(*args)
+        torch.cuda.synchronize()
+        assert [w.launches for w in Q_WRAPPERS] == [before[0] + 1,
+                                                   before[1] + 1, before[2]]
+        assert out.dtype == dtype and out.shape == (M, n, d_out)
+        _close(out, dyad_mm.dyad_mm_blocks_q_plain(*args), dtype)
+        p1, p2 = dyad_mm.dyad_mm_blocks_two_q_plain(*args)
+        _close(z1, p1, dtype)
+        _close(z2, p2, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qdtype", PAYLOADS)
+@pytest.mark.parametrize("act", ["gelu", "relu", "silu", "swiglu"])
+@pytest.mark.parametrize("M,n,d_in,d_ff,d_out", FF_SHAPES[1:])
+def test_dyad_ff_fused_q_kernel_matches_plain(cuda, M, n, d_in, d_ff, d_out,
+                                              act, qdtype, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(M + d_ff)
+    x = _randn(gen, M, n * d_in, device=cuda, dtype=dtype)
+    x1, x2 = x.reshape(M, n, d_in), x.reshape(M, d_in, n).transpose(1, 2)
+    ups = [_qweight(gen, (n, d_ff, d_in), qdtype, cuda, 4.0)
+           for _ in range(4 if act == "swiglu" else 2)]
+    downs = [_qweight(gen, (n, d_out, d_ff), qdtype, cuda) for _ in range(2)]
+    gate = (dict(wg1=ups[2][0], wg2=ups[3][0], sg1=ups[2][1], sg2=ups[3][1])
+            if act == "swiglu" else {})
+    args = (x1, x2, ups[0][0], ups[1][0], downs[0][0], downs[1][0],
+            ups[0][1], ups[1][1], downs[0][1], downs[1][1])
+    before = dyad_mm.dyad_ff_fused_q.launches
+    z1, z2 = dyad_mm.dyad_ff_fused_q(*args, act=act, **gate)
+    torch.cuda.synchronize()
+    assert dyad_mm.dyad_ff_fused_q.launches == before + 1
+    p1, p2 = dyad_mm.dyad_ff_fused_q_plain(*args, act=act, **gate)
+    assert z1.dtype == dtype and z2.shape == (M, n, d_out)
+    _close(z1, p1, dtype)
+    _close(z2, p2, dtype)
+    # the hidden split adds its partials in a fixed order: same bits again
+    again = dyad_mm.dyad_ff_fused_q(*args, act=act, **gate)
+    assert torch.equal(again[0], z1) and torch.equal(again[1], z2)
+
+
+@pytest.mark.gpu
+def test_quant_wrappers_raise_on_the_card(cuda):
+    args = list(_mm_q_case(cuda, 8, 2, 16, 8, torch.float32, "int8", "it"))
+    bad = list(args)
+    bad[2] = args[2].float()
+    with pytest.raises(TypeError, match="payload"):
+        dyad_mm.dyad_mm_blocks_q(*bad)
+    bad = list(args)
+    bad[5] = args[5].cpu()
+    with pytest.raises(ValueError, match="one device"):
+        dyad_mm.dyad_mm_blocks_two_q(*bad)
+    bad = list(args)
+    bad[3] = args[3].view(torch.float8_e4m3fn)
+    with pytest.raises(ValueError):
+        dyad_mm.dyad_mm_blocks_q(*bad)

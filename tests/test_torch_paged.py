@@ -171,9 +171,10 @@ def test_quant_symmetric_codec():
     assert float((back - g).abs().max()) <= float(s.max()) / 2 + 1e-7
     q0, s0 = quant.quant_symmetric(g)
     assert s0.dim() == 0 and int(q0.abs().max()) == 127
-    with pytest.raises(ValueError, match="fp8"):
-        quant.resolve_dtype("fp8")
+    with pytest.raises(ValueError, match="unknown quantization dtype"):
+        quant.resolve_dtype("int4")
     assert quant.resolve_dtype("int8") == (torch.int8, 127.0)
+    assert quant.resolve_dtype("fp8") == (torch.float8_e4m3fn, 448.0)
 
 
 def test_quant_enabled_switch(monkeypatch):

@@ -368,11 +368,29 @@ def test_tree_flat_reads_a_packed_tree_without_a_copy():
 
 
 def test_compressor_other_than_none_raises():
-    class Codec:
-        codec = "int8"
-    cfg = tconfigs.get("opt125m", smoke=True)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        make_train_step(cfg, AdamW(lr=schedule.constant(LR)), Codec())
+    """A compressor other than ``none`` runs in the step: one int8 step
+    with error feedback against the reference's (loss, grad norm,
+    params); a codec neither package knows raises."""
+    from repro.optim.compress import Compressor as JCompressor
+    from repro_torch.optim import Compressor
+
+    jcfg, jp, tcfg, tp = _pair("opt125m", "dyad_it_4_kernel")
+    jopt, topt = _opt_pair()
+    jc, tc = JCompressor(codec="int8"), Compressor(codec="int8")
+    jstate = {"params": jp, "opt": jopt.init(jp), "compress": jc.init(jp)}
+    tstate = {"params": tp, "opt": topt.init(tp), "compress": tc.init(tp)}
+    batch = _batch(256, seed=70)
+    jstate, jm = jax.jit(j_make_train_step(jcfg, jopt, compressor=jc))(
+        jstate, _jb(batch))
+    tstate, tm = make_train_step(tcfg, topt, compressor=tc)(tstate,
+                                                            _tb(batch))
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(tm["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=1e-5)
+    _assert_params(bridge.to_flat(tstate["params"]), _flat(jstate["params"]))
+    with pytest.raises(ValueError, match="unknown gradient codec"):
+        Compressor(codec="int4")
 
 
 def test_eval_step_matches_loss_fn():

@@ -12,12 +12,17 @@ exit and no result line):
 2. the build of every kernel in ``src/repro_torch/kernels/csrc``;
 3. each kernel against its plain PyTorch version on the card, fp32 and
    bf16, at the OPT-125m and Qwen3-0.6B serving and training shapes and
-   the edge cases (the paged decode kernels also over bf16 and int8
-   pools, and with a poisoned scratch page; the quantized-weight kernels
-   over int8 and fp8 payloads);
+   the edge cases (the DYAD backward kernels also with the OT stride-n
+   z2bar, off the tensor-core tiles and with a split row reduction, each
+   wgrad repeated bitwise; the paged decode kernels also over bf16 and
+   int8 pools, at head dims 16, 32, 80 and 128, and with a poisoned
+   scratch page; the quantized-weight kernels over int8 and fp8
+   payloads);
 4. the time of each kernel, its plain version and a library yardstick
    (CUDA events around device work queued ahead, L2 flushed before each
-   run, median of 25 after warm-up); for the quantized-weight kernels the
+   run, median of 25 after warm-up), under the kernel's name or, at
+   another path's shapes, ``name@shape`` (``@qwen3``: the Qwen3-0.6B
+   training rows in bf16); for the quantized-weight kernels the
    yardstick is torch.bmm over weights dequantized before the timing, and
    the same with the dequantization timed too;
 5. the OPT serving path: OPT-125m at full width with ``dyad_it_4_kernel``,
@@ -76,7 +81,8 @@ exit and no result line):
    greedy tokens against the CPU port's, int8 and fp8 weights, fused and
    split: exactly equal; (e) ``REPRO_KERNEL_QUANT=off`` at 2 layers in
    fp32: exactly the unquantized run's tokens and launches;
-14. the ``kernels`` JSON line, then the result line.
+14. the ``kernels`` JSON line (every record of phase 4), then the result
+   line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -259,7 +265,8 @@ def _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases):
 
     # dyad_mm_dgrad: Qwen3's down projection dh at the training rows, the
     # OT cotangent views; yardstick: one torch.bmm over the contraction
-    # of both components
+    # of both components; copied_views_ms: z1 for both components (no
+    # stride-n view to gather)
     M, n, d_ff, d_out = two_cases["qwen3_split_down_M4096"]
     g = randn(M, n * d_out, dtype=bf16)
     z1, z2 = g.reshape(M, n, d_out), g.reshape(M, d_out, n).transpose(1, 2)
@@ -272,7 +279,8 @@ def _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases):
            time_ms(lambda: torch.bmm(zc, wc)),
            2 * (M * n * d_out + 2 * n * d_out * d_ff + M * n * d_ff),
            4.0 * M * n * d_out * d_ff, "qwen3_down_dh_M4096", BF16_FLOPS,
-           "bfloat16")
+           "bfloat16", copied_views_ms=time_ms(
+               lambda: dyad_mm.dyad_mm_dgrad(z1, z1, w1, w2)))
 
     # dyad_ff_fused: bf16 x, fp32 params (the main path's inputs)
     for label, suffix in (("qwen3_M4096", ""), ("qwen3_M1024", "@prefill"),
@@ -307,6 +315,63 @@ def _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases):
                time_ms(lambda: dyad_mm.dyad_ff_fused_plain(*args, act=act)),
                None, nbytes, flops, label, BF16_FLOPS, "bfloat16",
                split_route_ms=time_ms(split), bmm_chain_ms=time_ms(chain))
+
+
+def _time_qwen3_bwd(torch, randn, record, time_ms, bwd_cases):
+    """Phase 4 at the Qwen3-0.6B training rows (bf16, as its train step
+    runs them; records ``...@qwen3``): dyad_mm_wgrad for up (the IT views,
+    as gate) and down (the OT views: one input, the stride-n z2bar), fp32
+    out for the fp32 params; dyad_mm_dgrad_two for up's dx; dyad_mm_blocks
+    for up's forward, which the backward recomputes.  Yardstick: one
+    torch.bmm over both components' concatenated operands (bf16 out)."""
+    from repro_torch.kernels import dyad_mm
+
+    bf16 = torch.bfloat16
+    for label in ("qwen3_up_M4096", "qwen3_down_M4096"):
+        M, n, d_in, d_out = bwd_cases[label]
+        x, g = randn(M, n * d_in, dtype=bf16), randn(M, n * d_out, dtype=bf16)
+        x1 = x.reshape(M, n, d_in)
+        z = g.reshape(M, n, d_out)
+        if label == "qwen3_up_M4096":
+            xb, zb = x.reshape(M, d_in, n).transpose(1, 2), z
+        else:
+            xb, zb = x1, g.reshape(M, d_out, n).transpose(1, 2)
+        flops = 4.0 * M * n * d_out * d_in
+        zt = torch.cat([z, zb], dim=1).permute(1, 2, 0).contiguous()
+        xc = torch.cat([x1, xb], dim=1).transpose(0, 1).contiguous()
+        # copied_views_ms: the same call with no stride-n view (x1 and z1
+        # for both components, so every operand is copied, none gathered)
+        record("dyad_mm_wgrad@qwen3",
+               time_ms(lambda: dyad_mm.dyad_mm_wgrad(
+                   x1, xb, z, zb, out_dtype=torch.float32)),
+               time_ms(lambda: dyad_mm.dyad_mm_wgrad_plain(
+                   x1, xb, z, zb, out_dtype=torch.float32)),
+               time_ms(lambda: torch.bmm(zt, xc)),
+               # x and g read once (bf16), dw1 and dw2 written (fp32)
+               2 * (M * n * d_in + M * n * d_out) + 4 * 2 * n * d_out * d_in,
+               flops, label, BF16_FLOPS, "bfloat16 in, float32 out",
+               copied_views_ms=time_ms(lambda: dyad_mm.dyad_mm_wgrad(
+                   x1, x1, z, z, out_dtype=torch.float32)))
+        if label != "qwen3_up_M4096":
+            continue
+        # up's dx (du_pre for both components) and its forward
+        w1, w2 = (randn(n, d_out, d_in, dtype=bf16) for _ in range(2))
+        zc = torch.cat([z, z], dim=1).transpose(0, 1).contiguous()
+        wc = torch.cat([w1, w2], dim=0).contiguous()
+        record("dyad_mm_dgrad_two@qwen3",
+               time_ms(lambda: dyad_mm.dyad_mm_dgrad_two(z, z, w1, w2)),
+               time_ms(lambda: dyad_mm.dyad_mm_dgrad_two_plain(z, z, w1, w2)),
+               time_ms(lambda: torch.bmm(zc, wc)),
+               2 * (M * n * d_out + 2 * n * d_out * d_in + 2 * M * n * d_in),
+               flops, label, BF16_FLOPS, "bfloat16")
+        xf = torch.cat([x1, xb], dim=-1).transpose(0, 1).contiguous()
+        wf = torch.cat([w1, w2], dim=-1).transpose(1, 2).contiguous()
+        record("dyad_mm_blocks@qwen3",
+               time_ms(lambda: dyad_mm.dyad_mm_blocks(x, w1, w2, "it")),
+               time_ms(lambda: dyad_mm.dyad_mm_blocks_plain(x, w1, w2, "it")),
+               time_ms(lambda: torch.bmm(xf, wf)),
+               2 * (M * n * d_in + 2 * n * d_out * d_in + M * n * d_out),
+               flops, label, BF16_FLOPS, "bfloat16")
 
 
 def _time_paged(torch, randn, record, time_ms):
@@ -673,6 +738,10 @@ def main() -> int:
         "ragged_ot": (64, 2, 129, 130, "ot"),
         "rows3_prime": (3, 3, 7, 5, "it"),       # the decode-row kernel
         "rows5_ragged_dt": (5, 2, 129, 130, "dt"),
+        # Qwen3-0.6B's up (and gate) at the training rows, as the backward
+        # recomputes them (bf16 in its step), and its down blocks
+        "qwen3_up_M4096": (4096, N, 1024 // N, 3072 // N, "it"),
+        "qwen3_down_M4096": (4096, N, 3072 // N, 1024 // N, "it"),
     }
     max_err = {"dyad_mm_blocks": 0.0, "flash_prefill": 0.0,
                "flash_decode": 0.0, "dyad_mm_dgrad_two": 0.0,
@@ -694,6 +763,14 @@ def main() -> int:
                        window=5),
         "idx0_one_page": dict(B=2, K=2, G=4, h=64, P=16, NB=1, idx=[0, 7],
                               l_real=None, window=None),
+        # head dims padded to the kernel's 32, 64 and 128: the smoke
+        # configs' 16 (the launcher's paged smoke serve), 32 and 80
+        "h16": dict(B=2, K=2, G=2, h=16, P=16, NB=3, idx=[0, 40],
+                    l_real=None, window=None),
+        "h32": dict(B=2, K=2, G=2, h=32, P=8, NB=4, idx=[31, 5],
+                    l_real=None, window=None),
+        "h80_window": dict(B=3, K=2, G=2, h=80, P=16, NB=4,
+                           idx=[63, 10, 33], l_real=None, window=20),
     }
     # Qwen3-0.6B's ff: d 1024, d_ff 3072, n 4; blocks d_in 256, d_ff 768,
     # d_out 256
@@ -706,6 +783,12 @@ def main() -> int:
         "opt_down_M4096": (4096, N, FF // N, D // N),
         "ragged_M129": (129, 2, 13, 130),
         "prime": (7, 3, 5, 3),
+        # off the tensor-core tiles (128 x 128, 64 deep): ragged rows and
+        # dims on unaligned strides; 16-byte aligned strides, ragged copies
+        # (at n 4 the stride-n views load 16-byte runs)
+        "ragged_M300": (300, 3, 200, 130),
+        "aligned_M200": (200, 2, 136, 72),
+        "aligned_n4_M200": (200, 4, 136, 72),
     }
     # dyad_ff_fused: (M, n, d_in, d_ff, d_out, act); the Qwen3 cases at the
     # training, prefill and decode rows (the last two split the hidden)
@@ -718,13 +801,20 @@ def main() -> int:
         "ragged_silu": (37, 2, 64, 100, 64, "silu"),
         "ragged_swiglu": (5, 2, 129, 130, 17, "swiglu"),
     }
-    # the backward kernels at the OPT-125m training rows (B 8 x S 512) and
-    # the edge cases: (M, n, d_in, d_out)
+    # the backward kernels at the OPT-125m and Qwen3-0.6B training rows
+    # (B 8 x S 512) and the edge cases, among them those off the
+    # tensor-core tiles and a split row reduction: (M, n, d_in, d_out)
     bwd_cases = {
         "up_M4096": (4096, N, D // N, FF // N),
         "down_M4096": (4096, N, FF // N, D // N),
+        "qwen3_up_M4096": (4096, N, QD // N, QFF // N),
+        "qwen3_down_M4096": (4096, N, QFF // N, QD // N),
         "ragged_M129": (129, 2, 13, 130),
         "prime": (7, 3, 5, 3),
+        "ragged_M300": (300, 3, 200, 130),
+        "aligned_M200": (200, 2, 136, 72),
+        "aligned_n4_M200": (200, 4, 136, 72),
+        "split_M2048": (2048, 1, 64, 65),
     }
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
@@ -836,14 +926,29 @@ def main() -> int:
                     note("dyad_mm_dgrad_two", check(
                         f"dyad_mm_dgrad_two/{label}/{zl}/dx{c + 1}", got[c],
                         want[c], dn))
-            for out_dt in {dt, torch.float32}:
-                got = dyad_mm.dyad_mm_wgrad(x1, x2, z, z, out_dtype=out_dt)
-                want = dyad_mm.dyad_mm_wgrad_plain(x1, x2, z, z,
-                                                   out_dtype=out_dt)
-                for c in (0, 1):
-                    note("dyad_mm_wgrad", check(
-                        f"dyad_mm_wgrad/{label}/out_{str(out_dt)[6:]}"
-                        f"/dw{c + 1}", got[c], want[c], dn))
+            # wgrad: the IT views (up, gate), and the OT down projection's
+            # (one input for both components, the stride-n z2bar)
+            for wl, wargs in (("it", (x1, x2, z, z)), ("ot", (x1, x1, z, z2))):
+                for out_dt in {dt, torch.float32}:
+                    got = dyad_mm.dyad_mm_wgrad(*wargs, out_dtype=out_dt)
+                    want = dyad_mm.dyad_mm_wgrad_plain(*wargs,
+                                                       out_dtype=out_dt)
+                    for c in (0, 1):
+                        note("dyad_mm_wgrad", check(
+                            f"dyad_mm_wgrad/{label}/{wl}/out_"
+                            f"{str(out_dt)[6:]}/dw{c + 1}", got[c], want[c],
+                            dn))
+                    # no atomics, partials added in a fixed order
+                    again = dyad_mm.dyad_mm_wgrad(*wargs, out_dtype=out_dt)
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    log("check", case=f"dyad_mm_wgrad/{label}/{wl}/out_"
+                        f"{str(out_dt)[6:]}/bitwise_repeat", dtype=dn,
+                        split=dyad_mm.wgrad_split(
+                            M, n, d_in, d_out, tc=dt == torch.bfloat16)[0],
+                        ok=same)
+                    if not same:
+                        failures.append(f"dyad_mm_wgrad/{label}/{wl}/"
+                                        "bitwise_repeat")
 
         grads_cases = {
             # the training attention of one layer: B 8, S 512, K 12, causal
@@ -1115,6 +1220,8 @@ def main() -> int:
                f32 * (M * n * d_in + M * n * d_out + 2 * n * d_out * d_in),
                flops, label)
 
+    _time_qwen3_bwd(torch, randn, record, time_ms, bwd_cases)
+
     # flash_prefill_grads: one layer's attention backward at the training
     # shape.  Yardstick: the backward of F.scaled_dot_product_attention.
     Bt, St, K, h = TRAIN["B"], TRAIN["S"], 12, 64
@@ -1285,32 +1392,39 @@ def main() -> int:
                  "dyad_ff_fused_q": qcont["continuous"],
                  "dyad_mm_blocks_two_q": qcont["split"]}
     line = []
-    for name, (src, replaces) in files.items():
-        tm = timing[name]
+    # every timed record, under its kernel's name or a shape's
+    # (``name@shape``); a record at OPT's training rows counts the OPT
+    # train step, one at Qwen3's the Qwen3 train step
+    for name, tm in timing.items():
+        base, _, at = name.partition("@")
+        src, replaces = files[base]
+        path = (train_launches if at == "train" else qtrain
+                if at.startswith("qwen3") else
+                main_path.get(base, serve_launches))
         _, by = _bound_ms(tm["bytes"], tm["flops"], tm["rate"])
         entry = {
             "name": name, "route": "cuda", "source": csrc + src,
             "replaces": "src/repro/kernels/" + replaces,
-            "launches": main_path.get(name, serve_launches)[name],
-            "launches_serve": serve_launches[name],
-            "launches_train_step": train_launches[name],
-            "launches_qwen3_serve": qserve[name],
-            "launches_qwen3_train_step": qtrain[name],
-            "launches_ot_train_step": ot_train[name],
+            "launches": path[base],
+            "launches_serve": serve_launches[base],
+            "launches_train_step": train_launches[base],
+            "launches_qwen3_serve": qserve[base],
+            "launches_qwen3_train_step": qtrain[base],
+            "launches_ot_train_step": ot_train[base],
             "launches_dt_train_step":
-                variant_launches["dyad_dt_4_kernel"][name],
-            "launches_qwen3_continuous": cont["paged"][name],
-            "launches_qwen3_continuous_int8": cont["int8"][name],
-            "launches_qwen3_continuous_dense": cont["dense"][name],
-            "launches_opt_quant_serve": qopt[name],
-            "launches_qwen3_quant_continuous": qcont["continuous"][name],
-            "launches_qwen3_quant_split_2_layers": qcont["split"][name],
-            "max_abs_err": max_err[name], "ms": tm["ms"],
+                variant_launches["dyad_dt_4_kernel"][base],
+            "launches_qwen3_continuous": cont["paged"][base],
+            "launches_qwen3_continuous_int8": cont["int8"][base],
+            "launches_qwen3_continuous_dense": cont["dense"][base],
+            "launches_opt_quant_serve": qopt[base],
+            "launches_qwen3_quant_continuous": qcont["continuous"][base],
+            "launches_qwen3_quant_split_2_layers": qcont["split"][base],
+            "max_abs_err": max_err[base], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": by, "library_ms": tm["library_ms"],
             "shape": "+".join(tm["shape"]), "dtype": tm["dtype"]}
         for key in ("split_route_ms", "bmm_chain_ms", "dequant_bmm_ms",
-                    "dequant_bmm_chain_ms"):
+                    "dequant_bmm_chain_ms", "copied_views_ms"):
             if key in tm:
                 entry[key] = tm[key]
         line.append(entry)

@@ -14,12 +14,15 @@
 // transposed copy.  Ragged edges are masked on load and store.
 //
 // Bound on the H100: at Qwen3-0.6B's training rows (M = 4096, n = 4,
-// d_out 256 -> d_in 768) a call does 12.9 GFLOP on about 30 MB in fp32, so
-// fp32 operations bound it.  It is the shared FMA kernel of dyad_gemm.cuh
-// with Fuse: one GEMM per dyad block whose k loop runs over component 1's
-// o range and then component 2's, so the sum over each component is in
-// index order, as dyad_mm_dgrad_two's; no tensor cores yet.
-#include "dyad_gemm.cuh"
+// d_out 256 -> d_in 768) a call does 12.9 GFLOP on about 35 MB in bf16:
+// 0.013 ms on the bf16 tensor cores against 0.010 ms of bytes.  bf16 takes
+// the tensor-core mainloop of dyad_gemm_tc.cuh with Fuse: one GEMM per
+// dyad block whose k stages run over component 1's o range and then
+// component 2's into one fp32 accumulator, 128 x 128 tiles of dx, z staged
+// K-major (z1 copied, the stride-n z2bar gathered) and w N-major, 64 o per
+// stage.  fp32 takes the FMA mainloop of dyad_gemm.cuh in the same order,
+// bound by fp32 FMA operations (its 3xTF32 mainloop is later work).
+#include "dyad_gemm_tc.cuh"
 
 extern "C" int repro_dyad_mm_dgrad(
     const void* z1, const void* z2, const void* w1, const void* w2, void* dx,
@@ -40,8 +43,8 @@ extern "C" int repro_dyad_mm_dgrad(
   switch (dtype) {
     case repro::kF32:
       return repro::gemm::launch<float, float, true>(a, s);
-    case repro::kBF16:
-      return repro::gemm::launch<__nv_bfloat16, __nv_bfloat16, true>(a, s);
+    case repro::kBF16:   // A = z (b x o) K-major, B = w[g] (o x i) N-major
+      return repro::tc::launch<true, false, __nv_bfloat16, true>(a, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -14,18 +14,23 @@
 //
 // The TPU kernel runs the batch reduction as the innermost, sequential
 // grid axis with the accumulators carried in VMEM.  Here each
-// (component, dyad block) is one GEMM of the shared FMA kernel in
-// dyad_gemm.cuh, C = z^T x over the M rows.  At the OPT-125m training
-// shapes that leaves 144-192 output tiles per call for 132 SMs, so the
-// wrapper splits the M rows into `split` ranges (about 4 blocks per SM):
-// each block then writes fp32 partial sums and a second pass adds them in
-// a fixed order and casts, so the result does not depend on the run (no
-// atomics).
+// (component, dyad block) is one GEMM, C = z^T x over the M rows.  bf16
+// operands take the tensor-core mainloop of dyad_gemm_tc.cuh: 128 x 128
+// tiles of dw, both operands staged MN-major (z is contiguous along o, x
+// along i; the IT x2 and the OT z2bar are gathered), 64 rows of M per
+// stage.  fp32 operands take the FMA mainloop of dyad_gemm.cuh (128 x 64
+// tiles).  Where the tiles alone leave SMs idle, the wrapper splits the M
+// rows into `split` ranges (dyad_mm.wgrad_split): each block then writes
+// fp32 partial sums and a second pass adds them in a fixed order and
+// casts, so the result does not depend on the run (no atomics).
 //
-// Bound on the H100: a call at M = 4096 does 9.7 GFLOP on about 25 MB (plus
-// 2 * split * 2.4 MB of fp32 partials), so fp32 operations bound it; no
-// tensor cores yet.
-#include "dyad_gemm.cuh"
+// Bound on the H100: a call at Qwen3-0.6B's training rows (M = 4096, n = 4,
+// 768 x 256 blocks) does 12.9 GFLOP on about 25 MB in bf16: 0.013 ms on
+// the bf16 tensor cores, which bound it; at 96 tiles it needs no split, so
+// no partials cross device memory.  An fp32 call at OPT-125m's rows (9.7
+// GFLOP, plus 2 * split * 2.4 MB of partials) is bound by fp32 FMA
+// operations; its tensor-core (3xTF32) mainloop is later work.
+#include "dyad_gemm_tc.cuh"
 
 extern "C" int repro_dyad_mm_wgrad(
     const void* x1, const void* x2, const void* z1, const void* z2,
@@ -34,8 +39,9 @@ extern "C" int repro_dyad_mm_wgrad(
     long long x2_sb, long long x2_sg, long long x2_si, long long z1_sb,
     long long z1_sg, long long z1_so, long long z2_sb, long long z2_sg,
     long long z2_so, int dtype, int out_dtype, void* stream) {
-  if (split < 1 || rows < 1 || rows % repro::gemm::kBK ||
-      (split > 1 && !part))
+  const int step =
+      dtype == repro::kBF16 ? repro::tc::kBK : repro::gemm::kBK;
+  if (split < 1 || rows < 1 || rows % step || (split > 1 && !part))
     return cudaErrorInvalidValue;
   const long long w_sg = (long long)d_out * d_in;
   // C_c[g] = dw_c[g] (d_out x d_in), A_c[g][o, b] = z_c[b, g, o],
@@ -48,14 +54,16 @@ extern "C" int repro_dyad_mm_wgrad(
                         d_out,          d_in,           M,
                         split,          rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using repro::gemm::launch;
+  namespace gemm = repro::gemm;
+  namespace tc = repro::tc;
   if (dtype == repro::kF32 && out_dtype == repro::kF32)
-    return launch<float, float>(a, s);
+    return gemm::launch<float, float>(a, s);
   if (dtype == repro::kF32 && out_dtype == repro::kBF16)
-    return launch<float, __nv_bfloat16>(a, s);
+    return gemm::launch<float, __nv_bfloat16>(a, s);
+  // bf16: A = z^T (o x b) and B = x (b x i), both staged MN-major
   if (dtype == repro::kBF16 && out_dtype == repro::kF32)
-    return launch<__nv_bfloat16, float>(a, s);
+    return tc::launch<false, false, float>(a, s);
   if (dtype == repro::kBF16 && out_dtype == repro::kBF16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(a, s);
+    return tc::launch<false, false, __nv_bfloat16>(a, s);
   return cudaErrorInvalidValue;
 }

@@ -41,6 +41,18 @@
 // states merge at the end.  With B * K blocks (64 at 8 slots of Qwen3)
 // the card's 132 SMs are not filled: splitting the key axis over blocks
 // is later work.
+//
+// Any head dim h <= 128 runs, as in the ring decode kernel: the kernel is
+// instantiated at HD 32, 64 and 128 and takes the smallest HD >= h; q, K
+// and V hold zeros in the lanes past h (masked on load, so they add
+// nothing to a score or to P.V) and only the h real lanes are stored.
+// h = 64 and 128 take the unpadded instantiations, whose loads are those
+// of the kernel before padding (the masked load, in the same code, made
+// h 128 measurably slower).  The padded ones (PAD) load a lane's DPL = HD / 32 elements
+// as one vector where all lie below h and h is a multiple of DPL, and
+// otherwise (the lane that holds the edge, or an h off a multiple of DPL,
+// whose rows are not vector aligned) element by element, still before the
+// chunk's first conversion.
 #include <type_traits>
 
 #include "common.cuh"
@@ -90,6 +102,21 @@ __device__ __forceinline__ RawVec<T, N> load_raw(const T* p) {
   return __ldg(reinterpret_cast<const RawVec<T, N>*>(p));
 }
 
+// elements d0 .. d0 + N - 1 of a cache row of h elements: one vector load
+// where all N exist and the row is vector aligned (vec), else one load per
+// element below h; the lanes past h stay zero bits, which convert to 0
+template <typename T, int N>
+__device__ __forceinline__ RawVec<T, N> load_row(const T* row, int d0, int h,
+                                                 bool vec) {
+  if (vec && d0 + N <= h) return load_raw<T, N>(row + d0);
+  RawVec<T, N> raw{};
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (d0 + i < h) e[i] = row[d0 + i];
+  return raw;
+}
+
 template <typename T, int N>
 __device__ __forceinline__ void convert(const RawVec<T, N>& raw,
                                         float (&out)[N]) {
@@ -121,7 +148,7 @@ struct PagedArgs {
   float scale;
 };
 
-template <typename TQ, typename TKV, bool QUANT, int HD, int GM>
+template <typename TQ, typename TKV, bool QUANT, int HD, int GM, bool PAD>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_decode_paged_kernel(PagedArgs a) {
   constexpr int DPL = HD / 32;   // head-dim elements per lane
@@ -149,7 +176,7 @@ flash_decode_paged_kernel(PagedArgs a) {
   for (int e = tid; e < GM * HD; e += kWarps * 32) {
     const int g = e / HD, d = e % HD;
     float val = 0.f;
-    if (g < a.G)
+    if (g < a.G && d < a.h)
       val = to_f32(q[b * a.q_sb + kh * a.q_sk + g * a.q_sg + d]);
     qs[e] = val;
   }
@@ -158,6 +185,7 @@ flash_decode_paged_kernel(PagedArgs a) {
 
   float* kw = ws + warp * kWarpFloats;
   float* vw = kw + kKeys * (HD + 1);
+  const bool vec = a.h % DPL == 0;   // every row's vectors aligned (PAD)
 
   float m[GM], l[GM], acc[GM][DPL];
 #pragma unroll
@@ -193,8 +221,15 @@ flash_decode_paged_kernel(PagedArgs a) {
         if (j <= jmax) {
           const long long row =
               ((long long)bts[j / P] * P + j % P) * K + kh;
-          kraw[c] = load_raw<TKV, DPL>(pk + row * a.h + lane * DPL);
-          vraw[c] = load_raw<TKV, DPL>(pv + row * a.h + lane * DPL);
+          if constexpr (PAD) {
+            kraw[c] =
+                load_row<TKV, DPL>(pk + row * a.h, lane * DPL, a.h, vec);
+            vraw[c] =
+                load_row<TKV, DPL>(pv + row * a.h, lane * DPL, a.h, vec);
+          } else {
+            kraw[c] = load_raw<TKV, DPL>(pk + row * HD + lane * DPL);
+            vraw[c] = load_raw<TKV, DPL>(pv + row * HD + lane * DPL);
+          }
         }
       }
 #pragma unroll
@@ -260,8 +295,9 @@ flash_decode_paged_kernel(PagedArgs a) {
     }
   }
   __syncthreads();
-  for (int e = tid; e < a.G * HD; e += kWarps * 32) {
-    const int g = e / HD, d = e % HD;
+  const int h = PAD ? a.h : HD;
+  for (int e = tid; e < a.G * h; e += kWarps * 32) {
+    const int g = e / h, d = e % h;
     float mx = kNegInf;
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, pm[w * GM + g]);
     float lsum = 0.f, osum = 0.f;
@@ -270,40 +306,45 @@ flash_decode_paged_kernel(PagedArgs a) {
       lsum += pl[w * GM + g] * f;
       osum += pacc[(w * GM + g) * HD + d] * f;
     }
-    o[(((long long)b * K + kh) * a.G + g) * HD + d] =
+    o[(((long long)b * K + kh) * a.G + g) * h + d] =
         from_f32<TQ>(osum / fmaxf(lsum, kTiny));
   }
 }
 
-template <typename TQ, typename TKV, bool QUANT, int HD, int GM>
+template <typename TQ, typename TKV, bool QUANT, int HD, int GM, bool PAD>
 cudaError_t launch(const PagedArgs& a, cudaStream_t stream) {
   const size_t tiles = kWarps * kKeys * (2 * HD + 1);
   const size_t merge = kWarps * GM * (HD + 2);
   const size_t bytes =
       sizeof(float) * (GM * HD + a.NB + (tiles > merge ? tiles : merge));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_paged_kernel<TQ, TKV, QUANT, HD, GM>,
+      flash_decode_paged_kernel<TQ, TKV, QUANT, HD, GM, PAD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(a.K, a.B);
-  flash_decode_paged_kernel<TQ, TKV, QUANT, HD, GM>
+  flash_decode_paged_kernel<TQ, TKV, QUANT, HD, GM, PAD>
       <<<grid, kWarps * 32, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV, bool QUANT, int HD>
+template <typename TQ, typename TKV, bool QUANT, int HD, bool PAD>
 cudaError_t launch_g(const PagedArgs& a, cudaStream_t stream) {
-  if (a.G <= 1) return launch<TQ, TKV, QUANT, HD, 1>(a, stream);
-  if (a.G <= 2) return launch<TQ, TKV, QUANT, HD, 2>(a, stream);
-  if (a.G <= 4) return launch<TQ, TKV, QUANT, HD, 4>(a, stream);
-  if (a.G <= 8) return launch<TQ, TKV, QUANT, HD, 8>(a, stream);
+  if (a.G <= 1) return launch<TQ, TKV, QUANT, HD, 1, PAD>(a, stream);
+  if (a.G <= 2) return launch<TQ, TKV, QUANT, HD, 2, PAD>(a, stream);
+  if (a.G <= 4) return launch<TQ, TKV, QUANT, HD, 4, PAD>(a, stream);
+  if (a.G <= 8) return launch<TQ, TKV, QUANT, HD, 8, PAD>(a, stream);
   return cudaErrorInvalidValue;
 }
 
+// the smallest instantiated head dim that holds h, unpadded at 64 and 128
 template <typename TQ, typename TKV, bool QUANT>
 cudaError_t launch_hd(const PagedArgs& a, cudaStream_t stream) {
-  if (a.h == 64) return launch_g<TQ, TKV, QUANT, 64>(a, stream);
-  if (a.h == 128) return launch_g<TQ, TKV, QUANT, 128>(a, stream);
+  if (a.h == 64) return launch_g<TQ, TKV, QUANT, 64, false>(a, stream);
+  if (a.h == 128) return launch_g<TQ, TKV, QUANT, 128, false>(a, stream);
+  if (a.h < 1) return cudaErrorInvalidValue;
+  if (a.h <= 32) return launch_g<TQ, TKV, QUANT, 32, true>(a, stream);
+  if (a.h <= 64) return launch_g<TQ, TKV, QUANT, 64, true>(a, stream);
+  if (a.h <= 128) return launch_g<TQ, TKV, QUANT, 128, true>(a, stream);
   return cudaErrorInvalidValue;
 }
 

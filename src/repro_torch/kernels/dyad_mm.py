@@ -27,7 +27,9 @@ same name in ``repro.kernels.dyad_mm``:
 
 All but ``dyad_mm_blocks`` read their (b, g, inner) operands through
 strides, so the strided views (``x2``, ``z2bar``) are passed as they are.
-Every accumulation is fp32.  Each wrapper takes its plain version only for
+Every accumulation is fp32.  With bf16 operands ``dyad_mm_wgrad`` and
+``dyad_mm_dgrad`` run on the tensor cores (``dyad_gemm_tc.cuh``); the
+rest, and every fp32 operand, on fp32 FMA.  Each wrapper takes its plain version only for
 a CPU tensor; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
@@ -256,21 +258,32 @@ def dyad_mm_wgrad_plain(x1, x2, z1, z2, out_dtype=None):
     return dw1.to(out_dtype), dw2.to(out_dtype)
 
 
-# blocks the wgrad grid aims for (about 4 per SM of an H100), and the
-# tiles of csrc/dyad_gemm.cuh: 128 rows (o) x 64 columns (i) per block
-_WGRAD_BLOCKS = 4 * 132
+_SMS = 132   # an H100's
+# the tiles of csrc/dyad_gemm.cuh (fp32, FMA): 128 rows (o) x 64 columns
+# (i) per block, the rows summed in steps of 8 (a split range a multiple of
+# 32), and the blocks its grid aims for (about 4 per SM)
 _TILE_O, _TILE_I, _WGRAD_ROWS = 128, 64, 32
+_WGRAD_BLOCKS = 4 * _SMS
+# the tiles of csrc/dyad_gemm_tc.cuh (bf16, tensor cores): 128 x 128 per
+# block, one block per SM, the rows summed in stages of 64
+_TC_TILE_O, _TC_TILE_I, _TC_ROWS = 128, 128, 64
 
 
-def wgrad_split(M: int, n: int, d_in: int, d_out: int):
-    """(split, rows): the row ranges the wgrad kernel reduces apart, enough
-    for about four blocks per SM; rows is a multiple of the kernel's row
-    step."""
-    tiles = (2 * n * math.ceil(d_out / _TILE_O)
-             * math.ceil(d_in / _TILE_I))
-    chunks = max(1, math.ceil(M / _WGRAD_ROWS))
-    split = max(1, min(chunks, math.ceil(_WGRAD_BLOCKS / max(tiles, 1))))
-    rows = math.ceil(chunks / split) * _WGRAD_ROWS
+def wgrad_split(M: int, n: int, d_in: int, d_out: int, tc: bool = False):
+    """(split, rows): the row ranges the wgrad kernel reduces apart; rows
+    is a multiple of the kernel's row step.  The FMA kernel (fp32) aims for
+    about four blocks per SM.  The tensor-core kernel (``tc``, bf16) splits
+    only as far as its tiles leave SMs idle, since each split adds
+    2 * n * d_out * d_in fp32 partials written and read again, bytes
+    comparable to its operands' at the Qwen3 training rows."""
+    tile_o, tile_i, step = ((_TC_TILE_O, _TC_TILE_I, _TC_ROWS) if tc
+                            else (_TILE_O, _TILE_I, _WGRAD_ROWS))
+    tiles = (2 * n * math.ceil(d_out / tile_o) * math.ceil(d_in / tile_i))
+    chunks = max(1, math.ceil(M / step))
+    want = (_SMS // max(tiles, 1) if tc
+            else math.ceil(_WGRAD_BLOCKS / max(tiles, 1)))
+    split = max(1, min(chunks, want))
+    rows = math.ceil(chunks / split) * step
     return max(1, math.ceil(M / rows)), rows
 
 
@@ -297,7 +310,8 @@ def dyad_mm_wgrad(x1, x2, z1, z2, out_dtype=None):
     dev = x1.device
     dw1 = torch.empty(n, d_out, d_in, dtype=out_dtype, device=dev)
     dw2 = torch.empty(n, d_out, d_in, dtype=out_dtype, device=dev)
-    split, rows = wgrad_split(M, n, d_in, d_out)
+    split, rows = wgrad_split(M, n, d_in, d_out,
+                              tc=x1.dtype == torch.bfloat16)
     part = (torch.empty(split, 2, n, d_out, d_in, dtype=torch.float32,
                         device=dev) if split > 1 else None)
     err = build.entry("dyad_wgrad")(

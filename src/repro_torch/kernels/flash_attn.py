@@ -376,7 +376,6 @@ def flash_decode_paged_plain(q, pages_k, pages_v, block_table, idx, *,
 
 
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_PAGED_HEAD_DIMS = (64, 128)
 
 
 def flash_decode_paged(q, pages_k, pages_v, block_table, idx, *,
@@ -449,9 +448,9 @@ def _paged_launch(q, pages_k, pages_v, scales_k, scales_v, block_table, idx,
                         f"{pages_k.dtype}/{pages_v.dtype}, scales "
                         f"{'given' if quant else 'none'}: want fp32 or bf16 q "
                         "over fp32/bf16 pools, or int8 pools with scales")
-    if h not in _PAGED_HEAD_DIMS:
+    if h > _MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"flash_decode_paged: head dim {h} not in {_PAGED_HEAD_DIMS}")
+            f"flash_decode_paged: head dim {h} > {_MAX_HEAD_DIM}")
     if G > _MAX_GQA_DECODE:
         raise NotImplementedError(
             f"flash_decode_paged: {G} query heads per KV head > "

@@ -100,6 +100,26 @@ def test_wgrad_split_covers_the_rows():
     assert dyad_mm.wgrad_split(4096, 4, 192, 768) == (4, 1024)
 
 
+def test_wgrad_split_covers_the_rows_on_the_tensor_core_tiles():
+    tile_o, tile_i, step = (dyad_mm._TC_TILE_O, dyad_mm._TC_TILE_I,
+                            dyad_mm._TC_ROWS)
+    for M, n, d_in, d_out in [(4096, 4, 256, 768), (4096, 4, 768, 256),
+                              (129, 2, 13, 130), (100, 1, 64, 65),
+                              (1, 1, 1, 1), (0, 2, 8, 8)]:
+        split, rows = dyad_mm.wgrad_split(M, n, d_in, d_out, tc=True)
+        assert rows % step == 0 and split >= 1
+        assert (split - 1) * rows < max(M, 1) <= split * rows
+        tiles = 2 * n * -(-d_out // tile_o) * -(-d_in // tile_i)
+        # split only while every range still finds an idle SM
+        assert split == 1 or split * tiles <= dyad_mm._SMS
+    # Qwen3-0.6B up/gate and down: 96 tiles of 128 x 128 fill 96 of 132
+    # SMs, so the rows are not split and no partials are written
+    assert dyad_mm.wgrad_split(4096, 4, 256, 768, tc=True) == (1, 4096)
+    assert dyad_mm.wgrad_split(4096, 4, 768, 256, tc=True) == (1, 4096)
+    # a small grid splits: 4 tiles, 2048 rows in 32 stages of 64
+    assert dyad_mm.wgrad_split(2048, 1, 64, 65, tc=True) == (32, 64)
+
+
 # -- flash_prefill_grads ----------------------------------------------------------
 
 FLASH = [

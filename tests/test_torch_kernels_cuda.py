@@ -231,28 +231,72 @@ def test_dyad_dgrad_two_kernel_matches_plain(cuda, M, n, d_in, d_out,
         _close(dx2, p2, dtype)
 
 
+# the wgrad shapes: DGRAD_SHAPES, Qwen3-0.6B's up/gate and down at the
+# training rows (bf16 in its step), and shapes off the tensor-core tiles:
+# ragged rows and dims on unaligned strides (every operand gathered),
+# 16-byte aligned strides with ragged copies (n 2; n 4, whose stride-n
+# views load 16-byte runs, over a split of ragged row ranges), and a split
+# row reduction
+WGRAD_SHAPES = DGRAD_SHAPES + [
+    (4096, 4, 256, 768), (4096, 4, 768, 256), (300, 3, 200, 130),
+    (200, 2, 136, 72), (200, 4, 136, 72), (2048, 1, 64, 65)]
+
+
+def _wgrad_views(x, g, n, view):
+    """(x1, x2, z1, z2) as the backward passes them: IT (x1, the stride-n
+    x2, one cotangent view) or the OT down projection (one contiguous
+    input for both, the cotangent's block view and its stride-n z2bar)."""
+    x1, x2, z = _it_views(x, g, n)
+    if view == "it":
+        return x1, x2, z, z
+    M = g.shape[0]
+    return x1, x1, z, g.reshape(M, -1, n).transpose(1, 2)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("view", ["it", "ot"])
 @pytest.mark.parametrize("dtype,out_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.float32)])
-@pytest.mark.parametrize("M,n,d_in,d_out", DGRAD_SHAPES)
+@pytest.mark.parametrize("M,n,d_in,d_out", WGRAD_SHAPES)
 def test_dyad_wgrad_kernel_matches_plain(cuda, M, n, d_in, d_out, dtype,
-                                         out_dtype):
+                                         out_dtype, view):
     gen = torch.Generator(device=cuda).manual_seed(M + d_out)
     x = _randn(gen, M, n * d_in, device=cuda, dtype=dtype)
     g = _randn(gen, M, n * d_out, device=cuda, dtype=dtype)
-    x1, x2, z = _it_views(x, g, n)
+    x1, x2, z1, z2 = _wgrad_views(x, g, n, view)
     before = dyad_mm.dyad_mm_wgrad.launches
-    dw1, dw2 = dyad_mm.dyad_mm_wgrad(x1, x2, z, z, out_dtype=out_dtype)
+    dw1, dw2 = dyad_mm.dyad_mm_wgrad(x1, x2, z1, z2, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert dyad_mm.dyad_mm_wgrad.launches == before + 1
-    p1, p2 = dyad_mm.dyad_mm_wgrad_plain(x1, x2, z, z, out_dtype=out_dtype)
+    p1, p2 = dyad_mm.dyad_mm_wgrad_plain(x1, x2, z1, z2,
+                                         out_dtype=out_dtype)
     assert dw1.dtype == out_dtype and dw2.shape == (n, d_out, d_in)
     _close(dw1, p1, dtype)
     _close(dw2, p2, dtype)
     # the split row reduction is fixed: a second call is bitwise equal
-    again = dyad_mm.dyad_mm_wgrad(x1, x2, z, z, out_dtype=out_dtype)
+    again = dyad_mm.dyad_mm_wgrad(x1, x2, z1, z2, out_dtype=out_dtype)
     assert torch.equal(again[0], dw1) and torch.equal(again[1], dw2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,n,d_in,d_out", [
+    (4096, 4, 256, 768), (4096, 4, 768, 256), (2048, 1, 64, 65)])
+def test_dyad_wgrad_bf16_gives_the_same_bits_every_run(cuda, M, n, d_in,
+                                                       d_out, out_dtype):
+    """The tensor-core wgrad at Qwen3's shapes (no split) and at a split
+    one: five runs of each view, bitwise equal (no atomics; the partials
+    add in a fixed order)."""
+    gen = torch.Generator(device=cuda).manual_seed(M + d_in)
+    x = _randn(gen, M, n * d_in, device=cuda, dtype=torch.bfloat16)
+    g = _randn(gen, M, n * d_out, device=cuda, dtype=torch.bfloat16)
+    for view in ("it", "ot"):
+        args = _wgrad_views(x, g, n, view)
+        first = dyad_mm.dyad_mm_wgrad(*args, out_dtype=out_dtype)
+        for _ in range(4):
+            again = dyad_mm.dyad_mm_wgrad(*args, out_dtype=out_dtype)
+            assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.gpu
@@ -361,7 +405,11 @@ def test_dyad_blocks_two_kernel_matches_plain(cuda, M, n, d_in, d_out,
 @pytest.mark.parametrize("M,n,d_in,d_out", [
     # Qwen3-0.6B's down dh at the training rows; OPT-125m's OT dx
     (4096, 4, 768, 256), (4096, 4, 192, 768), (129, 2, 13, 130),
-    (7, 3, 5, 3)])
+    (7, 3, 5, 3),
+    # off the tensor-core tiles: exactly one tile, ragged rows and dims on
+    # unaligned strides, 16-byte aligned strides with ragged copies
+    (128, 4, 128, 64), (300, 3, 200, 130), (200, 2, 136, 72),
+    (200, 4, 136, 72)])
 def test_dyad_dgrad_fused_kernel_matches_plain(cuda, M, n, d_in, d_out,
                                                dtype):
     gen = torch.Generator(device=cuda).manual_seed(M + d_in)
@@ -512,6 +560,12 @@ def _paged_inputs(device, seed, B, K, G, h, P, NB, idxs, q_dtype,
     (1, 2, 2, 64, 4, 3, [11], 12, 5),                 # sliding window
     (2, 2, 4, 64, 16, 1, [0, 7], None, None),         # one page; idx = 0
     (2, 1, 1, 128, 16, 4, [63, 17], None, None),      # G = 1
+    # head dims padded to the instantiated 32, 64 and 128: the smoke
+    # configs' 16, 32, 80, and an odd one that loads element by element
+    (2, 2, 2, 16, 16, 3, [0, 40], None, None),
+    (2, 2, 2, 32, 8, 4, [31, 5], None, None),
+    (3, 2, 2, 80, 16, 4, [63, 10, 33], None, 20),
+    (1, 2, 2, 33, 8, 3, [20], None, None),
 ])
 def test_flash_decode_paged_kernel_matches_plain(cuda, B, K, G, h, P, NB,
                                                  idxs, l_real, window,
@@ -574,12 +628,35 @@ def test_flash_decode_paged_wrapper_raises(cuda):
                                       scales_k=scales["scales_k"])
     with pytest.raises(TypeError):
         flash_attn.flash_decode_paged(q, pk, pv, bt, idx)    # int8, no scales
+    # any head dim up to 128 runs; past it the wrapper names the limit
     q, pk, pv, bt, idx, _ = _paged_inputs(
-        cuda, 3, 2, 2, 2, 16, 4, 2, [1, 5], torch.float32, torch.float32)
+        cuda, 3, 2, 2, 2, 160, 4, 2, [1, 5], torch.float32, torch.float32)
     with pytest.raises(NotImplementedError, match="head dim"):
         flash_attn.flash_decode_paged(q, pk, pv, bt, idx)
+    q, pk, pv, bt, idx, _ = _paged_inputs(
+        cuda, 3, 2, 2, 2, 16, 4, 2, [1, 5], torch.float32, torch.float32)
     with pytest.raises(ValueError):
         flash_attn.flash_decode_paged(q, pk.cpu(), pv.cpu(), bt, idx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant_kv", [None, "int8"])
+def test_smoke_paged_serve_runs_the_kernel(cuda, capsys, quant_kv):
+    """The launcher's paged smoke serve (head dim 16) on the card: every
+    decode step goes through the paged decode kernel, no request faults
+    and no rung of the ladder is taken."""
+    from repro_torch.launch import serve
+
+    counted = (flash_attn.flash_decode_paged_int8 if quant_kv
+               else flash_attn.flash_decode_paged)
+    before = counted.launches
+    serve.main(["--arch", "qwen3_0_6b", "--smoke", "--engine", "continuous",
+                "--page-size", "16", "--device", "cuda"]
+               + (["--quant-kv", quant_kv] if quant_kv else []))
+    torch.cuda.synchronize()
+    out = capsys.readouterr().out
+    assert counted.launches > before
+    assert "[serve] paged:" in out and "demoted=[]" in out
 
 
 def test_cpu_paged_decode_takes_the_plain_version():

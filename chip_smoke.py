@@ -9,22 +9,31 @@ Phases, one line each (a phase that fails ends the run with a non-zero
 exit and no result line):
 
 1. the device: name and power limit (``nvidia-smi``);
-2. the build of every kernel in ``src/repro_torch/kernels/csrc``;
+2. the build of every kernel in ``src/repro_torch/kernels/csrc``, then
+   the SASS of the DYAD GEMM libraries (``dyad_mm``, ``dyad_dgrad``,
+   ``dyad_dgrad_fused``, ``dyad_wgrad``; ``cuobjdump -sass``): each must
+   hold ``HGMMA`` (wgmma, its bf16 route) and ``FFMA`` (its fp32 route),
+   counts on one line;
 3. each kernel against its plain PyTorch version on the card, fp32 and
    bf16, at the OPT-125m and Qwen3-0.6B serving and training shapes and
-   the edge cases (the DYAD backward kernels also with the OT stride-n
-   z2bar, off the tensor-core tiles and with a split row reduction, each
-   wgrad repeated bitwise; the paged decode kernels also over bf16 and
-   int8 pools, at head dims 16, 32, 80 and 128, and with a poisoned
-   scratch page; the quantized-weight kernels over int8 and fp8
-   payloads);
+   the edge cases (``dyad_mm_blocks`` also off the tensor-core tiles, n 2,
+   3 and 4, with x rows off a multiple of 8 elements or off 16 bytes; the
+   DYAD backward kernels also with the OT stride-n z2bar, off the
+   tensor-core tiles and with a split row reduction, each wgrad repeated
+   bitwise; ``dyad_mm_blocks`` and ``dyad_mm_dgrad_two`` on integer-valued
+   bf16 inputs, whose fp32 sums are exact, bitwise against the plain
+   version; the paged decode kernels also over bf16 and int8 pools, at
+   head dims 16, 32, 80 and 128, and with a poisoned scratch page; the
+   quantized-weight kernels over int8 and fp8 payloads);
 4. the time of each kernel, its plain version and a library yardstick
    (CUDA events around device work queued ahead, L2 flushed before each
    run, median of 25 after warm-up), under the kernel's name or, at
    another path's shapes, ``name@shape`` (``@qwen3``: the Qwen3-0.6B
-   training rows in bf16); for the quantized-weight kernels the
-   yardstick is torch.bmm over weights dequantized before the timing, and
-   the same with the dequantization timed too;
+   training rows in bf16, each also with no stride-n view,
+   ``copied_views_ms``, and ``dyad_mm_dgrad_two`` with dx2 written in
+   dx1's layout, ``contiguous_out_ms``); for the quantized-weight kernels
+   the yardstick is torch.bmm over weights dequantized before the timing,
+   and the same with the dequantization timed too;
 5. the OPT serving path: OPT-125m at full width with ``dyad_it_4_kernel``,
    random weights from ``--seed``, ``Engine.generate`` at batch 8, prompt
    128, 32 new tokens, with the kernels' launch counters read around it;
@@ -92,6 +101,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -323,7 +333,11 @@ def _time_qwen3_bwd(torch, randn, record, time_ms, bwd_cases):
     as gate) and down (the OT views: one input, the stride-n z2bar), fp32
     out for the fp32 params; dyad_mm_dgrad_two for up's dx; dyad_mm_blocks
     for up's forward, which the backward recomputes.  Yardstick: one
-    torch.bmm over both components' concatenated operands (bf16 out)."""
+    torch.bmm over both components' concatenated operands (bf16 out).
+    Beside each, the same work without the stride-n layouts:
+    ``copied_views_ms`` (wgrad and dyad_mm_blocks with no stride-n view
+    read) and ``contiguous_out_ms`` (dyad_mm_dgrad_two writing dx2 in dx1's
+    layout)."""
     from repro_torch.kernels import dyad_mm
 
     bf16 = torch.bfloat16
@@ -358,20 +372,93 @@ def _time_qwen3_bwd(torch, randn, record, time_ms, bwd_cases):
         w1, w2 = (randn(n, d_out, d_in, dtype=bf16) for _ in range(2))
         zc = torch.cat([z, z], dim=1).transpose(0, 1).contiguous()
         wc = torch.cat([w1, w2], dim=0).contiguous()
+        # contiguous_out_ms: the C entry with dx2 in dx1's layout, not the
+        # permuted one (single-element stores at stride n)
+        dx = [torch.empty(M, n, d_in, dtype=bf16, device=z.device)
+              for _ in range(2)]
+        contiguous = _dgrad_two_entry(z, z, w1, w2, *dx)
         record("dyad_mm_dgrad_two@qwen3",
                time_ms(lambda: dyad_mm.dyad_mm_dgrad_two(z, z, w1, w2)),
                time_ms(lambda: dyad_mm.dyad_mm_dgrad_two_plain(z, z, w1, w2)),
                time_ms(lambda: torch.bmm(zc, wc)),
                2 * (M * n * d_out + 2 * n * d_out * d_in + 2 * M * n * d_in),
-               flops, label, BF16_FLOPS, "bfloat16")
+               flops, label, BF16_FLOPS, "bfloat16",
+               contiguous_out_ms=time_ms(contiguous))
         xf = torch.cat([x1, xb], dim=-1).transpose(0, 1).contiguous()
         wf = torch.cat([w1, w2], dim=-1).transpose(1, 2).contiguous()
+        # copied_views_ms: OT on the same x (x2 = x1, both copied)
         record("dyad_mm_blocks@qwen3",
                time_ms(lambda: dyad_mm.dyad_mm_blocks(x, w1, w2, "it")),
                time_ms(lambda: dyad_mm.dyad_mm_blocks_plain(x, w1, w2, "it")),
                time_ms(lambda: torch.bmm(xf, wf)),
                2 * (M * n * d_in + 2 * n * d_out * d_in + M * n * d_out),
-               flops, label, BF16_FLOPS, "bfloat16")
+               flops, label, BF16_FLOPS, "bfloat16",
+               copied_views_ms=time_ms(
+                   lambda: dyad_mm.dyad_mm_blocks(x, w1, w2, "ot")))
+
+
+def _check_integer_tc(torch, gen, dyad_mm, dyad_cases, bwd_cases, failures):
+    """Phase 3: dyad_mm_blocks (IT, OT and DT) and dyad_mm_dgrad_two (IT
+    and DT cotangents) on integer-valued bf16 inputs in [-2, 2] at Qwen3's
+    up shape and edge shapes.  The products and their fp32 sums (at most
+    768 * 4 in magnitude) are exact in any order, so the tensor-core routes
+    must give the bits of the plain version summed in fp32 and rounded
+    once."""
+    bf16 = torch.bfloat16
+
+    def randint(*shape):
+        return torch.randint(-2, 3, shape, generator=gen,
+                             device=gen.device).to(bf16)
+
+    def exact(label, got, want):
+        same = torch.equal(got, want)
+        log("check", case=label, dtype="bfloat16", integer_inputs=True,
+            bitwise=same, ok=same)
+        if not same:
+            failures.append(label)
+
+    for label in ("qwen3_up_M4096", "tc_ragged_n3_dt", "tc_ldx_pad3_n4_it",
+                  "tc_odd_din_n4_dt"):
+        M, n, d_in, d_out, var, *view = dyad_cases[label]
+        pad, off = view or (0, 0)
+        x = randint(M, n * d_in + pad)[:, off:off + n * d_in]
+        w1, w2 = randint(n, d_out, d_in), randint(n, d_out, d_in)
+        for v in ("it", "ot", "dt") if label.startswith("qwen3") else (var,):
+            exact(f"dyad_mm_blocks/{label}/{v}/integer",
+                  dyad_mm.dyad_mm_blocks(x, w1, w2, v),
+                  dyad_mm.dyad_mm_blocks_plain(x.float(), w1.float(),
+                                               w2.float(), v).to(bf16))
+    for label in ("qwen3_up_M4096", "ragged_M300", "aligned_n4_M200"):
+        M, n, d_in, d_out = bwd_cases[label]
+        g = randint(M, n * d_out)
+        w1, w2 = randint(n, d_out, d_in), randint(n, d_out, d_in)
+        z = g.reshape(M, n, d_out)
+        for zl, zb in (("it", z),
+                       ("dt", g.reshape(M, d_out, n).transpose(1, 2))):
+            got = dyad_mm.dyad_mm_dgrad_two(z, zb, w1, w2)
+            want = dyad_mm.dyad_mm_dgrad_two_plain(z, zb, w1, w2)
+            for c in (0, 1):
+                exact(f"dyad_mm_dgrad_two/{label}/{zl}/dx{c + 1}/integer",
+                      got[c], want[c])
+
+
+def _dgrad_two_entry(z1, z2, w1, w2, dx1, dx2):
+    """dyad_mm_dgrad_two's C entry on the outputs given (the wrapper always
+    writes dx2 permuted); returns the call, for timing.  Not counted."""
+    from repro_torch.kernels import build, dyad_mm
+
+    M, n, d_out = z1.shape
+    d_in = w1.shape[2]
+    fn = build.entry("dyad_dgrad")
+
+    def call():
+        build.check(fn(
+            build.ptr(z1), build.ptr(z2), build.ptr(w1), build.ptr(w2),
+            build.ptr(dx1), build.ptr(dx2), M, n, d_in, d_out,
+            *z1.stride(), *z2.stride(), *dx1.stride(), *dx2.stride(),
+            dyad_mm._DTYPES[z1.dtype], build.stream(z1.device)),
+            "dyad_mm_dgrad_two")
+    return call
 
 
 def _time_paged(torch, randn, record, time_ms):
@@ -708,6 +795,18 @@ def main() -> int:
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         built=",".join(sorted(built)) or "none (cached)",
         dir=build.BUILD_DIR.relative_to(root))
+    # the DYAD GEMMs' bf16 routes on the tensor cores (HGMMA is wgmma's
+    # SASS), their fp32 routes on FMA
+    sass = {name: tuple(len(re.findall(op, build.sass(name)))
+                        for op in (r"\bHGMMA\.", r"\bFFMA\b"))
+            for name in ("dyad_mm", "dyad_dgrad", "dyad_dgrad_fused",
+                         "dyad_wgrad")}
+    bad = [name for name, counts in sass.items() if not all(counts)]
+    log("sass", **{name: f"HGMMA:{h},FFMA:{f}"
+                   for name, (h, f) in sass.items()}, ok=not bad)
+    if bad:
+        log("sass", failed=",".join(bad))
+        return 1
 
     # -- 3. each kernel against its plain version ----------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -742,6 +841,20 @@ def main() -> int:
         # recomputes them (bf16 in its step), and its down blocks
         "qwen3_up_M4096": (4096, N, 1024 // N, 3072 // N, "it"),
         "qwen3_down_M4096": (4096, N, 3072 // N, 1024 // N, "it"),
+        # off the tensor-core tiles (bf16 past the decode rows: 128 x 128,
+        # 64 deep): ragged rows and dims at n 2, 3 and 4 (at n 4 the
+        # stride-n x2 loads 16-byte runs; odd d_in gathers every operand);
+        # then (M, n, d_in, d_out, variant, pad, offset): x a view of
+        # (M, n * d_in + pad) rows from column ``offset``, rows off a
+        # multiple of 8 elements or a start off 16 bytes, so x is gathered
+        "tc_M9": (9, N, 1024 // N, 3072 // N, "it"),
+        "tc_ragged_n3_dt": (300, 3, 200, 130, "dt"),
+        "tc_aligned_n4_it": (200, 4, 136, 72, "it"),
+        "tc_n4_ot": (129, 4, 72, 136, "ot"),
+        "tc_odd_din_n4_dt": (77, 4, 65, 33, "dt"),
+        "tc_ldx_pad3_n4_it": (150, 4, 64, 96, "it", 3, 0),
+        "tc_ldx_pad5_n2_ot": (150, 2, 40, 24, "ot", 5, 0),
+        "tc_offset1_n4_dt": (100, 4, 64, 64, "dt", 8, 1),
     }
     max_err = {"dyad_mm_blocks": 0.0, "flash_prefill": 0.0,
                "flash_decode": 0.0, "dyad_mm_dgrad_two": 0.0,
@@ -818,8 +931,9 @@ def main() -> int:
     }
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
-        for label, (M, n, d_in, d_out, var) in dyad_cases.items():
-            x = randn(M, n * d_in, dtype=dt)
+        for label, (M, n, d_in, d_out, var, *view) in dyad_cases.items():
+            pad, off = view or (0, 0)
+            x = randn(M, n * d_in + pad, dtype=dt)[:, off:off + n * d_in]
             k = 1.0 / (n * d_in) ** 0.5
             w1 = (randn(n, d_out, d_in) * k).to(dt)
             w2 = (randn(n, d_out, d_in) * k).to(dt)
@@ -949,6 +1063,10 @@ def main() -> int:
                     if not same:
                         failures.append(f"dyad_mm_wgrad/{label}/{wl}/"
                                         "bitwise_repeat")
+
+        if dt == torch.bfloat16:
+            _check_integer_tc(torch, gen, dyad_mm, dyad_cases, bwd_cases,
+                              failures)
 
         grads_cases = {
             # the training attention of one layer: B 8, S 512, K 12, causal
@@ -1424,7 +1542,8 @@ def main() -> int:
             "bound_by": by, "library_ms": tm["library_ms"],
             "shape": "+".join(tm["shape"]), "dtype": tm["dtype"]}
         for key in ("split_route_ms", "bmm_chain_ms", "dequant_bmm_ms",
-                    "dequant_bmm_chain_ms", "copied_views_ms"):
+                    "dequant_bmm_chain_ms", "copied_views_ms",
+                    "contiguous_out_ms"):
             if key in tm:
                 entry[key] = tm[key]
         line.append(entry)

@@ -147,6 +147,19 @@ def entry(name: str):
         return fn
 
 
+def sass(source: str) -> str:
+    """The SASS of ``source``'s library (``cuobjdump -sass``, from nvcc's
+    toolkit), built first if it is not: which instructions each route
+    compiled to."""
+    path = _lib_path(source)
+    if not path.exists():
+        build_all()
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
 def check(err: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if err != 0:

@@ -17,12 +17,20 @@
 // over o, with no transposed copy.  Ragged edges are masked on load and
 // store; there are no padded copies.
 //
-// Bound on the H100: at the OPT-125m training shapes (M = 4096 rows,
-// d_in x d_out = 192 x 768 or 768 x 192, n = 4) a call does 9.7 GFLOP on
-// about 28 MB, so fp32 operations bound it.  Each (component, dyad block)
-// is one GEMM of the shared FMA kernel in dyad_gemm.cuh (128 x 64 tiles,
-// 8 x 8 per thread, two shared-memory stages); no tensor cores yet.
-#include "dyad_gemm.cuh"
+// Bound on the H100: at Qwen3-0.6B's training rows (M = 4096, n = 4, the
+// up projection's 256 -> 768 blocks, so d_in 256 and d_out 768 here) a
+// call does 12.9 GFLOP on about 45 MB in bf16: 0.013 ms on the bf16 tensor
+// cores, 0.0135 ms of bytes (dx1 and dx2 are a third of them).  bf16 takes the tensor-core mainloop of
+// dyad_gemm_tc.cuh: one GEMM per (component, dyad block), 128 x 128 tiles
+// of dx_c, z staged K-major (the IT cotangent view copied with cp.async; a
+// stride-n DT z2 gathered through registers) and w[g] N-major, 64 o per
+// stage.  The permuted dx2 has column stride n, so its epilogue stores
+// single elements, not pairs.  At OPT-125m's fp32 training shapes (d_in x
+// d_out = 192 x 768 or 768 x 192) a call does 9.7 GFLOP on about 28 MB,
+// bound by fp32 FMA: fp32 takes the FMA mainloop of dyad_gemm.cuh (128 x
+// 64 tiles, 8 x 8 per thread, two shared-memory stages); its 3xTF32
+// tensor-core mainloop is later work.
+#include "dyad_gemm_tc.cuh"
 
 extern "C" int repro_dyad_mm_dgrad_two(
     const void* z1, const void* z2, const void* w1, const void* w2,
@@ -44,8 +52,8 @@ extern "C" int repro_dyad_mm_dgrad_two(
   switch (dtype) {
     case repro::kF32:
       return repro::gemm::launch<float, float>(a, s);
-    case repro::kBF16:
-      return repro::gemm::launch<__nv_bfloat16, __nv_bfloat16>(a, s);
+    case repro::kBF16:   // A = z (b x o) K-major, B = w[g] (o x i) N-major
+      return repro::tc::launch<true, false, __nv_bfloat16>(a, s);
     default:
       return cudaErrorInvalidValue;
   }

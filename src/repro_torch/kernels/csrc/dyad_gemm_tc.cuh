@@ -1,5 +1,6 @@
-// The bf16 tensor-core mainloop of the DYAD GEMMs (dyad_wgrad.cu,
-// dyad_dgrad_fused.cu), beside the fp32 FMA one of dyad_gemm.cuh.  It
+// The bf16 tensor-core mainloop of the DYAD GEMMs (dyad_mm.cu past the
+// decode rows, dyad_dgrad.cu, dyad_dgrad_fused.cu, dyad_wgrad.cu), beside
+// the fp32 FMA one of dyad_gemm.cuh.  It
 // computes what that one does, through the same DyadGemmArgs:
 //
 //   C_c[g][r, j] = sum_{k in [k_begin, k_end)} A_c[g][r, k] * B_c[g][k, j]
@@ -11,7 +12,8 @@
 // the sums fp32, and the output is rounded once.
 //
 // Replaces, on this card, the TPU kernels src/repro/kernels/dyad_mm.py:
-// dyad_mm_wgrad (_wgrad_kernel) and dyad_mm_dgrad (_dgrad_kernel, fused):
+// dyad_mm_blocks (_dyad_kernel, Fuse), dyad_mm_dgrad_two (_dgrad_kernel_two),
+// dyad_mm_dgrad (_dgrad_kernel, Fuse) and dyad_mm_wgrad (_wgrad_kernel):
 // MXU products over VMEM tiles with the reduction carried across the
 // sequential grid axis.
 //
@@ -32,31 +34,32 @@
 //   (128-byte rows along r or j) by a template flag, and wgmma's transpose
 //   bits take either: the wgrad operands z (r = o) and x (j = i) are
 //   contiguous along M and N, not k, so both are MN-major; the dgrad z is
-//   K-major and its weight N-major.
+//   K-major and its weight N-major; the forward's x and its weight (o rows
+//   of k) are both K-major.
 // - Copies: an operand that is contiguous along its staged axis, with
 //   16-byte aligned strides, is copied 16 bytes at a time with cp.async
 //   (zero-filled past a ragged edge).  Stages t + 1 .. t + 4 are in flight
 //   while stage t computes and stage t - 1's wgmma may still run.
-// - The stride-n DYAD views (the OT z2bar, which B.7 and the down wgrad
-//   read, and the IT x2 of the up and gate wgrad) hold element m of block
-//   g at span[m * n + g]: no 16-byte run of them belongs to one block, so
-//   cp.async cannot stage them and no transposed copy is made in device
-//   memory.  They go through registers: at n = 4 each thread loads, per
-//   pair of neighbouring elements, the aligned 16-byte run of the span
+// - The stride-n DYAD views (the OT z2bar, which B.7 and the down wgrad read,
+//   and the IT x2 of the forward and of the up and gate wgrad) hold element m
+//   of block g at span[m * n + g]: no 16-byte run of them belongs to one
+//   block, so cp.async cannot stage them and no transposed copy is made in
+//   device memory.  They go through registers: at n = 4 each thread loads,
+//   per pair of neighbouring elements, the aligned 16-byte run of the span
 //   that holds the pair for all four blocks (neighbouring lanes on
-//   neighbouring runs), keeps the raw loads for one iteration, then picks
-//   its block's pair with one byte permute and stores it (4 bytes) into
-//   the swizzled tile; other n read element by element.  (Picking at
-//   once, right after the loads, made every stage wait on them.)  The
-//   cost: such a tile moves 4x its bytes from L2 (the other blocks'
-//   values), 80 KB a stage against 32 KB where both operands are copied,
-//   and every call has both kinds of block, so the gathered ones set its
-//   time (chip_smoke.py phase 4 times each call also with no stride-n
-//   view: copied_views_ms).  Only a block that serves all n blocks from
-//   one span cuts those bytes; a cluster of the four blocks' CTAs, each
-//   copying a quarter of the span and writing each block's elements into
-//   its owner's tile through distributed shared memory, was exact on the
-//   card but slower than this gather, so it is not used.
+//   neighbouring runs), keeps the raw loads for one iteration, then picks its
+//   block's pair with one byte permute and stores it (4 bytes) into the
+//   swizzled tile; other n read element by element.  (Picking at once, right
+//   after the loads, made every stage wait on them.)  The cost: such a tile
+//   moves 4x its bytes from L2 (the other blocks' values), 80 KB a stage
+//   against 32 KB where both operands are copied, and every call has both
+//   kinds of block, so the gathered ones set its time (chip_smoke.py phase 4
+//   times each call also with no stride-n view: copied_views_ms).  Only a
+//   block that serves all n blocks from one span cuts those bytes; a cluster
+//   of the four blocks' CTAs, each copying a quarter of the span and writing
+//   each block's elements into its owner's tile through distributed shared
+//   memory, was exact on the card but slower than this gather, so it is not
+//   used.
 // - Determinism: no atomics; the split reduction adds in a fixed order.
 #pragma once
 

@@ -16,21 +16,31 @@
 //
 // Bound on the H100: at decode (M = 8) the kernel is bound by the bytes of
 // w1 + w2 (4.7 MB of fp32 per OPT-125m projection against a few KB of x);
-// at prefill (M = 1024) by fp32 FMA throughput, since this first version
-// uses no tensor cores.  Two designs, chosen by M:
-//  - M <= 8 (decode): one warp per output row o of block g.  The block
-//    stages both views of its group's x rows in shared memory (loads
-//    batched ahead of the stores, as in the attention kernels), then each
-//    warp streams its two weight rows once, lanes along k (coalesced,
+// at the training rows by operations: a call at Qwen3-0.6B's up (M = 4096,
+// n = 4, 256 -> 768 blocks) does 12.9 GFLOP on 36 MB in bf16, 0.013 ms on
+// the bf16 tensor cores against 0.011 ms of bytes; OPT-125m's fp32 rows are
+// bound by fp32 FMA.  Three designs, chosen by M and the dtype:
+//  - M <= 8 (decode), either dtype: one warp per output row o of block g.
+//    The block stages both views of its group's x rows in shared memory
+//    (loads batched ahead of the stores, as in the attention kernels), then
+//    each warp streams its two weight rows once, lanes along k (coalesced,
 //    unrolled so several loads are in flight), and reduces the M dot
 //    products with shuffles.  Every weight byte is read once and a
 //    projection spreads over n * d_out / 8 blocks.
-//  - larger M (prefill): each block owns one dyad block g and a (64 x 64)
+//  - larger M in bf16: the tensor-core mainloop of dyad_gemm_tc.cuh with
+//    Fuse, one GEMM per dyad block g whose 64-deep k stages run over
+//    component 1's k (x1 against w1[g]) and then component 2's (x2 against
+//    w2[g]) into one fp32 accumulator: 128 x 128 tiles of out, x staged
+//    K-major (x1 copied with cp.async, the stride-n x2 gathered through
+//    registers: at n = 4 from the 16-byte runs that hold a k pair of all
+//    four blocks, else element by element), w[g] staged K-major as it
+//    lies (o rows of k).  Rows, d_in or d_out off the tile are masked.
+//  - larger M in fp32: each block owns one dyad block g and a (64 x 64)
 //    output tile, streams 32-deep slices of x1, x2, w1, w2 through shared
 //    memory with coalesced loads along k, and accumulates a 4 x 4 register
-//    tile per thread.
-// wgmma/TMA pipelines and the tensor cores are later work.
-#include "common.cuh"
+//    tile per thread on fp32 FMA (a 3xTF32 tensor-core route is later
+//    work).
+#include "dyad_gemm_tc.cuh"
 
 namespace repro {
 namespace {
@@ -216,6 +226,25 @@ cudaError_t launch_tile(const void* x, const void* w1, const void* w2,
   return cudaGetLastError();
 }
 
+// bf16 rows past the decode kernel, on the tensor cores: A_0 = x1 and
+// A_1 = x2 with element (r, k) at x[r * ldx + g * d_in + k] and (it / dt)
+// x[r * ldx + k * n + g], B_c[g][k, o] = w_c[g, o, k] (contiguous along k:
+// K-major), C[g][r, o] = out[r, g, o]
+cudaError_t launch_tc(const void* x, const void* w1, const void* w2,
+                      void* out, int M, int n, int d_in, int d_out,
+                      long long ldx, int x2_strided, cudaStream_t stream) {
+  const long long w_sg = (long long)d_out * d_in;
+  const long long ldo = (long long)n * d_out;
+  const long long x2_sg = x2_strided ? 1 : d_in;
+  const long long x2_sk = x2_strided ? n : 1;
+  DyadGemmArgs a{{x, x},         {d_in, x2_sg}, {ldx, ldx},  {1, x2_sk},
+                 {w1, w2},       {w_sg, w_sg},  {1, 1},      {d_in, d_in},
+                 {out, out},     {d_out, d_out}, {ldo, ldo}, {1, 1},
+                 nullptr,        n,             M,           d_out,
+                 d_in,           1,             d_in};
+  return tc::launch<true, true, __nv_bfloat16, true>(a, stream);
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* w1, const void* w2, void* out,
                    int M, int n, int d_in, int d_out, long long ldx,
@@ -226,8 +255,12 @@ cudaError_t launch(const void* x, const void* w1, const void* w2, void* out,
   if (M <= kMaxRowsMv && smem <= 200 * 1024)
     return launch_mv<T>(x, w1, w2, out, M, n, d_in, d_out, ldx, x2_strided,
                         smem, stream);
-  return launch_tile<T, 64, 64, 4, 4>(x, w1, w2, out, M, n, d_in, d_out, ldx,
-                                      x2_strided, stream);
+  if constexpr (sizeof(T) == 2)
+    return launch_tc(x, w1, w2, out, M, n, d_in, d_out, ldx, x2_strided,
+                     stream);
+  else
+    return launch_tile<T, 64, 64, 4, 4>(x, w1, w2, out, M, n, d_in, d_out,
+                                        ldx, x2_strided, stream);
 }
 
 }  // namespace

@@ -27,10 +27,13 @@ same name in ``repro.kernels.dyad_mm``:
 
 All but ``dyad_mm_blocks`` read their (b, g, inner) operands through
 strides, so the strided views (``x2``, ``z2bar``) are passed as they are.
-Every accumulation is fp32.  With bf16 operands ``dyad_mm_wgrad`` and
-``dyad_mm_dgrad`` run on the tensor cores (``dyad_gemm_tc.cuh``); the
-rest, and every fp32 operand, on fp32 FMA.  Each wrapper takes its plain version only for
-a CPU tensor; a CUDA tensor launches the kernel or raises.
+Every accumulation is fp32.  With bf16 operands ``dyad_mm_blocks`` (past
+its decode rows, M > 8), ``dyad_mm_dgrad_two``, ``dyad_mm_dgrad`` and
+``dyad_mm_wgrad`` run on the tensor cores (the ``wgmma`` mainloop of
+``dyad_gemm_tc.cuh``); ``dyad_mm_blocks_two``, the ff megakernel, the
+quantized kernels, the decode rows and every fp32 operand run on fp32 FMA.
+Each wrapper takes its plain version only for a CPU tensor; a CUDA tensor
+launches the kernel or raises.
 """
 from __future__ import annotations
 

@@ -92,7 +92,9 @@ def test_other_devices_raise():
 @pytest.mark.parametrize("M,n,d_in,d_out,variant", [
     (1024, 4, 192, 768, "it"), (8, 4, 768, 192, "it"),
     (64, 2, 129, 130, "it"), (13, 3, 7, 5, "ot"), (10, 2, 33, 17, "dt"),
-    (3, 3, 7, 5, "it"), (5, 2, 129, 130, "dt"), (1, 4, 768, 192, "ot")])
+    (3, 3, 7, 5, "it"), (5, 2, 129, 130, "dt"), (1, 4, 768, 192, "ot"),
+    # Qwen3-0.6B's up (and gate) and down at the training rows
+    (4096, 4, 256, 768, "it"), (4096, 4, 768, 256, "it")])
 def test_dyad_mm_kernel_matches_plain(cuda, M, n, d_in, d_out, variant,
                                       dtype):
     gen = torch.Generator(device=cuda).manual_seed(M + d_in)
@@ -105,6 +107,73 @@ def test_dyad_mm_kernel_matches_plain(cuda, M, n, d_in, d_out, variant,
     assert dyad_mm.dyad_mm_blocks.launches == before + 1
     assert got.dtype == dtype and got.shape == (M, n, d_out)
     _close(got, dyad_mm.dyad_mm_blocks_plain(x, w1, w2, variant), dtype)
+
+
+# dyad_mm_blocks off the tensor-core tiles (bf16 past the decode rows:
+# 128 x 128, 64 deep): (M, n, d_in, d_out, variant, pad, offset), x a view
+# of (M, n * d_in + pad) rows from column ``offset``.  Ragged rows and dims
+# at n 2, 3 and 4 (at n 4 the stride-n x2 loads 16-byte runs; an odd d_in
+# gathers every operand), the smallest row count the tiles take, rows off
+# a multiple of 8 elements and a start off 16 bytes (x gathered)
+TC_EDGE_SHAPES = [
+    (9, 4, 256, 768, "it", 0, 0), (300, 3, 200, 130, "dt", 0, 0),
+    (200, 4, 136, 72, "it", 0, 0), (129, 4, 72, 136, "ot", 0, 0),
+    (130, 2, 129, 130, "ot", 0, 0), (77, 4, 65, 33, "dt", 0, 0),
+    (150, 4, 64, 96, "it", 3, 0), (150, 2, 40, 24, "ot", 5, 0),
+    (100, 4, 64, 64, "dt", 8, 1), (140, 3, 24, 200, "it", 1, 0)]
+
+
+def _x_view(gen, M, n, d_in, pad, off, device, dtype, draw=None):
+    rows = (draw or _randn)(gen, M, n * d_in + pad, device=device,
+                            dtype=dtype)
+    return rows[:, off:off + n * d_in]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,n,d_in,d_out,variant,pad,off", TC_EDGE_SHAPES)
+def test_dyad_mm_kernel_tile_edges(cuda, M, n, d_in, d_out, variant, pad,
+                                   off, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(M + d_out)
+    x = _x_view(gen, M, n, d_in, pad, off, cuda, dtype)
+    assert x.stride(0) == n * d_in + pad
+    w1 = (_randn(gen, n, d_out, d_in, device=cuda) / d_in ** 0.5).to(dtype)
+    w2 = (_randn(gen, n, d_out, d_in, device=cuda) / d_in ** 0.5).to(dtype)
+    before = dyad_mm.dyad_mm_blocks.launches
+    got = dyad_mm.dyad_mm_blocks(x, w1, w2, variant)
+    torch.cuda.synchronize()
+    assert dyad_mm.dyad_mm_blocks.launches == before + 1
+    assert got.dtype == dtype and got.shape == (M, n, d_out)
+    _close(got, dyad_mm.dyad_mm_blocks_plain(x, w1, w2, variant), dtype)
+
+
+def _randint(gen, *shape, device, dtype=torch.bfloat16):
+    """Integers in [-2, 2]: bf16 holds them exactly, and every product
+    and fp32 sum of a few thousand of them is exact in any order."""
+    return torch.randint(-2, 3, shape, generator=gen, device=device).to(
+        dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,n,d_in,d_out,variant,pad,off", [
+    (4096, 4, 256, 768, "it", 0, 0), (4096, 4, 256, 768, "ot", 0, 0),
+    (4096, 4, 256, 768, "dt", 0, 0), (4096, 4, 768, 256, "it", 0, 0),
+    *TC_EDGE_SHAPES])
+def test_dyad_mm_bf16_integer_inputs_are_exact(cuda, M, n, d_in, d_out,
+                                               variant, pad, off):
+    """The tensor-core route (both operands K-major, the components fused
+    into one accumulator) on integer-valued bf16 inputs: the fp32 sums
+    are exact, so the result is the plain version's, summed in fp32 and
+    rounded once, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(M + d_in)
+    x = _x_view(gen, M, n, d_in, pad, off, cuda, torch.bfloat16,
+                draw=_randint)
+    w1, w2 = (_randint(gen, n, d_out, d_in, device=cuda) for _ in range(2))
+    got = dyad_mm.dyad_mm_blocks(x, w1, w2, variant)
+    want = dyad_mm.dyad_mm_blocks_plain(x.float(), w1.float(), w2.float(),
+                                        variant).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -193,9 +262,17 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
 
 
 DGRAD_SHAPES = [
-    # (M, n, d_in, d_out): the OPT-125m training up/down, then ragged
+    # (M, n, d_in, d_out): the OPT-125m training up/down, then ragged, then
+    # Qwen3-0.6B's up/gate and down at the training rows (bf16 in its step)
     (4096, 4, 192, 768), (4096, 4, 768, 192), (129, 2, 13, 130),
-    (7, 3, 5, 3), (100, 1, 64, 65)]
+    (7, 3, 5, 3), (100, 1, 64, 65), (4096, 4, 256, 768),
+    (4096, 4, 768, 256)]
+
+# shapes off the tensor-core tiles: ragged rows and dims on unaligned
+# strides (every operand gathered), 16-byte aligned strides with ragged
+# copies (n 2; n 4, whose stride-n views load 16-byte runs, over a split
+# of ragged row ranges in the wgrad)
+TC_SHAPES = [(300, 3, 200, 130), (200, 2, 136, 72), (200, 4, 136, 72)]
 
 
 def _it_views(x, g, n):
@@ -210,7 +287,7 @@ def _it_views(x, g, n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,n,d_in,d_out", DGRAD_SHAPES)
+@pytest.mark.parametrize("M,n,d_in,d_out", DGRAD_SHAPES + TC_SHAPES)
 def test_dyad_dgrad_two_kernel_matches_plain(cuda, M, n, d_in, d_out,
                                              dtype):
     gen = torch.Generator(device=cuda).manual_seed(M + d_in)
@@ -231,15 +308,27 @@ def test_dyad_dgrad_two_kernel_matches_plain(cuda, M, n, d_in, d_out,
         _close(dx2, p2, dtype)
 
 
-# the wgrad shapes: DGRAD_SHAPES, Qwen3-0.6B's up/gate and down at the
-# training rows (bf16 in its step), and shapes off the tensor-core tiles:
-# ragged rows and dims on unaligned strides (every operand gathered),
-# 16-byte aligned strides with ragged copies (n 2; n 4, whose stride-n
-# views load 16-byte runs, over a split of ragged row ranges), and a split
-# row reduction
-WGRAD_SHAPES = DGRAD_SHAPES + [
-    (4096, 4, 256, 768), (4096, 4, 768, 256), (300, 3, 200, 130),
-    (200, 2, 136, 72), (200, 4, 136, 72), (2048, 1, 64, 65)]
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,n,d_in,d_out", [
+    (4096, 4, 256, 768), (4096, 4, 768, 256), *TC_SHAPES, (100, 1, 64, 65)])
+def test_dyad_dgrad_two_bf16_integer_inputs_are_exact(cuda, M, n, d_in,
+                                                      d_out):
+    """The tensor-core route (z K-major, w N-major, the components apart,
+    dx2 written permuted) on integer-valued bf16 inputs, IT and DT
+    cotangents: bit for bit the plain version (fp32 sums, one rounding)."""
+    gen = torch.Generator(device=cuda).manual_seed(M + d_out)
+    g = _randint(gen, M, n * d_out, device=cuda)
+    w1, w2 = (_randint(gen, n, d_out, d_in, device=cuda) for _ in range(2))
+    z = g.reshape(M, n, d_out)
+    for zb in (z, g.reshape(M, d_out, n).transpose(1, 2)):
+        got = dyad_mm.dyad_mm_dgrad_two(z, zb, w1, w2)
+        want = dyad_mm.dyad_mm_dgrad_two_plain(z, zb, w1, w2)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# the wgrad shapes: DGRAD_SHAPES, TC_SHAPES and a split row reduction
+WGRAD_SHAPES = DGRAD_SHAPES + TC_SHAPES + [(2048, 1, 64, 65)]
 
 
 def _wgrad_views(x, g, n, view):

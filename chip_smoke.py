@@ -11,9 +11,11 @@ exit and no result line):
 1. the device: name and power limit (``nvidia-smi``);
 2. the build of every kernel in ``src/repro_torch/kernels/csrc``, then
    the SASS of the DYAD GEMM libraries (``dyad_mm``, ``dyad_dgrad``,
-   ``dyad_dgrad_fused``, ``dyad_wgrad``; ``cuobjdump -sass``): each must
-   hold ``HGMMA`` (wgmma, its bf16 route) and ``FFMA`` (its fp32 route),
-   counts on one line;
+   ``dyad_dgrad_fused``, ``dyad_wgrad``) and of the flash backward
+   (``flash_bwd``; ``cuobjdump -sass``): each must hold ``HGMMA`` (wgmma,
+   its bf16 route) and ``FFMA`` (its fp32 route), counts on one line; and
+   ptxas's registers and spills of the tensor-core flash backward kernels
+   (no spill allowed);
 3. each kernel against its plain PyTorch version on the card, fp32 and
    bf16, at the OPT-125m and Qwen3-0.6B serving and training shapes and
    the edge cases (``dyad_mm_blocks`` also off the tensor-core tiles, n 2,
@@ -24,16 +26,21 @@ exit and no result line):
    bf16 inputs, whose fp32 sums are exact, bitwise against the plain
    version; the paged decode kernels also over bf16 and int8 pools, at
    head dims 16, 32, 80 and 128, and with a poisoned scratch page; the
-   quantized-weight kernels over int8 and fp8 payloads);
+   quantized-weight kernels over int8 and fp8 payloads; bf16
+   ``flash_prefill_grads`` also at h 80 and S < T, repeated bitwise at
+   Qwen3's shape, and on integer-valued inputs with lse 0 whose sums are
+   exact, bitwise against the plain version);
 4. the time of each kernel, its plain version and a library yardstick
    (CUDA events around device work queued ahead, L2 flushed before each
    run, median of 25 after warm-up), under the kernel's name or, at
    another path's shapes, ``name@shape`` (``@qwen3``: the Qwen3-0.6B
    training rows in bf16, each also with no stride-n view,
    ``copied_views_ms``, and ``dyad_mm_dgrad_two`` with dx2 written in
-   dx1's layout, ``contiguous_out_ms``); for the quantized-weight kernels
-   the yardstick is torch.bmm over weights dequantized before the timing,
-   and the same with the dequantization timed too;
+   dx1's layout, ``contiguous_out_ms``; ``@qwen3_train``: one layer of
+   Qwen3-0.6B's training attention in bf16, against SDPA, the backward
+   with the wrapper's delta alone, ``delta_ms``); for the quantized-weight
+   kernels the yardstick is torch.bmm over weights dequantized before the
+   timing, and the same with the dequantization timed too;
 5. the OPT serving path: OPT-125m at full width with ``dyad_it_4_kernel``,
    random weights from ``--seed``, ``Engine.generate`` at batch 8, prompt
    128, 32 new tokens, with the kernels' launch counters read around it;
@@ -58,7 +65,9 @@ exit and no result line):
    batch 8, prompt 128, 32 new, launch counters checked exactly, and a
    profile of one more generate;
 10. the Qwen3-0.6B training path (full config, remat, bf16) at B 8 x
-   S 512 as in phase 7, with the DENSE run and a profiled step;
+   S 512 as in phase 7, with the DENSE run and a profiled step, whose
+   flash backward launches by kernel name must be the tensor-core dk/dv
+   and dq kernels once a layer each and the FMA ones never;
 11. Qwen3-0.6B at full width and 2 layers on the card against the CPU
    port: a train step in fp32 and in bf16, greedy tokens in fp32, the
    kernel backward against the plain one, the ``split`` ff route against
@@ -397,6 +406,54 @@ def _time_qwen3_bwd(torch, randn, record, time_ms, bwd_cases):
                    lambda: dyad_mm.dyad_mm_blocks(x, w1, w2, "ot")))
 
 
+def _time_qwen3_attn(torch, randn, record, time_ms):
+    """Phase 4 at one layer of Qwen3-0.6B's training attention (B 8, S 512,
+    K 8 KV heads x G 2, h 128, causal, bf16; records ``...@qwen3_train``):
+    flash_prefill with the lse its backward reads, and
+    flash_prefill_grads with the wrapper's delta alone (``delta_ms``).
+    Yardstick: F.scaled_dot_product_attention and its backward, with k and
+    v expanded to the 16 query heads before the graph (so SDPA's dk and
+    dv are per query head, not summed over G)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn
+
+    bf16 = torch.bfloat16
+    B, S, K, G, h = TRAIN["B"], TRAIN["S"], 8, 2, 128
+    q, do = (randn(B, S, K, G, h, dtype=bf16) for _ in range(2))
+    k, v = (randn(B, S, K, h, dtype=bf16) for _ in range(2))
+    o, lse = flash_attn.flash_prefill(q, k, v, save_lse=True)
+    sq = q.reshape(B, S, K * G, h).transpose(1, 2).detach().requires_grad_()
+    sk, sv = (t.transpose(1, 2).repeat_interleave(G, dim=1).detach()
+              .requires_grad_() for t in (k, v))
+    sdo = do.reshape(B, S, K * G, h).transpose(1, 2)
+    pairs = B * K * G * S * (S + 1) // 2        # causal (row, key) pairs
+    rows, keys = B * S * K * G * h, B * S * K * h
+    shape = f"B{B}_S{S}_K{K}_G{G}_h{h}_causal"
+    record("flash_prefill@qwen3_train",
+           time_ms(lambda: flash_attn.flash_prefill(q, k, v, save_lse=True)),
+           time_ms(lambda: flash_attn.flash_prefill_plain(q, k, v,
+                                                          save_lse=True)),
+           time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                          is_causal=True)),
+           # q, k, v read, o written (bf16); lse written (fp32)
+           2 * (2 * rows + 2 * keys) + 4 * B * K * S * G,
+           4.0 * h * pairs, shape, BF16_FLOPS, "bfloat16")
+    sout = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+    record("flash_prefill_grads@qwen3_train",
+           time_ms(lambda: flash_attn.flash_prefill_grads(q, k, v, o, lse,
+                                                          do)),
+           time_ms(lambda: flash_attn.flash_prefill_grads_plain(
+               q, k, v, o, lse, do)),
+           time_ms(lambda: torch.autograd.grad(sout, (sq, sk, sv), sdo,
+                                               retain_graph=True)),
+           # q, o, do, k, v read; dq, dk, dv written (bf16); lse (fp32)
+           2 * (4 * rows + 4 * keys) + 4 * B * K * S * G,
+           # recomputed scores, dp, dq, dk, dv: five 2h products per pair
+           10.0 * h * pairs, shape, BF16_FLOPS, "bfloat16",
+           delta_ms=time_ms(lambda: flash_attn._delta(o, do)))
+
+
 def _check_integer_tc(torch, gen, dyad_mm, dyad_cases, bwd_cases, failures):
     """Phase 3: dyad_mm_blocks (IT, OT and DT) and dyad_mm_dgrad_two (IT
     and DT cotangents) on integer-valued bf16 inputs in [-2, 2] at Qwen3's
@@ -440,6 +497,81 @@ def _check_integer_tc(torch, gen, dyad_mm, dyad_cases, bwd_cases, failures):
             for c in (0, 1):
                 exact(f"dyad_mm_dgrad_two/{label}/{zl}/dx{c + 1}/integer",
                       got[c], want[c])
+
+
+def _check_exact_grads(torch, gen, flash_attn, failures):
+    """Phase 3: bf16 flash_prefill_grads on inputs whose sums are exact
+    (G 2, causal, 400 folded rows): lse = 0 and k = 0 (or q = 0), so every
+    score is 0 and p is exactly 1 on the valid pairs; q (or k), v, o and do
+    in {-1, 0, 1}.  Then dv = sum do, and at h 64 (scale 1/8) ds =
+    (dP - delta) / 8 is exact in bf16, so dk = sum ds q and dq = sum ds k
+    are exact fp32 sums: the tensor-core kernels, which round p and ds to
+    bf16 in registers, must give the plain version's bits.  At h 128 the
+    scale is not a power of two and only dv is exact."""
+    B, S, K, G = 2, 200, 2, 2
+
+    def draw(*shape):
+        return torch.randint(-1, 2, shape, generator=gen,
+                             device=gen.device).to(torch.bfloat16)
+
+    for h, exact in ((64, ("dq", "dk", "dv")), (128, ("dv",))):
+        for zero in ("k", "q"):
+            q, o, do = (draw(B, S, K, G, h) for _ in range(3))
+            k, v = draw(B, S, K, h), draw(B, S, K, h)
+            (k if zero == "k" else q).zero_()
+            lse = torch.zeros(B, K, S * G, device=gen.device)
+            got = flash_attn.flash_prefill_grads(q, k, v, o, lse, do)
+            want = flash_attn.flash_prefill_grads_plain(q, k, v, o, lse, do)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                if name not in exact:
+                    continue
+                label = f"flash_prefill_grads/h{h}_{zero}0/{name}/integer"
+                same = torch.equal(a, b)
+                log("check", case=label, dtype="bfloat16",
+                    integer_inputs=True, bitwise=same, ok=same)
+                if not same:
+                    failures.append(label)
+
+
+def _ptxas(text: str, kernels) -> dict:
+    """Registers, spill bytes and wgmma serialisation warnings of each
+    entry function of nvcc's ``-Xptxas -v`` output whose name holds one of
+    ``kernels``, by its (template-qualified) name."""
+    out = {}
+    for chunk in text.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        base = next((k for k in kernels if k in mangled), None)
+        if base is None:
+            continue
+        hd = re.search(r"ILi(\d+)E", mangled)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        st = re.search(r"(\d+) bytes spill stores", chunk)
+        ld = re.search(r"(\d+) bytes spill loads", chunk)
+        out[f"{base}<{hd.group(1) if hd else '?'}>"] = {
+            "regs": int(regs.group(1)) if regs else -1,
+            "spill_stores": int(st.group(1)) if st else -1,
+            "spill_loads": int(ld.group(1)) if ld else -1,
+            "serialized": len(re.findall(
+                rf"serialized[^\n]*{re.escape(mangled)}", text))}
+    return out
+
+
+def _bwd_kernel_split(per_kernel: dict, n_layers: int) -> bool:
+    """Phase 10: the profiled Qwen3 step's launches of the flash backward
+    kernels by name: the tensor-core dk/dv and dq kernels once a layer
+    each, the fp32 FMA ones never."""
+    want = {"flash_dkv_tc_kernel": n_layers, "flash_dq_tc_kernel": n_layers,
+            "flash_dkv_kernel": 0, "flash_dq_kernel": 0}
+    mine = {name: [v for key, v in per_kernel.items()
+                   if re.search(rf"\b{name}\b", key)] for name in want}
+    got = {name: sum(cnt for _, cnt in v) for name, v in mine.items()}
+    ok = bool(per_kernel) and got == want
+    log("qwen3_train_profile", flash_bwd_launches=json.dumps(
+        got, separators=(",", ":")), want=json.dumps(
+        want, separators=(",", ":")), flash_bwd_ms=json.dumps(
+        {name: round(sum(ms for ms, _ in v), 3)
+         for name, v in mine.items()}, separators=(",", ":")), ok=ok)
+    return ok
 
 
 def _dgrad_two_entry(z1, z2, w1, w2, dx1, dx2):
@@ -795,24 +927,41 @@ def main() -> int:
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         built=",".join(sorted(built)) or "none (cached)",
         dir=build.BUILD_DIR.relative_to(root))
-    # the DYAD GEMMs' bf16 routes on the tensor cores (HGMMA is wgmma's
-    # SASS), their fp32 routes on FMA
+    # the DYAD GEMMs' and the flash backward's bf16 routes on the tensor
+    # cores (HGMMA is wgmma's SASS), their fp32 routes on FMA
     sass = {name: tuple(len(re.findall(op, build.sass(name)))
                         for op in (r"\bHGMMA\.", r"\bFFMA\b"))
             for name in ("dyad_mm", "dyad_dgrad", "dyad_dgrad_fused",
-                         "dyad_wgrad")}
+                         "dyad_wgrad", "flash_bwd")}
     bad = [name for name, counts in sass.items() if not all(counts)]
     log("sass", **{name: f"HGMMA:{h},FFMA:{f}"
                    for name, (h, f) in sass.items()}, ok=not bad)
     if bad:
         log("sass", failed=",".join(bad))
         return 1
+    # ptxas on the tensor-core flash backward: registers, no spill
+    ptx = _ptxas((build.BUILD_DIR / "flash_bwd.log").read_text(),
+                 ("flash_dkv_tc_kernel", "flash_dq_tc_kernel"))
+    spilled = [k for k, r in ptx.items() if r["spill_stores"]] or (
+        [] if ptx else ["no report"])
+    log("ptxas", source="flash_bwd", **{
+        k: "regs:{regs},spill_stores:{spill_stores},spill_loads:"
+           "{spill_loads},wgmma_serialized:{serialized}".format(**r)
+        for k, r in ptx.items()}, ok=not spilled)
+    if spilled:
+        log("ptxas", failed=",".join(spilled))
+        return 1
 
     # -- 3. each kernel against its plain version ----------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    def randn(*shape, dtype=torch.float32, generator=None):
+        g = gen if generator is None else generator
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    # the inputs of checks added beside the first ones, so that those keep
+    # their inputs
+    aside = torch.Generator(device=dev).manual_seed(args.seed + 1)
 
     failures = []
 
@@ -1084,12 +1233,22 @@ def main() -> int:
                                 window=None, q_off=3, k_off=3),
             "qwen3_train": dict(B=8, S=512, K=8, G=2, h=128, causal=True,
                                 window=None, q_off=0, k_off=0),
+            # (inputs from the aside generator) h 80, padded to 128 lanes;
+            # S < T: the queries after a cached prefix of 60 keys
+            "h80": dict(B=2, S=70, K=2, G=2, h=80, causal=True, window=None,
+                        q_off=0, k_off=0, aside=True),
+            "s_lt_t": dict(B=2, S=40, T=100, K=2, G=2, h=64, causal=True,
+                           window=None, q_off=60, k_off=0, aside=True),
         }
         for label, c in grads_cases.items():
-            q = randn(c["B"], c["S"], c["K"], c["G"], c["h"], dtype=dt)
-            kk = randn(c["B"], c["S"], c["K"], c["h"], dtype=dt)
-            vv = randn(c["B"], c["S"], c["K"], c["h"], dtype=dt)
-            do = randn(c["B"], c["S"], c["K"], c["G"], c["h"], dtype=dt)
+            T = c.get("T", c["S"])
+            g = aside if c.get("aside") else None
+            q = randn(c["B"], c["S"], c["K"], c["G"], c["h"], dtype=dt,
+                      generator=g)
+            kk = randn(c["B"], T, c["K"], c["h"], dtype=dt, generator=g)
+            vv = randn(c["B"], T, c["K"], c["h"], dtype=dt, generator=g)
+            do = randn(c["B"], c["S"], c["K"], c["G"], c["h"], dtype=dt,
+                       generator=g)
             kw = dict(causal=c["causal"], window=c["window"])
             # each side's backward takes its own forward's o and lse, so a
             # wrong lse from the forward kernel shows here too
@@ -1107,6 +1266,18 @@ def main() -> int:
             for name, a, b in zip(("dq", "dk", "dv"), got, want):
                 note("flash_prefill_grads", check(
                     f"flash_prefill_grads/{label}/{name}", a, b, dn))
+            if dt == torch.bfloat16 and label == "qwen3_train":
+                # no atomics: the same bits again
+                again = flash_attn.flash_prefill_grads(
+                    q, kk, vv, o, lse, do, c["q_off"], c["k_off"], **kw)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                log("check", case=f"flash_prefill_grads/{label}/"
+                    "bitwise_repeat", dtype=dn, ok=same)
+                if not same:
+                    failures.append(f"flash_prefill_grads/{label}/"
+                                    "bitwise_repeat")
+        if dt == torch.bfloat16:
+            _check_exact_grads(torch, aside, flash_attn, failures)
 
         if dt == torch.bfloat16:
             # bf16 queries against an fp32 cache (Qwen3's serving path):
@@ -1365,6 +1536,7 @@ def main() -> int:
     _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases)
     _time_paged(torch, randn, record, time_ms)
     _time_quant(torch, randn, record, time_ms)
+    _time_qwen3_attn(torch, randn, record, time_ms)
     del flush, sout
 
     # -- 5. the OPT serving path ---------------------------------------------
@@ -1436,7 +1608,8 @@ def main() -> int:
     qtrain = run.train("qwen3_0_6b", QWEN_FF, {
         "dyad_ff_fused": 2, "dyad_mm_blocks": 2, "dyad_mm_dgrad": 1,
         "dyad_mm_wgrad": 3, "dyad_mm_dgrad_two": 2, "flash_prefill": 2,
-        "flash_prefill_grads": 1}, "qwen3_train")
+        "flash_prefill_grads": 1}, "qwen3_train",
+        profile_check=_bwd_kernel_split)
     if qtrain is None:
         return 1
 
@@ -1543,7 +1716,7 @@ def main() -> int:
             "shape": "+".join(tm["shape"]), "dtype": tm["dtype"]}
         for key in ("split_route_ms", "bmm_chain_ms", "dequant_bmm_ms",
                     "dequant_bmm_chain_ms", "copied_views_ms",
-                    "contiguous_out_ms"):
+                    "contiguous_out_ms", "delta_ms"):
             if key in tm:
                 entry[key] = tm[key]
         line.append(entry)
@@ -1691,11 +1864,14 @@ class _Run:
             ok=ok and finite and tie_ok)
         return ok and finite and tie_ok
 
-    def train(self, arch, spec, per_layer, phase, compare=True):
+    def train(self, arch, spec, per_layer, phase, compare=True,
+              profile_check=None):
         """The train launcher's trainer at full width, B x S of TRAIN: 2
         warm-up steps, one counted step, 5 timed; with ``compare``, the
-        same with dense and one profiled step.  Returns the launch counts
-        of the counted step, None on a failure."""
+        same with dense and one profiled step, whose kernel table
+        ``profile_check(per_kernel, n_layers)`` may hold to account.
+        Returns the launch counts of the counted step, None on a
+        failure."""
         from torch.profiler import ProfilerActivity, profile
 
         from repro_torch import configs
@@ -1759,7 +1935,10 @@ class _Run:
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     trainer.run(trainer.step + 1)
-                _log_profile(prof, step_s[lin] * 1e3, phase + "_profile")
+                per_kernel = _log_profile(prof, step_s[lin] * 1e3,
+                                          phase + "_profile")
+                if profile_check and not profile_check(per_kernel, n_layers):
+                    return None
             del trainer, losses
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -2306,9 +2485,11 @@ def _finite(grads):
     return all(bool(g.isfinite().all()) for g in tree.leaves(grads))
 
 
-def _log_profile(prof, wall_ms: float, phase: str, top_n: int = 10) -> None:
+def _log_profile(prof, wall_ms: float, phase: str, top_n: int = 10) -> dict:
     """Device-busy time of a profiled run against the unprofiled wall time
-    of the same work, and the kernels that took the most device time."""
+    of the same work, and the kernels that took the most device time.
+    Returns {kernel name: (device ms, launches)}, empty without device
+    events."""
     per_kernel = {}
     for ev in prof.key_averages():
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
@@ -2319,7 +2500,7 @@ def _log_profile(prof, wall_ms: float, phase: str, top_n: int = 10) -> None:
     busy_ms = sum(ms for ms, _ in per_kernel.values())
     if busy_ms <= 0:
         log(phase, device_busy_ms="not measured (no device events)")
-        return
+        return {}
     # the copy kernels, among them the casts of the fp32 params to the
     # compute dtype in every call
     copies = [(ms, cnt) for name, (ms, cnt) in per_kernel.items()
@@ -2334,6 +2515,7 @@ def _log_profile(prof, wall_ms: float, phase: str, top_n: int = 10) -> None:
     for name, (ms, cnt) in top:
         log(phase, kernel=repr(name[:70]), ms=f"{ms:.3f}", calls=cnt,
             share_of_busy=f"{ms / busy_ms:.3f}")
+    return per_kernel
 
 
 def _tree_to(tree, device):

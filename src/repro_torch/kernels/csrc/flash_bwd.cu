@@ -17,26 +17,37 @@
 // (window) q_pos - k_pos < window; p is zeroed explicitly where the pair is
 // not valid, so a fully-masked row (lse about -1e30) gives zero gradients.
 //
-// Two kernels, launched one after the other on the caller's stream, each a
-// chain of small GEMMs through shared memory with 4 x 4 (or 4 x h/16)
-// register tiles per thread, 256 threads per block:
-//  - dk, dv: one block per (b, kv head, 64-key tile) keeps k and v (and
-//    its dk, dv accumulators) and walks the 64-row tiles of q and do in the
-//    causal/window band of its keys (the reference's _q_index_map):
-//    S = q k^T and dP = do v^T, then p and ds, then dv += p^T do and
-//    dk += ds^T q.
-//  - dq: one block per (b, kv head, 64-row tile) keeps q and do and walks
-//    the key tiles in the band of its rows (the reference's
-//    _kv_index_map): S and dP again, then dq += ds k.
-// Operands are staged row-major or transposed so that every inner loop
-// reads float4s; q, k, v and do are read through their strides (head dim
-// contiguous): no GQA fold, transpose or padded copy in device memory.
+// Two routes, each two kernels launched one after the other on the
+// caller's stream (dk/dv, then dq):
+//  - bf16, any h <= 128: the tensor-core kernels of flash_bwd_tc.cuh
+//    (wgmma, P and dS fed back from the accumulator registers); see the
+//    note there.
+//  - fp32: the kernels below, each a chain of small GEMMs through shared
+//    memory with 4 x 4 (or 4 x h/16) fp32 FMA register tiles per thread,
+//    256 threads per block:
+//    - dk, dv: one block per (b, kv head, 64-key tile) keeps k and v (and
+//      its dk, dv accumulators) and walks the 64-row tiles of q and do in
+//      the causal/window band of its keys (the reference's _q_index_map):
+//      S = q k^T and dP = do v^T, then p and ds, then dv += p^T do and
+//      dk += ds^T q.
+//    - dq: one block per (b, kv head, 64-row tile) keeps q and do and walks
+//      the key tiles in the band of its rows (the reference's
+//      _kv_index_map): S and dP again, then dq += ds k.
+//    Operands are staged row-major or transposed so that every inner loop
+//    reads float4s; q, k, v and do are read through their strides (head
+//    dim contiguous): no GQA fold, transpose or padded copy in device
+//    memory.
 //
 // Bound on the H100: at the OPT-125m training shape (B 8, S = T = 512,
-// K 12, h 64, causal) the backward does about 8 GFLOP on a few tens of MB,
-// so fp32 operations bound it.  This version uses fp32 FMA, no tensor
-// cores, and recomputes S and dP in both kernels.
-#include "common.cuh"
+// K 12, h 64, causal, fp32) the backward does about 8 GFLOP on a few tens
+// of MB, so fp32 operations bound it; the FMA route recomputes S and dP in
+// both kernels.  At Qwen3-0.6B's (bf16, K 8 x G 2, h 128) bytes bound it:
+// about 101 MB, 0.030 ms.
+//
+// ptxas (sm_90a, -O3) on the tensor-core kernels, no spills: dk/dv 242
+// registers at HD 128 (dK and dV 128 of them, S^T and dP^T 64), 182 at HD
+// 64; dq 190 and 146 (chip_smoke.py phase 2 prints them).
+#include "flash_bwd_tc.cuh"
 
 namespace repro {
 namespace {
@@ -44,28 +55,6 @@ namespace {
 constexpr int kTile = 64;              // rows (query rows or keys) per tile
 constexpr int kThreads = 256;          // 16 x 16 threads, 4 rows each
 constexpr int kPT = kTile + 4;         // pitch of a transposed [h][64] tile
-
-struct BwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;
-  const float* delta;
-  void* dq;
-  void* dk;
-  void* dv;
-  const int* q_off_vec;
-  const int* k_off_vec;
-  int q_off, k_off;
-  int B, S, T, K, G, h;
-  long long q_sb, q_ss, q_sk, q_sg;
-  long long do_sb, do_ss, do_sk, do_sg;
-  long long k_sb, k_st, k_sk;
-  long long v_sb, v_st, v_sk;
-  int causal, window;
-  float scale;
-};
 
 __device__ __forceinline__ bool pair_valid(const BwdArgs& a, int rg, int tk,
                                            int qo, int ko) {
@@ -96,8 +85,8 @@ __device__ __forceinline__ void lds(const float* p, float (&v)[N]) {
 // rows r0 .. r0+63 (r = s*G + g) of a (B, S, K, G, h) tensor into a
 // row-major [64][HD + 4] tile, zero past S*G or h; loads issue before
 // stores
-template <typename T, int HD>
-__device__ __forceinline__ void stage_rows(const T* src, long long sb,
+template <int HD>
+__device__ __forceinline__ void stage_rows(const float* src, long long sb,
                                            long long ss, long long sk,
                                            long long sg, const BwdArgs& a,
                                            int b, int kh, int r0,
@@ -112,7 +101,7 @@ __device__ __forceinline__ void stage_rows(const T* src, long long sb,
     val[i] = 0.f;
     if (rg < SG && d < a.h) {
       const int s = rg / a.G, g = rg % a.G;
-      val[i] = to_f32(src[b * sb + s * ss + kh * sk + g * sg + d]);
+      val[i] = src[b * sb + s * ss + kh * sk + g * sg + d];
     }
   }
 #pragma unroll
@@ -124,8 +113,8 @@ __device__ __forceinline__ void stage_rows(const T* src, long long sb,
 
 // keys t0 .. t0+63 of a (B, T, K, h) tensor, transposed into [HD][64 + 4]
 // and, when `rows` is set, also row-major into [64][HD + 4]
-template <typename T, int HD>
-__device__ __forceinline__ void stage_keys(const T* src, long long sb,
+template <int HD>
+__device__ __forceinline__ void stage_keys(const float* src, long long sb,
                                            long long st, long long sk,
                                            const BwdArgs& a, int b, int kh,
                                            int t0, float* tr, float* rows) {
@@ -136,7 +125,7 @@ __device__ __forceinline__ void stage_keys(const T* src, long long sb,
     const int e = threadIdx.x + i * kThreads;
     const int t = e / HD, d = e % HD, tk = t0 + t;
     val[i] = (tk < a.T && d < a.h)
-                 ? to_f32(src[b * sb + tk * st + kh * sk + d])
+                 ? src[b * sb + tk * st + kh * sk + d]
                  : 0.f;
   }
 #pragma unroll
@@ -230,7 +219,7 @@ constexpr int dq_floats() {
 template <int HD>
 constexpr int min_blocks() { return HD <= 64 ? 2 : 1; }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, min_blocks<HD>())
 flash_dkv_kernel(BwdArgs a) {
   constexpr int DT = HD / 16;   // head dims per thread in dk, dv
@@ -250,10 +239,10 @@ flash_dkv_kernel(BwdArgs a) {
   const int qo = a.q_off_vec ? a.q_off_vec[b] : a.q_off;
   const int ko = a.k_off_vec ? a.k_off_vec[b] : a.k_off;
 
-  stage_keys<T, HD>(static_cast<const T*>(a.k), a.k_sb, a.k_st, a.k_sk, a,
-                    b, kh, t0, kt, nullptr);
-  stage_keys<T, HD>(static_cast<const T*>(a.v), a.v_sb, a.v_st, a.v_sk, a,
-                    b, kh, t0, vt, nullptr);
+  stage_keys<HD>(static_cast<const float*>(a.k), a.k_sb, a.k_st, a.k_sk, a, b,
+                 kh, t0, kt, nullptr);
+  stage_keys<HD>(static_cast<const float*>(a.v), a.v_sb, a.v_st, a.v_sk, a, b,
+                 kh, t0, vt, nullptr);
 
   // the thread's dk, dv: keys ty*4 + i, head dims tx*DT + j
   float dk[4][DT], dv[4][DT];
@@ -272,10 +261,10 @@ flash_dkv_kernel(BwdArgs a) {
 
   for (int r0 = (row_lo / kTile) * kTile; r0 < row_hi; r0 += kTile) {
     __syncthreads();   // the previous row tile is consumed
-    stage_rows<T, HD>(static_cast<const T*>(a.q), a.q_sb, a.q_ss, a.q_sk,
-                      a.q_sg, a, b, kh, r0, qs);
-    stage_rows<T, HD>(static_cast<const T*>(a.dout), a.do_sb, a.do_ss,
-                      a.do_sk, a.do_sg, a, b, kh, r0, dos);
+    stage_rows<HD>(static_cast<const float*>(a.q), a.q_sb, a.q_ss, a.q_sk,
+                   a.q_sg, a, b, kh, r0, qs);
+    stage_rows<HD>(static_cast<const float*>(a.dout), a.do_sb, a.do_ss,
+                   a.do_sk, a.do_sg, a, b, kh, r0, dos);
     stage_row_stats(a, b, kh, r0, lses, deltas);
     __syncthreads();
 
@@ -310,8 +299,8 @@ flash_dkv_kernel(BwdArgs a) {
     }
   }
 
-  T* dkp = static_cast<T*>(a.dk);
-  T* dvp = static_cast<T*>(a.dv);
+  float* dkp = static_cast<float*>(a.dk);
+  float* dvp = static_cast<float*>(a.dv);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int tk = t0 + ty * 4 + i;
@@ -321,14 +310,14 @@ flash_dkv_kernel(BwdArgs a) {
     for (int j = 0; j < DT; ++j) {
       const int d = tx * DT + j;
       if (d < a.h) {
-        dkp[ob + d] = from_f32<T>(dk[i][j]);
-        dvp[ob + d] = from_f32<T>(dv[i][j]);
+        dkp[ob + d] = dk[i][j];
+        dvp[ob + d] = dv[i][j];
       }
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, min_blocks<HD>())
 flash_dq_kernel(BwdArgs a) {
   constexpr int DT = HD / 16;   // head dims per thread in dq
@@ -349,10 +338,10 @@ flash_dq_kernel(BwdArgs a) {
   const int qo = a.q_off_vec ? a.q_off_vec[b] : a.q_off;
   const int ko = a.k_off_vec ? a.k_off_vec[b] : a.k_off;
 
-  stage_rows<T, HD>(static_cast<const T*>(a.q), a.q_sb, a.q_ss, a.q_sk,
-                    a.q_sg, a, b, kh, r0, qs);
-  stage_rows<T, HD>(static_cast<const T*>(a.dout), a.do_sb, a.do_ss,
-                    a.do_sk, a.do_sg, a, b, kh, r0, dos);
+  stage_rows<HD>(static_cast<const float*>(a.q), a.q_sb, a.q_ss, a.q_sk,
+                 a.q_sg, a, b, kh, r0, qs);
+  stage_rows<HD>(static_cast<const float*>(a.dout), a.do_sb, a.do_ss,
+                 a.do_sk, a.do_sg, a, b, kh, r0, dos);
   stage_row_stats(a, b, kh, r0, lses, deltas);
 
   // the thread's dq: rows ty*4 + i, head dims tx*DT + j
@@ -380,10 +369,10 @@ flash_dq_kernel(BwdArgs a) {
   for (int t = t_begin; t < t_end; ++t) {
     const int t0 = t * kTile;
     __syncthreads();   // the previous key tile is consumed
-    stage_keys<T, HD>(static_cast<const T*>(a.k), a.k_sb, a.k_st, a.k_sk, a,
-                      b, kh, t0, kt, ks);
-    stage_keys<T, HD>(static_cast<const T*>(a.v), a.v_sb, a.v_st, a.v_sk, a,
-                      b, kh, t0, vt, nullptr);
+    stage_keys<HD>(static_cast<const float*>(a.k), a.k_sb, a.k_st, a.k_sk,
+                   a, b, kh, t0, kt, ks);
+    stage_keys<HD>(static_cast<const float*>(a.v), a.v_sb, a.v_st, a.v_sk,
+                   a, b, kh, t0, vt, nullptr);
     __syncthreads();
 
     float p[4][4], ds[4][4];
@@ -409,7 +398,7 @@ flash_dq_kernel(BwdArgs a) {
     }
   }
 
-  T* dqp = static_cast<T*>(a.dq);
+  float* dqp = static_cast<float*>(a.dq);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int rg = r0 + ty * 4 + i;
@@ -420,37 +409,36 @@ flash_dq_kernel(BwdArgs a) {
 #pragma unroll
     for (int j = 0; j < DT; ++j) {
       const int d = tx * DT + j;
-      if (d < a.h) dqp[ob + d] = from_f32<T>(dq[i][j]);
+      if (d < a.h) dqp[ob + d] = dq[i][j];
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
   const size_t dkv_bytes = sizeof(float) * dkv_floats<HD>();
   const size_t dq_bytes = sizeof(float) * dq_floats<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dkv_bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_dq_kernel<T, HD>,
+  err = cudaFuncSetAttribute(flash_dq_kernel<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)dq_bytes);
   if (err != cudaSuccess) return err;
   dim3 dkv_grid((a.T + kTile - 1) / kTile, a.K, a.B);
-  flash_dkv_kernel<T, HD><<<dkv_grid, kThreads, dkv_bytes, stream>>>(a);
+  flash_dkv_kernel<HD><<<dkv_grid, kThreads, dkv_bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 dq_grid((a.S * a.G + kTile - 1) / kTile, a.K, a.B);
-  flash_dq_kernel<T, HD><<<dq_grid, kThreads, dq_bytes, stream>>>(a);
+  flash_dq_kernel<HD><<<dq_grid, kThreads, dq_bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_hd(const BwdArgs& a, cudaStream_t stream) {
-  if (a.h <= 32) return launch<T, 32>(a, stream);
-  if (a.h <= 64) return launch<T, 64>(a, stream);
-  if (a.h <= 128) return launch<T, 128>(a, stream);
+  if (a.h <= 32) return launch<32>(a, stream);
+  if (a.h <= 64) return launch<64>(a, stream);
+  if (a.h <= 128) return launch<128>(a, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -475,9 +463,11 @@ extern "C" int repro_flash_prefill_grads(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kF32:
-      return repro::launch_hd<float>(a, s);
-    case repro::kBF16:
-      return repro::launch_hd<__nv_bfloat16>(a, s);
+      return repro::launch_hd(a, s);
+    case repro::kBF16:   // the tensor cores, any h <= 128
+      if (h <= 64) return repro::fbwd::launch<64>(a, s);
+      if (h <= 128) return repro::fbwd::launch<128>(a, s);
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }

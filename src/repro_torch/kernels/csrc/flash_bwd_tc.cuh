@@ -1,0 +1,649 @@
+// The bf16 route of flash_prefill_grads (flash_bwd.cu) on the tensor
+// cores: the same function as the fp32 FMA kernels there, through the same
+// BwdArgs, with every product a wgmma of bf16 operands into fp32
+// accumulators.
+//
+// Replaces, for bf16 on this card, the TPU kernel
+// src/repro/kernels/flash_attn.py: flash_prefill_grads (_dkv_kernel in
+// _dkv_impl, _dq_kernel in _dq_impl), and keeps its two-kernel split:
+// dk/dv first, then dq, no atomics, so every run gives the same bits.
+//
+// What bounds it on the H100: at Qwen3-0.6B's training shape (B 8, S 512,
+// 8 KV heads x G 2, h 128, causal) a call moves about 101 MB (0.030 ms)
+// and does 21.5 GFLOP of unique products (0.022 ms at 989 TFLOP/s), 32
+// GFLOP with S and dP recomputed in both kernels.  The FMA kernels ran it
+// at about 8 TFLOP/s, every product on fp32 FMA over bf16 widened in
+// shared memory.  The design:
+//
+// - One warpgroup (128 threads) a block, two blocks an SM.  Every tile is
+//   [64][HD] bf16 (HD 64 or 128, the lanes past h zero on load and never
+//   stored), kept as HD / 64 sub-tiles of [64][64] in the 128-byte swizzle
+//   of dyad_gemm_tc.cuh.  That one layout is K-major along h (the A or B
+//   of a product that sums over h) and MN-major along h (the B of one that
+//   sums over the tile's rows), so no tile is staged twice.
+// - dk/dv: a block per (b, KV head, 64 keys) keeps K and V and walks the
+//   64-row tiles of the folded rows r = s * G + g in its causal/window band
+//   (dk and dv sum over G in the block): S^T = K Q^T and dP^T = V dO^T
+//   (m64n64k16, keys as M), then p = exp(S^T scale - lse) and
+//   ds = p (dP^T - delta) scale in the accumulator registers, zero off the
+//   mask (flash_bwd.cu's contract; no mask test on a tile whose pairs are
+//   all valid), rounded to bf16 in registers and used as wgmma's
+//   A: dV += P^T dO and dK += dS^T Q (m64nHDk16, dO and Q MN-major from
+//   the tiles the first products read K-major).  The accumulator layout of
+//   an m64 product is the A-fragment layout of the next one, so P and dS
+//   never touch shared memory.  The key tiles of a causal band's start are
+//   the longest: they are the first blocks of the grid.
+// - dq: a block per (b, KV head, 64 rows) keeps Q and dO and walks the key
+//   tiles of its band: S = Q K^T, dP = dO V^T, ds in registers, then
+//   dQ += dS K (K MN-major from the tile S read K-major).  The last row
+//   tiles of a causal band are the longest and come first.
+// - The walked tiles (Q and dO, or K and V) are double-buffered: tile
+//   i + 1's cp.async copies (16 bytes each) issue right after tile i's
+//   first products, and land while tile i computes.  In dq, tile i's dQ
+//   product also runs on while tile i + 1's first products issue.  A row
+//   of the fold is a run of h elements; G rows are neighbours at stride
+//   q_sg, then the next s.  An operand whose pointer or strides are off 16
+//   bytes is staged element by element.
+// - Code size: the loaders stay rolled but for their cp.async route, one
+//   copy for each pair of operands.  Fully unrolled, they more than
+//   doubled both kernels' SASS, which cost most of the first version's
+//   time on the card.
+// - p and ds are rounded to bf16 before their products, as the reference
+//   rounds them to the operand type; the sums are fp32, the outputs rounded
+//   once.  exp is ex2.approx (flushing results below 2^-126 to zero).
+//
+// Registers (ptxas, sm_90a): see the header note of flash_bwd.cu.
+#pragma once
+
+#include "dyad_gemm_tc.cuh"
+
+namespace repro {
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;
+  const float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+  const int* q_off_vec;
+  const int* k_off_vec;
+  int q_off, k_off;
+  int B, S, T, K, G, h;
+  long long q_sb, q_ss, q_sk, q_sg;
+  long long do_sb, do_ss, do_sk, do_sg;
+  long long k_sb, k_st, k_sk;
+  long long v_sb, v_st, v_sk;
+  int causal, window;
+  float scale;
+};
+
+namespace fbwd {
+
+constexpr int kT = 64;          // rows or keys per tile
+constexpr int kWG = 128;        // one warpgroup a block
+constexpr float kLog2e = 1.4426950408889634f;
+// per walked row tile of dk/dv: lse, delta (fp32) and the query position
+// (int) of its 64 rows
+constexpr int kStatBytes = 3 * kT * 4;
+
+// bits of `flags`: the operands whose 16-byte chunks cp.async may copy;
+// kFoldStep: G divides the rows a thread steps by in a tile (see load_fold)
+enum : int { kVecQ = 1, kVecDo = 2, kVecK = 4, kVecV = 8, kFoldStep = 16 };
+
+// a thread copies rows tid / (HD / 8) + i * kRpi<HD> of a tile
+template <int HD>
+constexpr int kRpi = kWG / (HD / 8);
+
+// byte offset of element (row, col) of a [64][HD] tile
+__device__ __forceinline__ uint32_t toff(int row, int col) {
+  return (col >> 6) * 8192 + tc::tile_off<true>(row, col & 63);
+}
+
+// descriptors of k16 step s: K-major (the product sums over h: 16 columns
+// of a sub-tile) and MN-major (it sums over the tile's rows: 16 rows, the
+// HD / 64 sub-tiles 8192 bytes apart)
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int s) {
+  return tc::desc(tile + (s >> 2) * 8192 + (s & 3) * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int s) {
+  return tc::desc(tile + s * 2048, 8192, 1024);
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+
+// One [64][HD] tile: the thread copies chunk c = tid % (HD / 8) (elements
+// 8c .. 8c + 7) of rows tid / (HD / 8) + i * kRpi, i < HD / 16.  `src(i)`
+// is that row's first element, or null past the edge (zeros).  With `vec`
+// the chunks go by cp.async (the lanes past h zero-filled), else element
+// by element.  Only the cp.async route of cheap row addresses is unrolled
+// (`Unrolled`, which needs `vec`): the others stay rolled, so that a
+// kernel's loop body fits the instruction cache (the SASS of a fully
+// unrolled loader made up most of both kernels' time on the card).
+template <int HD, bool Unrolled, typename F>
+__device__ __forceinline__ void load_tile(uint32_t tile, const void* any,
+                                          int h, bool vec, F&& src) {
+  constexpr int kCpr = HD / 8;
+  const int c = threadIdx.x % kCpr, d0 = c * 8;
+  const int n = max(0, min(8, h - d0));
+  auto dst = [&](int i) {
+    return tile + toff(threadIdx.x / kCpr + i * kRpi<HD>, d0);
+  };
+  auto copy = [&](int i, const unsigned short* p) {
+    const int bytes = p ? 2 * n : 0;
+    tc::cp_async16(dst(i), bytes ? p + d0 : any, bytes);
+  };
+  if constexpr (Unrolled) {
+#pragma unroll
+    for (int i = 0; i < HD / 16; ++i) copy(i, src(i));
+    return;
+  }
+#pragma unroll 1
+  for (int i = 0; i < HD / 16; ++i) {
+    const unsigned short* p = src(i);
+    if (vec) {
+      copy(i, p);
+      continue;
+    }
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+      const uint32_t lo = p && e < n ? p[d0 + e] : 0u;
+      const uint32_t hi = p && e + 1 < n ? p[d0 + e + 1] : 0u;
+      w[e / 2] = lo | (hi << 16);
+    }
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst(i)),
+                 "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3]));
+  }
+}
+
+// Operand t of a kernel's pair, t = 0 or 1: q and do (rows), k and v
+// (keys).  Selected, not branched on, so that a rolled loop over the pair
+// holds one copy of its loader.
+struct Pair {
+  const void* p;
+  long long sb, ss, sk, sg;
+  bool vec;
+};
+__device__ __forceinline__ Pair rows_of(const BwdArgs& a, int t, int flags) {
+  return t ? Pair{a.dout, a.do_sb, a.do_ss, a.do_sk, a.do_sg,
+                  (flags & kVecDo) != 0}
+           : Pair{a.q, a.q_sb, a.q_ss, a.q_sk, a.q_sg, (flags & kVecQ) != 0};
+}
+__device__ __forceinline__ Pair keys_of(const BwdArgs& a, int t, int flags) {
+  return t ? Pair{a.v, a.v_sb, a.v_st, a.v_sk, 0, (flags & kVecV) != 0}
+           : Pair{a.k, a.k_sb, a.k_st, a.k_sk, 0, (flags & kVecK) != 0};
+}
+
+// The tile of folded rows r0 .. r0 + 63 (rg = s * G + g, zero past
+// S * G) of a (B, S, K, G, h) tensor.  Where G divides kRpi (kFoldStep)
+// every row of the thread is its first one's g, kRpi / G query positions
+// on per pass: one division a tile, the rows by adds.
+template <int HD>
+__device__ __forceinline__ void load_fold(uint32_t tile, const Pair& o,
+                                          int flags, const BwdArgs& a,
+                                          int b, int kh, int r0) {
+  const int SG = a.S * a.G;
+  const int rg0 = r0 + threadIdx.x / (HD / 8);
+  const unsigned short* base =
+      static_cast<const unsigned short*>(o.p) + b * o.sb + kh * o.sk;
+  if ((flags & kFoldStep) && o.vec) {
+    const int s0 = rg0 / a.G;
+    const unsigned short* p0 = base + s0 * o.ss + (rg0 - s0 * a.G) * o.sg;
+    const long long step = (long long)(kRpi<HD> / a.G) * o.ss;
+    load_tile<HD, true>(tile, o.p, a.h, true, [&](int i) {
+      return rg0 + i * kRpi<HD> < SG ? p0 + i * step : nullptr;
+    });
+  } else {
+    load_tile<HD, false>(tile, o.p, a.h, o.vec, [&](int i) {
+      const int rg = rg0 + i * kRpi<HD>;
+      const int s = rg / a.G;
+      return rg < SG ? base + s * o.ss + (rg - s * a.G) * o.sg : nullptr;
+    });
+  }
+}
+
+// the tile of keys t0 .. t0 + 63 (zero past T) of a (B, T, K, h) tensor
+// (o.ss is its key stride)
+template <int HD>
+__device__ __forceinline__ void load_keys(uint32_t tile, const Pair& o,
+                                          const BwdArgs& a, int b, int kh,
+                                          int t0) {
+  const int tk0 = t0 + threadIdx.x / (HD / 8);
+  const unsigned short* p0 = static_cast<const unsigned short*>(o.p) +
+                             b * o.sb + tk0 * o.ss + kh * o.sk;
+  const long long step = kRpi<HD> * o.ss;
+  auto src = [&](int i) {
+    return tk0 + i * kRpi<HD> < a.T ? p0 + i * step : nullptr;
+  };
+  if (o.vec)
+    load_tile<HD, true>(tile, o.p, a.h, true, src);
+  else
+    load_tile<HD, false>(tile, o.p, a.h, false, src);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// every pair of the tile valid: no mask to apply
+__device__ __forceinline__ bool tile_full(const BwdArgs& a, int r0, int t0,
+                                          int qo, int ko) {
+  if (r0 + kT > a.S * a.G || t0 + kT > a.T) return false;
+  const int q_lo = qo + r0 / a.G, q_hi = qo + (r0 + kT - 1) / a.G;
+  if (a.causal && ko + t0 + kT - 1 > q_lo) return false;
+  if (a.window >= 0 && q_hi - (ko + t0) >= a.window) return false;
+  return true;
+}
+
+__device__ __forceinline__ bool valid(const BwdArgs& a, bool row_ok,
+                                      bool key_ok, int qpos, int kpos) {
+  return row_ok && key_ok && !(a.causal && kpos > qpos) &&
+         !(a.window >= 0 && qpos - kpos >= a.window);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p (in s) and ds (in dp) of one accumulator element
+__device__ __forceinline__ void prob(const BwdArgs& a, bool ok, float lse2,
+                                     float delta, float& s, float& dp) {
+  const float p = ok ? ex2(fmaf(s, a.scale * kLog2e, -lse2)) : 0.f;
+  dp = p * (dp - delta) * a.scale;
+  s = p;
+}
+
+// the 16 bf16 pairs of a 64 x 64 accumulator as wgmma A fragments: pairs
+// 4 s .. 4 s + 3 are the A of k16 step s
+__device__ __forceinline__ void to_a(const float (&acc)[32],
+                                     uint32_t (&frag)[16]) {
+#pragma unroll
+  for (int m = 0; m < 16; ++m) frag[m] = pack_bf16(acc[2 * m], acc[2 * m + 1]);
+}
+
+template <int HD>
+__device__ __forceinline__ void mma_rs(float (&d)[HD / 2],
+                                       const uint32_t (&frag)[16],
+                                       uint32_t tile) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const uint32_t a4[4] = {frag[4 * s], frag[4 * s + 1], frag[4 * s + 2],
+                            frag[4 * s + 3]};
+    if constexpr (HD == 64)
+      tc::wgmma_m64n64k16_rs<1>(d, a4, desc_mn(tile, s));
+    else
+      tc::wgmma_m64n128k16_rs<1>(d, a4, desc_mn(tile, s));
+  }
+}
+
+// S = A B^T and dP = A2 B2^T over h, both tiles K-major
+template <int HD>
+__device__ __forceinline__ void mma_ss2(float (&s)[32], float (&dp)[32],
+                                        uint32_t a1, uint32_t b1,
+                                        uint32_t a2, uint32_t b2) {
+#pragma unroll
+  for (int k = 0; k < HD / 16; ++k)
+    tc::wgmma_m64n64k16<0, 0>(s, desc_k(a1, k), desc_k(b1, k), k > 0);
+#pragma unroll
+  for (int k = 0; k < HD / 16; ++k)
+    tc::wgmma_m64n64k16<0, 0>(dp, desc_k(a2, k), desc_k(b2, k), k > 0);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  wg_commit();
+  wg_wait();
+}
+// copies landed (this thread's, then everyone's) and visible to wgmma
+__device__ __forceinline__ void landed() {
+  tc::cp_async_wait<0>();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// an accumulator of HD / 2 fp32 per thread (64 rows x HD) into the
+// (rows, h) output: register 4 j + 2 hh + e holds row 16 warp + lane / 4 +
+// 8 hh, column 8 j + 2 (lane % 4) + e; `dst(hh)` the row's first element
+// or null
+template <int HD, typename F>
+__device__ __forceinline__ void store_acc(const float (&acc)[HD / 2], int h,
+                                          F&& dst) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    __nv_bfloat16* row = dst(hh);
+    if (!row) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int d = 8 * j + 2 * (lane % 4);
+      const float v0 = acc[4 * j + 2 * hh], v1 = acc[4 * j + 2 * hh + 1];
+      if (d + 1 < h && (h & 1) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(row + d) =
+            __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (d < h) row[d] = __float2bfloat16(v0);
+        if (d + 1 < h) row[d + 1] = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
+template <int HD>
+constexpr int dkv_smem() {
+  // K, V; two stages of Q, dO; two stages of row stats; alignment
+  return 6 * kT * HD * 2 + 2 * kStatBytes + 1024;
+}
+template <int HD>
+constexpr int dq_smem() {
+  // Q, dO; two stages of K, V; alignment
+  return 6 * kT * HD * 2 + 1024;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWG, 2)
+flash_dkv_tc_kernel(BwdArgs a, int flags) {
+  constexpr int kTB = kT * HD * 2;   // bytes of a tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = tc::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sk = base, sv = base + kTB;
+  auto stage = [&](int i) { return base + (2 + 2 * (i & 1)) * kTB; };
+  const uint32_t stats0 = base + 6 * kTB;
+  auto stats_ptr = [&](int i) {
+    return smem_raw + (stats0 - raw) + (i & 1) * kStatBytes;
+  };
+
+  const int b = blockIdx.x / a.K, kh = blockIdx.x % a.K;
+  const int t0 = blockIdx.y * kT;
+  const int SG = a.S * a.G;
+  const int qo = a.q_off_vec ? a.q_off_vec[b] : a.q_off;
+  const int ko = a.k_off_vec ? a.k_off_vec[b] : a.k_off;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // row tiles inside the (causal, window) band of this key tile
+  const int kpos_lo = ko + t0;
+  const int kpos_hi = ko + min(t0 + kT, a.T) - 1;
+  int s_lo = 0, s_hi = a.S;
+  if (a.causal) s_lo = max(0, kpos_lo - qo);
+  if (a.window >= 0) s_hi = max(0, min(a.S, kpos_hi + a.window - qo));
+  const int first = (s_lo * a.G / kT) * kT, row_hi = s_hi * a.G;
+  const int n = row_hi > first ? (row_hi - first + kT - 1) / kT : 0;
+
+  // row tile i: Q, dO, and its rows' lse, delta and query position
+  auto issue = [&](int i) {
+    const int r0 = first + i * kT;
+#pragma unroll 1
+    for (int t = 0; t < 2; ++t)
+      load_fold<HD>(stage(i) + t * kTB, rows_of(a, t, flags), flags, a, b,
+                    kh, r0);
+    if (threadIdx.x < kT) {
+      const int rg = r0 + threadIdx.x;
+      const long long at = ((long long)b * a.K + kh) * SG + rg;
+      const uint32_t st = stats0 + (i & 1) * kStatBytes + 4 * threadIdx.x;
+      const bool in = rg < SG;
+      cp_async4(st, in ? a.lse + at : a.lse, in ? 4 : 0);
+      cp_async4(st + 4 * kT, in ? a.delta + at : a.delta, in ? 4 : 0);
+      const int qpos = qo + (in ? rg / a.G : 0);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(st + 8 * kT),
+                   "r"(qpos));
+    }
+  };
+
+#pragma unroll 1
+  for (int t = 0; t < 2; ++t)
+    load_keys<HD>(sk + t * kTB, keys_of(a, t, flags), a, b, kh, t0);
+  if (n > 0) issue(0);
+  tc::cp_async_commit();
+
+  // the thread's keys: accumulator rows 16 warp + lane / 4 + 8 hh
+  int kpos[2];
+  bool key_ok[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int tk = t0 + 16 * warp + lane / 4 + 8 * hh;
+    kpos[hh] = ko + tk;
+    key_ok[hh] = tk < a.T;
+  }
+
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  tc::fence_acc(dk);
+  tc::fence_acc(dv);
+
+  for (int i = 0; i < n; ++i) {
+    landed();   // tile i is in, and every warp is done with tile i - 1
+    const int r0 = first + i * kT;
+    const uint32_t sq = stage(i), sdo = sq + kTB;
+
+    float s[32], dp[32];
+    wg_fence();
+    mma_ss2<HD>(s, dp, sk, sq, sv, sdo);   // S^T, dP^T: keys x rows
+    // tile i + 1's copies issue while the tensor cores run
+    wg_commit();
+    if (i + 1 < n) issue(i + 1);
+    tc::cp_async_commit();
+    wg_wait();
+    tc::fence_acc(s);
+    tc::fence_acc(dp);
+
+    const unsigned char* st = stats_ptr(i);
+    const float* lse = reinterpret_cast<const float*>(st);
+    const float* delta = lse + kT;
+    const int* qpos = reinterpret_cast<const int*>(st) + 2 * kT;
+    const bool full = tile_full(a, r0, t0, qo, ko);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * (lane % 4) + e;   // row r0 + col
+        const float lse2 = lse[col] * kLog2e, dl = delta[col];
+        const int qp = qpos[col];
+        const bool row_ok = r0 + col < SG;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int x = 4 * j + 2 * hh + e;
+          const bool ok =
+              full || valid(a, row_ok, key_ok[hh], qp, kpos[hh]);
+          prob(a, ok, lse2, dl, s[x], dp[x]);
+        }
+      }
+    }
+    uint32_t pa[16], da[16];
+    to_a(s, pa);
+    to_a(dp, da);
+    wg_fence();
+    mma_rs<HD>(dv, pa, sdo);   // dV += P^T dO
+    mma_rs<HD>(dk, da, sq);    // dK += dS^T Q
+    wg_commit_wait();
+  }
+  tc::cp_async_wait<0>();
+  tc::fence_acc(dk);
+  tc::fence_acc(dv);
+
+  const int h = a.h;
+  auto out = [&](void* base_ptr, int hh) -> __nv_bfloat16* {
+    const int tk = t0 + 16 * warp + lane / 4 + 8 * hh;
+    if (tk >= a.T) return nullptr;
+    return static_cast<__nv_bfloat16*>(base_ptr) +
+           (((long long)b * a.T + tk) * a.K + kh) * h;
+  };
+  store_acc<HD>(dk, h, [&](int hh) { return out(a.dk, hh); });
+  store_acc<HD>(dv, h, [&](int hh) { return out(a.dv, hh); });
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWG, 2)
+flash_dq_tc_kernel(BwdArgs a, int flags) {
+  constexpr int kTB = kT * HD * 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (tc::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base, sdo = base + kTB;
+  auto stage = [&](int i) { return base + (2 + 2 * (i & 1)) * kTB; };
+
+  const int b = blockIdx.x / a.K, kh = blockIdx.x % a.K;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kT;   // longest first
+  const int SG = a.S * a.G;
+  const int qo = a.q_off_vec ? a.q_off_vec[b] : a.q_off;
+  const int ko = a.k_off_vec ? a.k_off_vec[b] : a.k_off;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // key tiles inside the (causal, window) band of this row tile
+  const int q_lo = qo + r0 / a.G;
+  const int q_hi = qo + (min(r0 + kT, SG) - 1) / a.G;
+  const int n_tiles = (a.T + kT - 1) / kT;
+  int t_end = n_tiles;
+  if (a.causal) {
+    const int last = q_hi - ko;
+    t_end = last < 0 ? 0 : min(n_tiles, last / kT + 1);
+  }
+  int t_begin = 0;
+  if (a.window >= 0) {
+    const int fk = q_lo - a.window + 1 - ko;
+    t_begin = fk <= 0 ? 0 : fk / kT;
+  }
+  const int n = max(0, t_end - t_begin);
+
+  auto issue = [&](int i) {
+    const int k0 = (t_begin + i) * kT;
+#pragma unroll 1
+    for (int t = 0; t < 2; ++t)
+      load_keys<HD>(stage(i) + t * kTB, keys_of(a, t, flags), a, b, kh, k0);
+  };
+
+  if (n > 0) {
+#pragma unroll 1
+    for (int t = 0; t < 2; ++t)
+      load_fold<HD>(sq + t * kTB, rows_of(a, t, flags), flags, a, b, kh, r0);
+    issue(0);
+  }
+  tc::cp_async_commit();
+
+  // the thread's rows: accumulator rows 16 warp + lane / 4 + 8 hh
+  float lse2[2], dl[2];
+  int qpos[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int rg = r0 + 16 * warp + lane / 4 + 8 * hh;
+    row_ok[hh] = rg < SG;
+    const long long at = ((long long)b * a.K + kh) * SG + rg;
+    lse2[hh] = row_ok[hh] ? a.lse[at] * kLog2e : 0.f;
+    dl[hh] = row_ok[hh] ? a.delta[at] : 0.f;
+    qpos[hh] = qo + (row_ok[hh] ? rg / a.G : 0);
+  }
+
+  float dq[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+  tc::fence_acc(dq);
+
+  for (int i = 0; i < n; ++i) {
+    landed();
+    const int t0 = (t_begin + i) * kT;
+    const uint32_t sk = stage(i), sv = sk + kTB;
+
+    float s[32], dp[32];
+    wg_fence();
+    mma_ss2<HD>(s, dp, sq, sk, sdo, sv);   // S, dP: rows x keys
+    wg_commit();
+    // tile i - 1's dQ product (the group before) is done in every warp:
+    // its K tile's slot takes tile i + 1, copied while the tensor cores run
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    __syncthreads();
+    if (i + 1 < n) issue(i + 1);
+    tc::cp_async_commit();
+    wg_wait();
+    tc::fence_acc(s);
+    tc::fence_acc(dp);
+
+    const bool full = tile_full(a, r0, t0, qo, ko);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int tk = t0 + 8 * j + 2 * (lane % 4) + e;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int x = 4 * j + 2 * hh + e;
+          const bool ok =
+              full || valid(a, row_ok[hh], tk < a.T, qpos[hh], ko + tk);
+          prob(a, ok, lse2[hh], dl[hh], s[x], dp[x]);
+        }
+      }
+    }
+    uint32_t da[16];
+    to_a(dp, da);
+    wg_fence();
+    mma_rs<HD>(dq, da, sk);   // dQ += dS K
+    wg_commit();
+  }
+  wg_wait();
+  tc::cp_async_wait<0>();
+  tc::fence_acc(dq);
+
+  store_acc<HD>(dq, a.h, [&](int hh) -> __nv_bfloat16* {
+    const int rg = r0 + 16 * warp + lane / 4 + 8 * hh;
+    if (rg >= SG) return nullptr;
+    const int s = rg / a.G, g = rg - s * a.G;
+    return static_cast<__nv_bfloat16*>(a.dq) +
+           ((((long long)b * a.S + s) * a.K + kh) * a.G + g) * a.h;
+  });
+}
+
+// a (B, S, K, G, h) or (B, T, K, h) operand cp.async can copy: 16-byte
+// aligned, every stride a multiple of 8 elements
+inline bool vec_ok(const void* p, long long s0, long long s1, long long s2,
+                   long long s3) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0 &&
+         s0 % 8 == 0 && s1 % 8 == 0 && s2 % 8 == 0 && s3 % 8 == 0;
+}
+
+template <int HD>
+cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
+  const int flags =
+      (vec_ok(a.q, a.q_sb, a.q_ss, a.q_sk, a.q_sg) ? kVecQ : 0) |
+      (vec_ok(a.dout, a.do_sb, a.do_ss, a.do_sk, a.do_sg) ? kVecDo : 0) |
+      (vec_ok(a.k, a.k_sb, a.k_st, a.k_sk, 0) ? kVecK : 0) |
+      (vec_ok(a.v, a.v_sb, a.v_st, a.v_sk, 0) ? kVecV : 0) |
+      (kRpi<HD> % a.G == 0 ? kFoldStep : 0);
+  constexpr int dkv_bytes = dkv_smem<HD>(), dq_bytes = dq_smem<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dkv_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkv_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_dq_tc_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dq_bytes);
+  if (err != cudaSuccess) return err;
+  const unsigned bk = (unsigned)a.B * a.K;
+  dim3 dkv_grid(bk, (a.T + kT - 1) / kT);
+  flash_dkv_tc_kernel<HD><<<dkv_grid, kWG, dkv_bytes, stream>>>(a, flags);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 dq_grid(bk, (a.S * a.G + kT - 1) / kT);
+  flash_dq_tc_kernel<HD><<<dq_grid, kWG, dq_bytes, stream>>>(a, flags);
+  return cudaGetLastError();
+}
+
+}  // namespace fbwd
+}  // namespace repro

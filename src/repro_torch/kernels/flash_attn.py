@@ -9,7 +9,8 @@
 * :func:`flash_prefill_grads` (``csrc/flash_bwd.cu``) ports
   ``repro.kernels.flash_attn.flash_prefill_grads``: dq, dk and dv from
   q, k, v, the output, its lse and the output cotangent, with the
-  probabilities recomputed from lse.
+  probabilities recomputed from lse; bf16 on the tensor cores
+  (``csrc/flash_bwd_tc.cuh``), fp32 on FMA.
 * :func:`flash_decode` (``csrc/flash_decode.cu``) ports
   ``repro.kernels.flash_attn.flash_decode``: one query token against the
   ``(B, L, K, h)`` ring cache, slot ``j`` holding position

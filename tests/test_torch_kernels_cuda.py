@@ -390,18 +390,21 @@ def test_dyad_wgrad_bf16_gives_the_same_bits_every_run(cuda, M, n, d_in,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,K,G,h,causal,window,q_off,k_off", [
-    (2, 512, 4, 1, 64, True, None, 0, 0),           # the training shape
-    (3, 20, 2, 2, 16, True, 9, [0, 4, 30], [0, 2, 40]),
-    (2, 37, 1, 4, 128, False, None, 0, 0),
-    (1, 8, 2, 2, 16, True, None, 0, 20),            # all rows masked
-    (2, 33, 3, 2, 32, True, 5, 3, 3),
+@pytest.mark.parametrize("B,S,T,K,G,h,causal,window,q_off,k_off", [
+    (2, 512, 512, 4, 1, 64, True, None, 0, 0),      # the training shape
+    (3, 20, 20, 2, 2, 16, True, 9, [0, 4, 30], [0, 2, 40]),
+    (2, 37, 37, 1, 4, 128, False, None, 0, 0),
+    (1, 8, 8, 2, 2, 16, True, None, 0, 20),         # all rows masked
+    (2, 33, 33, 3, 2, 32, True, 5, 3, 3),
+    (8, 512, 512, 8, 2, 128, True, None, 0, 0),     # Qwen3-0.6B's training
+    (2, 70, 70, 2, 2, 80, True, None, 0, 0),        # h 80: padded to 128
+    (2, 100, 100, 2, 4, 64, True, 40, 0, 0),        # G 4, a window
+    (2, 40, 100, 2, 2, 64, True, None, 60, 0),      # S < T: a cached prefix
 ])
-def test_flash_prefill_grads_kernel_matches_plain(cuda, B, S, K, G, h, causal,
-                                                  window, q_off, k_off,
-                                                  dtype):
+def test_flash_prefill_grads_kernel_matches_plain(cuda, B, S, T, K, G, h,
+                                                  causal, window, q_off,
+                                                  k_off, dtype):
     gen = torch.Generator(device=cuda).manual_seed(S + h)
-    T = S
     q = _randn(gen, B, S, K, G, h, device=cuda, dtype=dtype)
     k = _randn(gen, B, T, K, h, device=cuda, dtype=dtype)
     v = _randn(gen, B, T, K, h, device=cuda, dtype=dtype)
@@ -422,6 +425,93 @@ def test_flash_prefill_grads_kernel_matches_plain(cuda, B, S, K, G, h, causal,
     for a, b in zip(got, want):
         assert a.dtype == dtype and bool(torch.isfinite(a.float()).all())
         _close(a, b, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_prefill_grads_bf16_reads_strided_views(cuda):
+    """q, do, k and v as views whose strides are off a multiple of 8
+    elements (the tensor-core kernels stage them element by element, not
+    by cp.async), against the plain version on the same views."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    B, S, K, G, h = 2, 90, 2, 2, 64
+    bf16 = torch.bfloat16
+    q, do = (_randn(gen, B, S, K, G, h + 3, device=cuda,
+                    dtype=bf16)[..., 1:h + 1] for _ in range(2))
+    k, v = (_randn(gen, B, S, K, h + 5, device=cuda, dtype=bf16)[..., :h]
+            for _ in range(2))
+    o, lse = flash_attn.flash_prefill_plain(q, k, v, save_lse=True)
+    got = flash_attn.flash_prefill_grads(q, k, v, o, lse, do)
+    want = flash_attn.flash_prefill_grads_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _close(a, b, bf16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,K,G,h,window,q_off,k_off", [
+    (8, 512, 8, 2, 128, None, 0, 0),        # Qwen3-0.6B's training shape
+    (3, 75, 2, 4, 64, 16, [0, 5, 90], [0, 0, 3]),
+])
+def test_flash_prefill_grads_bf16_gives_the_same_bits_every_run(
+        cuda, B, S, K, G, h, window, q_off, k_off):
+    """The tensor-core backward has no atomics: five runs, bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    bf16 = torch.bfloat16
+    q, do = (_randn(gen, B, S, K, G, h, device=cuda, dtype=bf16)
+             for _ in range(2))
+    k, v = (_randn(gen, B, S, K, h, device=cuda, dtype=bf16)
+            for _ in range(2))
+    if isinstance(q_off, list):
+        q_off = torch.tensor(q_off, device=cuda)
+        k_off = torch.tensor(k_off, device=cuda)
+    kw = dict(causal=True, window=window)
+    o, lse = flash_attn.flash_prefill(q, k, v, q_off, k_off, save_lse=True,
+                                      **kw)
+    first = flash_attn.flash_prefill_grads(q, k, v, o, lse, do, q_off,
+                                           k_off, **kw)
+    for _ in range(4):
+        again = flash_attn.flash_prefill_grads(q, k, v, o, lse, do, q_off,
+                                               k_off, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _exact_grads_inputs(gen, B, S, K, G, h, zero, device):
+    """Inputs whose bf16 backward has exact fp32 sums: lse = 0 and k = 0
+    (or q = 0), so every score is 0 and p is exactly 1 on the valid pairs;
+    q (or k), v, o and do in {-1, 0, 1}, so dv = sum do, and at h 64 (scale
+    1/8) ds = (dP - delta) / 8 with |dP - delta| <= 128 is exact in bf16,
+    and dk = sum ds q, dq = sum ds k are exact."""
+    def draw(*shape):
+        return torch.randint(-1, 2, shape, generator=gen,
+                             device=device).to(torch.bfloat16)
+
+    q, o, do = (draw(B, S, K, G, h) for _ in range(3))
+    k, v = draw(B, S, K, h), draw(B, S, K, h)
+    (k if zero == "k" else q).zero_()
+    lse = torch.zeros(B, K, S * G, device=device)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,zero,exact", [
+    (64, "k", ("dq", "dk", "dv")), (64, "q", ("dq", "dk", "dv")),
+    (128, "k", ("dv",)), (128, "q", ("dv",))])
+def test_flash_prefill_grads_bf16_integer_inputs_are_exact(cuda, h, zero,
+                                                           exact):
+    """The tensor-core backward (p and ds rounded to bf16 in registers and
+    fed back as wgmma's A) on inputs whose sums are exact: the grads are
+    the plain version's, summed in fp32 and rounded once, bit for bit.  At
+    h 128 the scale is not a power of two, so only dv is exact there."""
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    args = _exact_grads_inputs(gen, 2, 200, 2, 2, h, zero, cuda)
+    got = flash_attn.flash_prefill_grads(*args)
+    want = flash_attn.flash_prefill_grads_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        if name in exact:
+            assert torch.equal(a, b), name
+        else:
+            _close(a, b, torch.bfloat16)
 
 
 @pytest.mark.gpu

@@ -11,11 +11,12 @@ exit and no result line):
 1. the device: name and power limit (``nvidia-smi``);
 2. the build of every kernel in ``src/repro_torch/kernels/csrc``, then
    the SASS of the DYAD GEMM libraries (``dyad_mm``, ``dyad_dgrad``,
-   ``dyad_dgrad_fused``, ``dyad_wgrad``) and of the flash backward
-   (``flash_bwd``; ``cuobjdump -sass``): each must hold ``HGMMA`` (wgmma,
-   its bf16 route) and ``FFMA`` (its fp32 route), counts on one line; and
-   ptxas's registers and spills of the tensor-core flash backward kernels
-   (no spill allowed);
+   ``dyad_dgrad_fused``, ``dyad_wgrad``) and of the flash forward and
+   backward (``flash_prefill``, ``flash_bwd``; ``cuobjdump -sass``): each
+   must hold ``HGMMA`` (wgmma, its bf16 route) and ``FFMA`` (its fp32
+   route), counts on one line; and ptxas's registers, spills and wgmma
+   serialisation of the tensor-core flash kernels, one line each for the
+   forward (``flash_fwd_tc_kernel``) and the backward (no spill allowed);
 3. each kernel against its plain PyTorch version on the card, fp32 and
    bf16, at the OPT-125m and Qwen3-0.6B serving and training shapes and
    the edge cases (``dyad_mm_blocks`` also off the tensor-core tiles, n 2,
@@ -29,7 +30,11 @@ exit and no result line):
    quantized-weight kernels over int8 and fp8 payloads; bf16
    ``flash_prefill_grads`` also at h 80 and S < T, repeated bitwise at
    Qwen3's shape, and on integer-valued inputs with lse 0 whose sums are
-   exact, bitwise against the plain version);
+   exact, bitwise against the plain version; bf16 ``flash_prefill`` also
+   at h 80 with G 2 and at S < T with per-batch offsets and a window at
+   h 128, repeated bitwise at Qwen3's shape, and with k = 0 and v in
+   {-1, 0, 1}, whose sums are exact: o bitwise, lse within 1e-6
+   relative);
 4. the time of each kernel, its plain version and a library yardstick
    (CUDA events around device work queued ahead, L2 flushed before each
    run, median of 25 after warm-up), under the kernel's name or, at
@@ -51,7 +56,9 @@ exit and no result line):
    launcher's ``build_trainer`` (``make_train_step`` and ``Trainer``), B 8
    x S 512 of ``SyntheticLM``; 2 warm-up steps, one step with the launch
    counters read around it, then 5 timed steps: the step (``step_time_s``),
-   the host's batch (``data_time_s``) and the loop's wall time per step;
+   the host's batch (``data_time_s``), the loop's wall time per step, and
+   the card's SM clock and power draw over those steps (``nvidia-smi``
+   every 100 ms: min/median/max);
    the same with ``--linear dense`` (the paper's comparison, printed, not
    claimed); 7b. a ``torch.profiler`` trace of one DYAD train step;
    7c. the same training path with the OT and DT variants
@@ -66,8 +73,9 @@ exit and no result line):
    profile of one more generate;
 10. the Qwen3-0.6B training path (full config, remat, bf16) at B 8 x
    S 512 as in phase 7, with the DENSE run and a profiled step, whose
-   flash backward launches by kernel name must be the tensor-core dk/dv
-   and dq kernels once a layer each and the FMA ones never;
+   flash launches by kernel name must be the tensor-core forward twice a
+   layer (remat) and the dk/dv and dq kernels once a layer each, the FMA
+   ones never;
 11. Qwen3-0.6B at full width and 2 layers on the card against the CPU
    port: a train step in fp32 and in bf16, greedy tokens in fp32, the
    kernel backward against the plain one, the ``split`` ff route against
@@ -533,6 +541,34 @@ def _check_exact_grads(torch, gen, flash_attn, failures):
                     failures.append(label)
 
 
+def _check_exact_prefill(torch, gen, flash_attn, failures):
+    """Phase 3: bf16 flash_prefill on inputs whose sums are exact (G 2,
+    causal, 400 folded rows, with and without a window): k = 0, so every
+    valid score is 0 and p is exactly 1, and v in {-1, 0, 1}.  Then
+    o = (sum of v) / l is an exact fp32 sum divided once: the tensor-core
+    kernel, which rounds p to bf16 in registers, must give the plain
+    version's bits, and lse = log(l) within 1e-6 relative."""
+    B, S, K, G = 2, 200, 2, 2
+    for h in (64, 128):
+        for window in (None, 70):
+            q = torch.randn(B, S, K, G, h, generator=gen,
+                            device=gen.device).to(torch.bfloat16)
+            k = torch.zeros(B, S, K, h, device=gen.device,
+                            dtype=torch.bfloat16)
+            v = torch.randint(-1, 2, (B, S, K, h), generator=gen,
+                              device=gen.device).to(torch.bfloat16)
+            kw = dict(causal=True, window=window, save_lse=True)
+            o, lse = flash_attn.flash_prefill(q, k, v, **kw)
+            po, plse = flash_attn.flash_prefill_plain(q, k, v, **kw)
+            label = f"flash_prefill/h{h}_window{window}_k0/exact"
+            same = torch.equal(o, po)
+            lse_ok = bool(((lse - plse).abs() <= 1e-6 * plse.abs()).all())
+            log("check", case=label, dtype="bfloat16", bitwise=same,
+                lse_rel_1e6=lse_ok, ok=same and lse_ok)
+            if not (same and lse_ok):
+                failures.append(label)
+
+
 def _ptxas(text: str, kernels) -> dict:
     """Registers, spill bytes and wgmma serialisation warnings of each
     entry function of nvcc's ``-Xptxas -v`` output whose name holds one of
@@ -556,19 +592,21 @@ def _ptxas(text: str, kernels) -> dict:
     return out
 
 
-def _bwd_kernel_split(per_kernel: dict, n_layers: int) -> bool:
-    """Phase 10: the profiled Qwen3 step's launches of the flash backward
-    kernels by name: the tensor-core dk/dv and dq kernels once a layer
-    each, the fp32 FMA ones never."""
-    want = {"flash_dkv_tc_kernel": n_layers, "flash_dq_tc_kernel": n_layers,
+def _flash_kernel_split(per_kernel: dict, n_layers: int) -> bool:
+    """Phase 10: the profiled Qwen3 step's launches of the flash kernels
+    by name: the tensor-core forward twice a layer (remat recomputes it)
+    and the dk/dv and dq kernels once a layer each, the fp32 FMA ones
+    never."""
+    want = {"flash_fwd_tc_kernel": 2 * n_layers, "flash_prefill_kernel": 0,
+            "flash_dkv_tc_kernel": n_layers, "flash_dq_tc_kernel": n_layers,
             "flash_dkv_kernel": 0, "flash_dq_kernel": 0}
     mine = {name: [v for key, v in per_kernel.items()
                    if re.search(rf"\b{name}\b", key)] for name in want}
     got = {name: sum(cnt for _, cnt in v) for name, v in mine.items()}
     ok = bool(per_kernel) and got == want
-    log("qwen3_train_profile", flash_bwd_launches=json.dumps(
+    log("qwen3_train_profile", flash_launches=json.dumps(
         got, separators=(",", ":")), want=json.dumps(
-        want, separators=(",", ":")), flash_bwd_ms=json.dumps(
+        want, separators=(",", ":")), flash_ms=json.dumps(
         {name: round(sum(ms for ms, _ in v), 3)
          for name, v in mine.items()}, separators=(",", ":")), ok=ok)
     return ok
@@ -927,30 +965,34 @@ def main() -> int:
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         built=",".join(sorted(built)) or "none (cached)",
         dir=build.BUILD_DIR.relative_to(root))
-    # the DYAD GEMMs' and the flash backward's bf16 routes on the tensor
+    # the DYAD GEMMs' and the flash kernels' bf16 routes on the tensor
     # cores (HGMMA is wgmma's SASS), their fp32 routes on FMA
     sass = {name: tuple(len(re.findall(op, build.sass(name)))
                         for op in (r"\bHGMMA\.", r"\bFFMA\b"))
             for name in ("dyad_mm", "dyad_dgrad", "dyad_dgrad_fused",
-                         "dyad_wgrad", "flash_bwd")}
+                         "dyad_wgrad", "flash_prefill", "flash_bwd")}
     bad = [name for name, counts in sass.items() if not all(counts)]
     log("sass", **{name: f"HGMMA:{h},FFMA:{f}"
                    for name, (h, f) in sass.items()}, ok=not bad)
     if bad:
         log("sass", failed=",".join(bad))
         return 1
-    # ptxas on the tensor-core flash backward: registers, no spill
-    ptx = _ptxas((build.BUILD_DIR / "flash_bwd.log").read_text(),
-                 ("flash_dkv_tc_kernel", "flash_dq_tc_kernel"))
-    spilled = [k for k, r in ptx.items() if r["spill_stores"]] or (
-        [] if ptx else ["no report"])
-    log("ptxas", source="flash_bwd", **{
-        k: "regs:{regs},spill_stores:{spill_stores},spill_loads:"
-           "{spill_loads},wgmma_serialized:{serialized}".format(**r)
-        for k, r in ptx.items()}, ok=not spilled)
-    if spilled:
-        log("ptxas", failed=",".join(spilled))
-        return 1
+    # ptxas on the tensor-core flash forward and backward: registers, no
+    # spill
+    for source, kernels in (("flash_prefill", ("flash_fwd_tc_kernel",)),
+                            ("flash_bwd", ("flash_dkv_tc_kernel",
+                                           "flash_dq_tc_kernel"))):
+        ptx = _ptxas((build.BUILD_DIR / f"{source}.log").read_text(),
+                     kernels)
+        spilled = [k for k, r in ptx.items() if r["spill_stores"]] or (
+            [] if ptx else ["no report"])
+        log("ptxas", source=source, **{
+            k: "regs:{regs},spill_stores:{spill_stores},spill_loads:"
+               "{spill_loads},wgmma_serialized:{serialized}".format(**r)
+            for k, r in ptx.items()}, ok=not spilled)
+        if spilled:
+            log("ptxas", failed=",".join(spilled))
+            return 1
 
     # -- 3. each kernel against its plain version ----------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -962,6 +1004,7 @@ def main() -> int:
     # the inputs of checks added beside the first ones, so that those keep
     # their inputs
     aside = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    aside_fwd = torch.Generator(device=dev).manual_seed(args.seed + 2)
 
     failures = []
 
@@ -1115,17 +1158,38 @@ def main() -> int:
                                 causal=True, window=None, q_off=0, k_off=0),
             "qwen3_main": dict(B=8, S=128, T=160, K=8, G=2, h=128,
                                causal=True, window=None, q_off=0, k_off=0),
+            # the tensor-core forward's edges (bf16): h 80 padded to 128,
+            # and S < T with per-batch offsets and a window at h 128
+            # (batch 2's first 20 queries sit before its first key)
+            "h80_g2": dict(B=2, S=70, T=70, K=2, G=2, h=80, causal=True,
+                           window=None, q_off=0, k_off=0, aside=True),
+            "s_lt_t_offsets_window_h128": dict(
+                B=3, S=40, T=100, K=2, G=2, h=128, causal=True, window=48,
+                q_off=torch.tensor([60, 10, 0], device=dev),
+                k_off=torch.tensor([0, 5, 20], device=dev), aside=True),
         }
         for label, c in prefill_cases.items():
-            q = randn(c["B"], c["S"], c["K"], c["G"], c["h"], dtype=dt)
-            kk = randn(c["B"], c["T"], c["K"], c["h"], dtype=dt)
-            vv = randn(c["B"], c["T"], c["K"], c["h"], dtype=dt)
+            g = aside_fwd if c.get("aside") else None
+            q = randn(c["B"], c["S"], c["K"], c["G"], c["h"], dtype=dt,
+                      generator=g)
+            kk = randn(c["B"], c["T"], c["K"], c["h"], dtype=dt, generator=g)
+            vv = randn(c["B"], c["T"], c["K"], c["h"], dtype=dt, generator=g)
             kw = dict(causal=c["causal"], window=c["window"], save_lse=True)
             o, lse = flash_attn.flash_prefill(q, kk, vv, c["q_off"],
                                               c["k_off"], **kw)
             po, plse = flash_attn.flash_prefill_plain(q, kk, vv, c["q_off"],
                                                       c["k_off"], **kw)
             err = check(f"flash_prefill/{label}", o, po, dn)
+            if dt == torch.bfloat16 and label == "qwen3_train":
+                # no atomics: the same bits again
+                again = flash_attn.flash_prefill(q, kk, vv, c["q_off"],
+                                                 c["k_off"], **kw)
+                same = torch.equal(o, again[0]) and torch.equal(lse,
+                                                                again[1])
+                log("check", case=f"flash_prefill/{label}/bitwise_repeat",
+                    dtype=dn, ok=same)
+                if not same:
+                    failures.append(f"flash_prefill/{label}/bitwise_repeat")
             # lse: rows with a valid key within tolerance; fully-masked rows
             # (lse = -1e30 + log 1e-30) must be such rows in both
             live = plse > -1e29
@@ -1134,7 +1198,7 @@ def main() -> int:
             dead_ok = (bool((lse[~live] <= -1e29).all())
                        and bool((o.float().abs().amax(dim=-1) == 0).sum()
                                 >= dead))
-            if label == "gqa_window_offsets":
+            if label in ("gqa_window_offsets", "s_lt_t_offsets_window_h128"):
                 dead_ok = dead_ok and dead > 0
             log("check", case=f"flash_prefill/{label}/fully_masked_rows",
                 dtype=dn, rows=dead, ok=dead_ok)
@@ -1278,6 +1342,7 @@ def main() -> int:
                                     "bitwise_repeat")
         if dt == torch.bfloat16:
             _check_exact_grads(torch, aside, flash_attn, failures)
+            _check_exact_prefill(torch, aside_fwd, flash_attn, failures)
 
         if dt == torch.bfloat16:
             # bf16 queries against an fp32 cache (Qwen3's serving path):
@@ -1609,7 +1674,7 @@ def main() -> int:
         "dyad_ff_fused": 2, "dyad_mm_blocks": 2, "dyad_mm_dgrad": 1,
         "dyad_mm_wgrad": 3, "dyad_mm_dgrad_two": 2, "flash_prefill": 2,
         "flash_prefill_grads": 1}, "qwen3_train",
-        profile_check=_bwd_kernel_split)
+        profile_check=_flash_kernel_split)
     if qtrain is None:
         return 1
 
@@ -1898,9 +1963,13 @@ class _Run:
             self.zero_counts()
             trainer.run(w0 + 1)                 # one step, counted
             got = self.counts()
-            t_loop = time.perf_counter()
-            trainer.run(w0 + 1 + nt)
-            loop_s = (time.perf_counter() - t_loop) / nt
+            stop_smi = _smi_sampler()
+            try:
+                t_loop = time.perf_counter()
+                trainer.run(w0 + 1 + nt)
+                loop_s = (time.perf_counter() - t_loop) / nt
+            finally:
+                sm_mhz, power_w = stop_smi()
             times = trainer.metrics.histogram("step_time_s").samples[-nt:]
             data_s = statistics.median(
                 trainer.metrics.histogram("data_time_s").samples[-nt:])
@@ -1921,6 +1990,7 @@ class _Run:
                 data_ms_median=f"{data_s * 1e3:.3f}",
                 loop_ms_per_step=f"{loop_s * 1e3:.3f}",
                 loop_tok_s=f"{tokens / loop_s:.1f}",
+                sm_mhz_min_med_max=sm_mhz, power_w_min_med_max=power_w,
                 peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
                 losses=",".join(f"{v:.4f}" for v in loss_vals),
                 launches_per_step=json.dumps(got, separators=(",", ":")),
@@ -2468,6 +2538,34 @@ class _Run:
             requests_equal=equal, first_divergence_margins=",".join(ties)
             or "none", ok=ok)
         return ok
+
+
+def _smi_sampler():
+    """Samples card 0's SM clock (MHz) and power draw (W) every 100 ms with
+    one ``nvidia-smi`` process.  Returns ``stop()``, which ends it and
+    gives ``(sm_mhz, power_w)`` as "min/median/max" strings, "not
+    measured" where nvidia-smi gave no sample."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+    def stop():
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+        cols = [[], []]
+        for line in out.splitlines():
+            try:
+                vals = [float(v) for v in line.split(",")]
+            except ValueError:
+                continue
+            if len(vals) == 2:
+                cols[0].append(vals[0])
+                cols[1].append(vals[1])
+        return tuple(
+            f"{min(c):.0f}/{statistics.median(c):.0f}/{max(c):.0f}" if c
+            else "not measured" for c in cols)
+    return stop
 
 
 def _rel_err(got, want):

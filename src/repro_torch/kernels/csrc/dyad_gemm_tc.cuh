@@ -64,8 +64,7 @@
 //
 // The swizzled tile layout, the copies, the descriptors and the wgmma
 // wrappers (m64n128k16 here; m64n64k16 and the register-A m64n64k16 and
-// m64n128k16 for it) also serve the bf16 flash backward,
-// flash_bwd_tc.cuh.
+// m64n128k16 for them) also serve the bf16 flash kernels, flash_tc.cuh.
 #pragma once
 
 #include "dyad_gemm.cuh"

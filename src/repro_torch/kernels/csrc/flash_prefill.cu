@@ -18,15 +18,20 @@
 // the window band): the serving prefill attends the whole max_len cache,
 // most of whose tiles lie past the band.
 //
-// Bound on the H100: at the serving shapes (S = 128 of a 160-slot cache,
-// h = 64) the work is small and the kernel is bound by latency and fp32
-// FMA issue, not by the few MB of q/k/v it reads.  Design: one block of
-// 4 warps per (b, kv head, 32-row tile); each warp owns 8 rows and keeps
-// their m, l and output accumulator in registers, lane c scores key c of
-// the 32-key tile staged in shared memory, the row max/sum are warp
-// shuffles, and P.V broadcasts p across the warp with shuffles.  Tensor
-// cores (mma / wgmma) are later work.
-#include "common.cuh"
+// Two routes:
+//  - bf16, any h <= 128: the tensor-core kernel of flash_fwd_tc.cuh
+//    (wgmma, P fed back from the accumulator registers); see the note
+//    there.
+//  - fp32: the kernel below.  Bound on the H100: at the serving shapes
+//    (S = 128 of a 160-slot cache, h = 64) the work is small and the
+//    kernel is bound by latency and fp32 FMA issue, not by the few MB of
+//    q/k/v it reads; at OPT-125m's training shape by fp32 operations.
+//    Design: one block of 4 warps per (b, kv head, 32-row tile); each warp
+//    owns 8 rows and keeps their m, l and output accumulator in
+//    registers, lane c scores key c of the 32-key tile staged in shared
+//    memory, the row max/sum are warp shuffles, and P.V broadcasts p
+//    across the warp with shuffles.
+#include "flash_fwd_tc.cuh"
 
 namespace repro {
 namespace {
@@ -35,24 +40,7 @@ constexpr int kRows = 32;   // query rows (s*G + g) per block
 constexpr int kKeys = 32;   // keys per tile: one per lane
 constexpr int kWarps = 4;
 
-struct PrefillArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  float* lse;
-  const int* q_off_vec;
-  const int* k_off_vec;
-  int q_off, k_off;
-  int B, S, T, K, G, h;
-  long long q_sb, q_ss, q_sk, q_sg;
-  long long k_sb, k_st, k_sk;
-  long long v_sb, v_st, v_sk;
-  int causal, window;
-  float scale;
-};
-
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_prefill_kernel(PrefillArgs a) {
   constexpr int RPW = kRows / kWarps;   // rows per warp
@@ -62,10 +50,10 @@ flash_prefill_kernel(PrefillArgs a) {
   float* ks = qs + kRows * HD;                   // [kKeys][HD + 1]
   float* vs = ks + kKeys * (HD + 1);             // [kKeys][HD]
 
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  T* o = static_cast<T*>(a.o);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  float* o = static_cast<float*>(a.o);
 
   const int b = blockIdx.z, kh = blockIdx.y;
   const int r0 = blockIdx.x * kRows;
@@ -79,7 +67,7 @@ flash_prefill_kernel(PrefillArgs a) {
     float val = 0.f;
     if (rg < SG && d < a.h) {
       const int s = rg / a.G, g = rg % a.G;
-      val = to_f32(q[b * a.q_sb + s * a.q_ss + kh * a.q_sk + g * a.q_sg + d]);
+      val = q[b * a.q_sb + s * a.q_ss + kh * a.q_sk + g * a.q_sg + d];
     }
     qs[e] = val;
   }
@@ -120,10 +108,8 @@ flash_prefill_kernel(PrefillArgs a) {
       const int e = tid + i * kWarps * 32;
       const int c = e / HD, d = e % HD, tk = t0 + c;
       const bool in = tk < a.T && d < a.h;
-      kr[i] = in ? to_f32(k[b * a.k_sb + tk * a.k_st + kh * a.k_sk + d])
-                 : 0.f;
-      vr[i] = in ? to_f32(v[b * a.v_sb + tk * a.v_st + kh * a.v_sk + d])
-                 : 0.f;
+      kr[i] = in ? k[b * a.k_sb + tk * a.k_st + kh * a.k_sk + d] : 0.f;
+      vr[i] = in ? v[b * a.v_sb + tk * a.v_st + kh * a.v_sk + d] : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
@@ -175,7 +161,7 @@ flash_prefill_kernel(PrefillArgs a) {
 #pragma unroll
     for (int j = 0; j < DPL; ++j) {
       const int d = lane + 32 * j;
-      if (d < a.h) o[ob + d] = from_f32<T>(acc[i][j] * inv);
+      if (d < a.h) o[ob + d] = acc[i][j] * inv;
     }
     if (a.lse && lane == 0)
       a.lse[((long long)b * a.K + kh) * SG + rg] =
@@ -183,24 +169,23 @@ flash_prefill_kernel(PrefillArgs a) {
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(const PrefillArgs& a, cudaStream_t stream) {
   const size_t bytes =
       sizeof(float) * (kRows * HD + kKeys * (HD + 1) + kKeys * HD);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<T, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      flash_prefill_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((a.S * a.G + kRows - 1) / kRows, a.K, a.B);
-  flash_prefill_kernel<T, HD><<<grid, kWarps * 32, bytes, stream>>>(a);
+  flash_prefill_kernel<HD><<<grid, kWarps * 32, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_hd(const PrefillArgs& a, cudaStream_t stream) {
-  if (a.h <= 32) return launch<T, 32>(a, stream);
-  if (a.h <= 64) return launch<T, 64>(a, stream);
-  if (a.h <= 128) return launch<T, 128>(a, stream);
+  if (a.h <= 32) return launch<32>(a, stream);
+  if (a.h <= 64) return launch<64>(a, stream);
+  if (a.h <= 128) return launch<128>(a, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -222,9 +207,11 @@ extern "C" int repro_flash_prefill(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kF32:
-      return repro::launch_hd<float>(a, s);
-    case repro::kBF16:
-      return repro::launch_hd<__nv_bfloat16>(a, s);
+      return repro::launch_hd(a, s);
+    case repro::kBF16:   // the tensor cores, any h <= 128
+      if (h <= 64) return repro::ffwd::launch<64>(a, s);
+      if (h <= 128) return repro::ffwd::launch<128>(a, s);
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }

@@ -6,7 +6,10 @@ of both packages.  All inputs come from numpy with a seed; fp32 on the CPU,
 where each wrapper takes its plain version.
 
 Tolerance: 1e-5 times max(|reference|, 1).  The sums run in another order
-than the tiled Pallas kernels (ROADMAP C.1 measured 4e-7 relative)."""
+than the tiled Pallas kernels (ROADMAP C.1 measured 4e-7 relative).  The
+bf16 flash_prefill cases (bf16 inputs, fp32 scores, p rounded to bf16
+before P.V, the output rounded to bf16) are held at 2e-2 times
+max(|reference|, 1), their fp32 lse at 1e-5."""
 import numpy as np
 import pytest
 
@@ -21,6 +24,7 @@ from repro.kernels.dyad_mm import dyad_mm_blocks as j_dyad_mm_blocks  # noqa: E4
 from repro_torch.kernels import dyad_mm, flash_attn, ops, ref  # noqa: E402
 
 TOL = 1e-5
+BF16_TOL = 2e-2
 
 
 def _close(got, want, tol=TOL):
@@ -28,6 +32,14 @@ def _close(got, want, tol=TOL):
     scale = max(float(np.max(np.abs(want))), 1.0)
     np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=tol,
                                atol=tol * scale)
+
+
+def _close_bf16(got, want):
+    """A bf16 result within BF16_TOL x max(|want|, 1) of ``want``."""
+    want = np.asarray(want, np.float32)
+    scale = max(float(np.max(np.abs(want))), 1.0)
+    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=0,
+                               atol=BF16_TOL * scale)
 
 
 def _np(t):
@@ -114,34 +126,48 @@ def _qkv(rng, B, S, T, K, G, h):
 
 
 PREFILL = [
-    # (B, S, T, K, G, h, causal, window, q_off, k_off)
+    # (B, S, T, K, G, h, causal, window, q_off, k_off[, "bfloat16"])
     (2, 37, 37, 2, 1, 16, True, None, 0, 0),
     (2, 37, 37, 2, 2, 16, True, 7, 0, 0),
     (2, 37, 37, 1, 4, 16, False, None, 0, 0),
     (1, 24, 40, 2, 2, 16, True, None, 0, 0),       # cache prefill: S < T
     (3, 20, 28, 2, 2, 8, True, 9, [0, 4, 30], [0, 2, 40]),   # per-batch
+    # bf16 at Qwen3-0.6B's head dim and GQA fold (the card's tensor-core
+    # route): causal, then S < T with per-batch offsets and a window
+    (2, 48, 48, 2, 2, 128, True, None, 0, 0, "bfloat16"),
+    (3, 20, 44, 2, 2, 128, True, 16, [4, 0, 30], [0, 0, 10], "bfloat16"),
 ]
 
 
 @pytest.mark.parametrize("case", PREFILL)
 def test_flash_prefill_plain_matches_pallas(case):
-    B, S, T, K, G, h, causal, window, q_off, k_off = case
+    B, S, T, K, G, h, causal, window, q_off, k_off, *dtype = case
     rng = np.random.default_rng(S + T + G)
     q, k, v = _qkv(rng, B, S, T, K, G, h)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    close = _close
+    if dtype == ["bfloat16"]:
+        # both kernels take the same bf16 inputs; the oracles take them
+        # widened to fp32
+        tq, tk, tv = (x.bfloat16() for x in (tq, tk, tv))
+        q, k, v = (_np(x.float()) for x in (tq, tk, tv))
+        close = _close_bf16
+    jdt = jnp.bfloat16 if dtype else jnp.float32
     qo = np.asarray(q_off, np.int32)
     ko = np.asarray(k_off, np.int32)
     before = flash_attn.flash_prefill.launches
     got, lse = flash_attn.flash_prefill(
-        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-        torch.from_numpy(qo) if qo.ndim else q_off,
+        tq, tk, tv, torch.from_numpy(qo) if qo.ndim else q_off,
         torch.from_numpy(ko) if ko.ndim else k_off,
         causal=causal, window=window, save_lse=True)
     assert flash_attn.flash_prefill.launches == before
+    assert got.dtype == tq.dtype
     want, wlse = jfa.flash_prefill(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(qo),
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), jnp.asarray(qo),
         jnp.asarray(ko), causal=causal, window=window, save_lse=True,
         block_q=16, block_k=128, interpret=True)
-    _close(_np(got), want)
+    got = _np(got.float())
+    close(got, jnp.asarray(want, jnp.float32))
     assert lse.shape == (B, K, S * G)
     _close(_np(lse), wlse)
     # and against the einsum oracles, with the same positions
@@ -150,7 +176,7 @@ def test_flash_prefill_plain_matches_pallas(case):
     oracle = jref.sdpa_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                            jnp.asarray(qpos), jnp.asarray(kpos),
                            causal=causal, window=window)
-    _close(_np(got), oracle)
+    close(got, oracle)
     _close(_np(ref.sdpa_ref(torch.from_numpy(q), torch.from_numpy(k),
                             torch.from_numpy(v), torch.from_numpy(qpos),
                             torch.from_numpy(kpos), causal=causal,

@@ -183,6 +183,13 @@ def test_dyad_mm_bf16_integer_inputs_are_exact(cuda, M, n, d_in, d_out,
     (3, 20, 28, 2, 2, 16, True, 9, [0, 4, 30], [0, 2, 40]),
     (2, 37, 37, 1, 4, 128, False, None, 0, 0),
     (1, 8, 16, 2, 2, 16, True, None, 0, 20),         # all rows masked
+    (8, 512, 512, 8, 2, 128, True, None, 0, 0),     # Qwen3-0.6B's training
+    (2, 70, 70, 2, 2, 80, True, None, 0, 0),        # h 80: padded to 128
+    # S < T with per-batch offsets and a window (batch 2's first rows
+    # fully masked)
+    (3, 40, 100, 2, 2, 128, True, 48, [60, 10, 0], [0, 5, 20]),
+    (2, 33, 33, 3, 2, 16, True, 5, 3, 3),           # h 16: padded to 64
+    (2, 100, 100, 2, 4, 64, True, 40, 0, 0),        # G 4, a window
 ])
 def test_flash_prefill_kernel_matches_plain(cuda, B, S, T, K, G, h, causal,
                                             window, q_off, k_off, dtype):
@@ -194,9 +201,12 @@ def test_flash_prefill_kernel_matches_plain(cuda, B, S, T, K, G, h, causal,
         q_off = torch.tensor(q_off, device=cuda)
         k_off = torch.tensor(k_off, device=cuda)
     kw = dict(causal=causal, window=window, save_lse=True)
+    before = flash_attn.flash_prefill.launches
     o, lse = flash_attn.flash_prefill(q, k, v, q_off, k_off, **kw)
     po, plse = flash_attn.flash_prefill_plain(q, k, v, q_off, k_off, **kw)
     torch.cuda.synchronize()
+    assert flash_attn.flash_prefill.launches == before + 1
+    assert o.dtype == dtype and bool(torch.isfinite(o.float()).all())
     _close(o, po, dtype)
     live = plse > -1e29
     if live.any():
@@ -204,6 +214,81 @@ def test_flash_prefill_kernel_matches_plain(cuda, B, S, T, K, G, h, causal,
     assert bool((lse[~live] <= -1e29).all())
     assert bool((o[(~live).reshape(B, K, S, G).permute(0, 2, 1, 3)]
                  == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("view", ["unaligned", "aligned"])
+def test_flash_prefill_bf16_reads_strided_views(cuda, h, view):
+    """q, k and v as views into wider tensors, against the plain version on
+    the same views: strides off a multiple of 8 elements (the tensor-core
+    kernel stages them element by element), or 16-byte aligned strides of
+    views that are not contiguous (q permuted, k and v halves of wider
+    rows), which cp.async copies."""
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    B, S, K, G = 2, 90, 2, 2
+    bf16 = torch.bfloat16
+    if view == "unaligned":
+        q = _randn(gen, B, S, K, G, h + 3, device=cuda,
+                   dtype=bf16)[..., 1:h + 1]
+        k, v = (_randn(gen, B, S, K, h + 5, device=cuda, dtype=bf16)[..., :h]
+                for _ in range(2))
+    else:
+        q = _randn(gen, B, K, G, S, h, device=cuda,
+                   dtype=bf16).permute(0, 3, 1, 2, 4)
+        k, v = (_randn(gen, B, S, K, 2 * h, device=cuda, dtype=bf16)[..., h:]
+                for _ in range(2))
+    before = flash_attn.flash_prefill.launches
+    o, lse = flash_attn.flash_prefill(q, k, v, save_lse=True)
+    po, plse = flash_attn.flash_prefill_plain(q, k, v, save_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attn.flash_prefill.launches == before + 1
+    _close(o, po, bf16)
+    _close(lse, plse, bf16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,K,G,h,window,q_off,k_off", [
+    (8, 512, 8, 2, 128, None, 0, 0),        # Qwen3-0.6B's training shape
+    (3, 75, 2, 4, 64, 16, [0, 5, 90], [0, 0, 3]),
+])
+def test_flash_prefill_bf16_gives_the_same_bits_every_run(
+        cuda, B, S, K, G, h, window, q_off, k_off):
+    """The tensor-core forward: five runs, o and lse bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q = _randn(gen, B, S, K, G, h, device=cuda, dtype=torch.bfloat16)
+    k, v = (_randn(gen, B, S, K, h, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    if isinstance(q_off, list):
+        q_off = torch.tensor(q_off, device=cuda)
+        k_off = torch.tensor(k_off, device=cuda)
+    kw = dict(causal=True, window=window, save_lse=True)
+    first = flash_attn.flash_prefill(q, k, v, q_off, k_off, **kw)
+    for _ in range(4):
+        again = flash_attn.flash_prefill(q, k, v, q_off, k_off, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("window", [None, 70])
+def test_flash_prefill_bf16_exact_sums_match_bitwise(cuda, h, window):
+    """The tensor-core forward on inputs whose sums are exact: k = 0, so
+    every valid score is 0 and p is exactly 1 (in bf16 too), and v in
+    {-1, 0, 1}: o = (sum of v) / l, summed in fp32 and divided once, must be
+    the plain version's bits, and lse = log(l) within 1e-6 relative."""
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    B, S, K, G = 2, 200, 2, 2
+    q = _randn(gen, B, S, K, G, h, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(B, S, K, h, device=cuda, dtype=torch.bfloat16)
+    v = torch.randint(-1, 2, (B, S, K, h), generator=gen,
+                      device=cuda).to(torch.bfloat16)
+    kw = dict(causal=True, window=window, save_lse=True)
+    o, lse = flash_attn.flash_prefill(q, k, v, **kw)
+    po, plse = flash_attn.flash_prefill_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, po)
+    assert bool(((lse - plse).abs() <= 1e-6 * plse.abs()).all())
 
 
 @pytest.mark.gpu

@@ -10,13 +10,15 @@ exit and no result line):
 
 1. the device: name and power limit (``nvidia-smi``);
 2. the build of every kernel in ``src/repro_torch/kernels/csrc``, then
-   the SASS of the DYAD GEMM libraries (``dyad_mm``, ``dyad_dgrad``,
-   ``dyad_dgrad_fused``, ``dyad_wgrad``) and of the flash forward and
-   backward (``flash_prefill``, ``flash_bwd``; ``cuobjdump -sass``): each
-   must hold ``HGMMA`` (wgmma, its bf16 route) and ``FFMA`` (its fp32
-   route), counts on one line; and ptxas's registers, spills and wgmma
-   serialisation of the tensor-core flash kernels, one line each for the
-   forward (``flash_fwd_tc_kernel``) and the backward (no spill allowed);
+   the SASS of the DYAD GEMM libraries (``dyad_mm``, ``dyad_mm_two``,
+   ``dyad_dgrad``, ``dyad_dgrad_fused``, ``dyad_wgrad``), of the ff
+   megakernels (``dyad_ff``) and of the flash forward and backward
+   (``flash_prefill``, ``flash_bwd``; ``cuobjdump -sass``): each must hold
+   ``HGMMA`` (wgmma, its bf16 route) and ``FFMA`` (its fp32 route), counts
+   on one line; and ptxas's registers, spills and wgmma serialisation of
+   the tensor-core flash kernels and ff megakernel, one line each for the
+   flash forward (``flash_fwd_tc_kernel``), the flash backward and the ff
+   megakernel (``dyad_ff_tc_kernel``, gated and not; no spill allowed);
 3. each kernel against its plain PyTorch version on the card, fp32 and
    bf16, at the OPT-125m and Qwen3-0.6B serving and training shapes and
    the edge cases (``dyad_mm_blocks`` also off the tensor-core tiles, n 2,
@@ -34,7 +36,12 @@ exit and no result line):
    at h 80 with G 2 and at S < T with per-batch offsets and a window at
    h 128, repeated bitwise at Qwen3's shape, and with k = 0 and v in
    {-1, 0, 1}, whose sums are exact: o bitwise, lse within 1e-6
-   relative);
+   relative; every ``flash_prefill`` case's fully-masked rows with the
+   plain version's lse bits; bf16 ``dyad_mm_blocks_two`` on integer
+   inputs at Qwen3's split-route down shape, ragged shapes and at M 8 on
+   both routes, and ``dyad_ff_fused`` with relu on integer inputs at
+   Qwen3's widths, M 4096 and 128, bitwise; the bf16 Qwen3
+   ``dyad_ff_fused`` cases also on each kernel through the C entry);
 4. the time of each kernel, its plain version and a library yardstick
    (CUDA events around device work queued ahead, L2 flushed before each
    run, median of 25 after warm-up), under the kernel's name or, at
@@ -46,6 +53,13 @@ exit and no result line):
    with the wrapper's delta alone, ``delta_ms``); for the quantized-weight
    kernels the yardstick is torch.bmm over weights dequantized before the
    timing, and the same with the dequantization timed too;
+   ``dyad_ff_fused`` at Qwen3's training, prefill, prefill-chunk and
+   decode rows (``@prefill``, ``@prefill_chunk``, ``@decode``), each
+   beside the split route, a torch.bmm chain and each kernel through the
+   C entry (``fma_ms``, ``tc_ms``; ``tc_fill_ms`` the tensor-core kernel
+   with the hidden split into a grid of at least the SM count, which
+   ff_plan does not take); ``dyad_mm_blocks_two@qwen3_split`` also on the
+   FMA route (``fma_ms``), and a ``cut`` line with both routes at M 8;
 5. the OPT serving path: OPT-125m at full width with ``dyad_it_4_kernel``,
    random weights from ``--seed``, ``Engine.generate`` at batch 8, prompt
    128, 32 new tokens, with the kernels' launch counters read around it;
@@ -60,7 +74,8 @@ exit and no result line):
    the card's SM clock and power draw over those steps (``nvidia-smi``
    every 100 ms: min/median/max);
    the same with ``--linear dense`` (the paper's comparison, printed, not
-   claimed); 7b. a ``torch.profiler`` trace of one DYAD train step;
+   claimed); 7b. a ``torch.profiler`` trace of one DYAD train step and
+   one DENSE step;
    7c. the same training path with the OT and DT variants
    (``dyad_ot_4_kernel``, ``dyad_dt_4_kernel``) at full depth, their
    launch counters checked exactly;
@@ -72,10 +87,11 @@ exit and no result line):
    batch 8, prompt 128, 32 new, launch counters checked exactly, and a
    profile of one more generate;
 10. the Qwen3-0.6B training path (full config, remat, bf16) at B 8 x
-   S 512 as in phase 7, with the DENSE run and a profiled step, whose
-   flash launches by kernel name must be the tensor-core forward twice a
-   layer (remat) and the dk/dv and dq kernels once a layer each, the FMA
-   ones never;
+   S 512 as in phase 7, with the DENSE run and a profiled step of each,
+   the DYAD one's flash launches by kernel name the tensor-core forward
+   twice a layer (remat) and the dk/dv and dq kernels once a layer each,
+   the FMA ones never, and its ff launches the tensor-core megakernel
+   (``dyad_ff_tc_kernel``) twice a layer, the FMA one never;
 11. Qwen3-0.6B at full width and 2 layers on the card against the CPU
    port: a train step in fp32 and in bf16, greedy tokens in fp32, the
    kernel backward against the plain one, the ``split`` ff route against
@@ -278,17 +294,28 @@ def _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases):
         xc = torch.cat([x1, x1], dim=1).transpose(0, 1).contiguous()
         wc = torch.cat([w1, w2], dim=0).transpose(1, 2).contiguous()
         es = x1.element_size()
+        # bf16: the FMA route at the same rows, for the parent's time
+        extra = {} if dt == f32 else {"fma_ms": time_ms(
+            _two_entry(x1, x1, w1, w2, False)[0])}
         record("dyad_mm_blocks_two" + ("" if dt == f32 else "@qwen3_split"),
                time_ms(lambda: dyad_mm.dyad_mm_blocks_two(x1, x1, w1, w2)),
                time_ms(lambda: dyad_mm.dyad_mm_blocks_two_plain(
                    x1, x1, w1, w2)),
                time_ms(lambda: torch.bmm(xc, wc)),
                es * (M * n * d_in + 2 * n * d_out * d_in + 2 * M * n * d_out),
-               4.0 * M * n * d_out * d_in, label, rate, str(dt)[6:])
+               4.0 * M * n * d_out * d_in, label, rate, str(dt)[6:], **extra)
 
     two("opt_up_M4096", f32, FP32_FLOPS)
     two("opt_down_M4096", f32, FP32_FLOPS)
     two("qwen3_split_down_M4096", bf16, BF16_FLOPS)
+    # dyad_mm_blocks_two at Qwen3's split-route down, decode rows (M 8), on
+    # both routes: why the wrapper takes the tensor cores at every M
+    _, n, d_in, d_out = two_cases["qwen3_split_down_M4096"]
+    x1 = randn(8, n, d_in, dtype=bf16)
+    w1, w2 = (randn(n, d_out, d_in).to(bf16) for _ in range(2))
+    log("cut", kernel="dyad_mm_blocks_two", shape="qwen3_split_down_M8", **{
+            f"{route}_ms": f"{time_ms(_two_entry(x1, x1, w1, w2, tc)[0]):.4f}"
+            for route, tc in (("fma", False), ("tc", True))})
 
     # dyad_mm_dgrad: Qwen3's down projection dh at the training rows, the
     # OT cotangent views; yardstick: one torch.bmm over the contraction
@@ -309,8 +336,11 @@ def _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases):
            "bfloat16", copied_views_ms=time_ms(
                lambda: dyad_mm.dyad_mm_dgrad(z1, z1, w1, w2)))
 
-    # dyad_ff_fused: bf16 x, fp32 params (the main path's inputs)
+    # dyad_ff_fused: bf16 x, fp32 params (the main path's inputs); beside
+    # the wrapper (ff_plan's kernel), each kernel through the entry
+    # (fma_ms, tc_ms: the parent's route and the cut between them)
     for label, suffix in (("qwen3_M4096", ""), ("qwen3_M1024", "@prefill"),
+                          ("qwen3_M128", "@prefill_chunk"),
                           ("qwen3_M8", "@decode")):
         M, n, d_in, d_ff, d_out, act = ff_cases[label]
         args = _ff_args(randn, M, n, d_in, d_ff, d_out, act, bf16, f32)
@@ -341,7 +371,11 @@ def _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases):
                time_ms(lambda: dyad_mm.dyad_ff_fused(*args, act=act)),
                time_ms(lambda: dyad_mm.dyad_ff_fused_plain(*args, act=act)),
                None, nbytes, flops, label, BF16_FLOPS, "bfloat16",
-               split_route_ms=time_ms(split), bmm_chain_ms=time_ms(chain))
+               split_route_ms=time_ms(split), bmm_chain_ms=time_ms(chain),
+               fma_ms=time_ms(_ff_entry(args, act, False)[0]),
+               tc_ms=time_ms(_ff_entry(args, act, True)[0]),
+               tc_fill_ms=time_ms(_ff_entry(args, act, True, _fill_split(
+                   M, n, d_ff, d_out, dyad_mm.sm_count(x1.device)))[0]))
 
 
 def _time_qwen3_bwd(torch, randn, record, time_ms, bwd_cases):
@@ -572,14 +606,15 @@ def _check_exact_prefill(torch, gen, flash_attn, failures):
 def _ptxas(text: str, kernels) -> dict:
     """Registers, spill bytes and wgmma serialisation warnings of each
     entry function of nvcc's ``-Xptxas -v`` output whose name holds one of
-    ``kernels``, by its (template-qualified) name."""
+    ``kernels``, by its name and first template argument (an int or a
+    bool, as 0/1)."""
     out = {}
     for chunk in text.split("Compiling entry function '")[1:]:
         mangled = chunk.split("'", 1)[0]
         base = next((k for k in kernels if k in mangled), None)
         if base is None:
             continue
-        hd = re.search(r"ILi(\d+)E", mangled)
+        hd = re.search(r"IL[ib](\d+)E", mangled)   # <HD> or <kGated>
         regs = re.search(r"Used (\d+) registers", chunk)
         st = re.search(r"(\d+) bytes spill stores", chunk)
         ld = re.search(r"(\d+) bytes spill loads", chunk)
@@ -592,24 +627,33 @@ def _ptxas(text: str, kernels) -> dict:
     return out
 
 
-def _flash_kernel_split(per_kernel: dict, n_layers: int) -> bool:
-    """Phase 10: the profiled Qwen3 step's launches of the flash kernels
-    by name: the tensor-core forward twice a layer (remat recomputes it)
-    and the dk/dv and dq kernels once a layer each, the fp32 FMA ones
-    never."""
-    want = {"flash_fwd_tc_kernel": 2 * n_layers, "flash_prefill_kernel": 0,
-            "flash_dkv_tc_kernel": n_layers, "flash_dq_tc_kernel": n_layers,
-            "flash_dkv_kernel": 0, "flash_dq_kernel": 0}
-    mine = {name: [v for key, v in per_kernel.items()
-                   if re.search(rf"\b{name}\b", key)] for name in want}
+def _launches_by_name(per_kernel: dict, want: dict, key: str) -> bool:
+    """The profiled launches of each kernel of ``want`` by name, held to
+    its count; one log line (``{key}_launches``, ``{key}_ms``)."""
+    mine = {name: [v for k, v in per_kernel.items()
+                   if re.search(rf"\b{name}\b", k)] for name in want}
     got = {name: sum(cnt for _, cnt in v) for name, v in mine.items()}
     ok = bool(per_kernel) and got == want
-    log("qwen3_train_profile", flash_launches=json.dumps(
-        got, separators=(",", ":")), want=json.dumps(
-        want, separators=(",", ":")), flash_ms=json.dumps(
-        {name: round(sum(ms for ms, _ in v), 3)
-         for name, v in mine.items()}, separators=(",", ":")), ok=ok)
+    log("qwen3_train_profile", **{
+        f"{key}_launches": json.dumps(got, separators=(",", ":")),
+        "want": json.dumps(want, separators=(",", ":")),
+        f"{key}_ms": json.dumps({name: round(sum(ms for ms, _ in v), 3)
+                                 for name, v in mine.items()},
+                                separators=(",", ":"))}, ok=ok)
     return ok
+
+
+def _qwen3_kernel_split(per_kernel: dict, n_layers: int) -> bool:
+    """Phase 10: the profiled Qwen3 step's launches by kernel name: the
+    tensor-core flash forward and ff megakernel twice a layer (remat
+    recomputes the forward), the flash dk/dv and dq kernels once a layer
+    each, the FMA ones never."""
+    flash = {"flash_fwd_tc_kernel": 2 * n_layers, "flash_prefill_kernel": 0,
+             "flash_dkv_tc_kernel": n_layers, "flash_dq_tc_kernel": n_layers,
+             "flash_dkv_kernel": 0, "flash_dq_kernel": 0}
+    ff = {"dyad_ff_tc_kernel": 2 * n_layers, "dyad_ff_kernel": 0}
+    return all([_launches_by_name(per_kernel, flash, "flash"),
+                _launches_by_name(per_kernel, ff, "ff")])
 
 
 def _dgrad_two_entry(z1, z2, w1, w2, dx1, dx2):
@@ -629,6 +673,135 @@ def _dgrad_two_entry(z1, z2, w1, w2, dx1, dx2):
             dyad_mm._DTYPES[z1.dtype], build.stream(z1.device)),
             "dyad_mm_dgrad_two")
     return call
+
+
+def _two_entry(x1, x2, w1, w2, tc: bool):
+    """dyad_mm_blocks_two's C entry on the route given (tc: the tensor-core
+    mainloop, else the FMA kernel), whatever the wrapper's cut; returns
+    (the call, its outputs), for timing and checking.  Not counted."""
+    import torch
+    from repro_torch.kernels import build, dyad_mm
+
+    M, n, d_in = x1.shape
+    d_out = w1.shape[1]
+    z1 = torch.empty(M, n, d_out, dtype=x1.dtype, device=x1.device)
+    z2 = dyad_mm._permuted_out(M, n, d_out, x1)
+    fn = build.entry("dyad_mm_two")
+
+    def call():
+        build.check(fn(
+            build.ptr(x1), build.ptr(x2), build.ptr(w1), build.ptr(w2),
+            build.ptr(z1), build.ptr(z2), M, n, d_in, d_out, *x1.stride(),
+            *x2.stride(), *z1.stride(), *z2.stride(),
+            dyad_mm._DTYPES[x1.dtype], int(tc), build.stream(x1.device)),
+            "dyad_mm_blocks_two")
+    return call, (z1, z2)
+
+
+def _ff_entry(args, act: str, tc: bool, split_span=None):
+    """dyad_ff_fused's C entry on the kernel given (tc: the tensor-core
+    kernel, fp32 weights cast in the entry as for the wrapper; else the
+    FMA kernel) with that kernel's hidden split, or ``split_span``,
+    whatever ff_plan picks; returns (the call, its outputs), for timing
+    and checking.  Not counted."""
+    import torch
+    from repro_torch.kernels import build, dyad_mm
+
+    x1, x2 = args[0], args[1]
+    M, n, d_in = x1.shape
+    d_ff, d_out = args[2].shape[1], args[4].shape[1]
+    split, span = split_span or (
+        dyad_mm.ff_tc_split if tc else dyad_mm.ff_split)(
+        M, n, d_ff, d_out, dyad_mm.sm_count(x1.device))
+    z1 = torch.empty(M, n, d_out, dtype=x1.dtype, device=x1.device)
+    z2 = dyad_mm._permuted_out(M, n, d_out, x1)
+    part = (torch.empty(split, 2, M, n, d_out, dtype=torch.float32,
+                        device=x1.device) if split > 1 else None)
+    wu1, wu2, wd1, wd2, wg1, wg2 = args[2:]
+    weights = [t for t in (wu1, wu2, wg1, wg2, wd1, wd2) if t is not None]
+    wcast = (torch.empty(dyad_mm.ff_cast_elems(weights), dtype=x1.dtype,
+                         device=x1.device)
+             if tc and wu1.dtype != x1.dtype else None)
+    fn = build.entry("dyad_ff")
+
+    def call():
+        build.check(fn(
+            build.ptr(x1), build.ptr(x2), build.ptr(wu1), build.ptr(wu2),
+            build.ptr(wg1), build.ptr(wg2), build.ptr(wd1), build.ptr(wd2),
+            build.ptr(z1), build.ptr(z2), build.ptr(part), build.ptr(wcast),
+            M, n, d_in, d_ff, d_out, split, span, *x1.stride(),
+            *x2.stride(), *z1.stride(), *z2.stride(),
+            dyad_mm._ACT_CODES[act], dyad_mm._DTYPES[x1.dtype],
+            dyad_mm._DTYPES[wu1.dtype], int(tc), build.stream(x1.device)),
+            "dyad_ff_fused")
+    return call, (z1, z2)
+
+
+def _fill_split(M, n, d_ff, d_out, sms):
+    """(split, span): the fewest 16-column ranges of the hidden that bring
+    the tensor-core kernel's grid to ``sms`` blocks or more, the rule
+    ff_tc_split does not take (phase 4 times it beside, tc_fill_ms)."""
+    base = n * math.ceil(M / 64) * math.ceil(d_out / 256)
+    units = math.ceil(d_ff / 16)
+    span = max(1, units // math.ceil(sms / base)) * 16
+    return math.ceil(d_ff / span), span
+
+
+def _check_integer_ff_slice(torch, gen, dyad_mm, two_cases, failures):
+    """Phase 3: bf16 dyad_mm_blocks_two (OT and the stride-n DT x2) at
+    Qwen3's split-route down shape and ragged shapes, and dyad_ff_fused
+    with relu at Qwen3's widths (the fp32 params the main path hands over)
+    at M 4096 and 128, on integers in [-2, 2].  Every fp32 sum is exact
+    (the up sums below 2048, the hidden an integer rounded to bf16 the same
+    way on both sides, the down sums below 2^24), so the tensor-core
+    routes must give the plain version's bits."""
+    bf16 = torch.bfloat16
+
+    def randint(*shape):
+        return torch.randint(-2, 3, shape, generator=gen,
+                             device=gen.device).to(bf16)
+
+    def exact(label, got, want, **kw):
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        log("check", case=label, dtype="bfloat16", integer_inputs=True,
+            **kw, bitwise=same, ok=same)
+        if not same:
+            failures.append(label)
+
+    for label in ("qwen3_split_down_M4096", "ragged_M300",
+                  "aligned_n4_M200"):
+        M, n, d_in, d_out = two_cases[label]
+        x = randint(M, n * d_in)
+        w1, w2 = randint(n, d_out, d_in), randint(n, d_out, d_in)
+        x1 = x.reshape(M, n, d_in)
+        for xl, xb in (("ot", x1),
+                       ("dt", x.reshape(M, d_in, n).transpose(1, 2))):
+            exact(f"dyad_mm_blocks_two/{label}/{xl}/integer",
+                  dyad_mm.dyad_mm_blocks_two(x1, xb, w1, w2),
+                  dyad_mm.dyad_mm_blocks_two_plain(x1, xb, w1, w2))
+    # the decode rows on both routes (the wrapper takes the tensor cores)
+    M, n, d_in, d_out = 8, *two_cases["qwen3_split_down_M4096"][1:]
+    x1 = randint(M, n, d_in)
+    w1, w2 = randint(n, d_out, d_in), randint(n, d_out, d_in)
+    want = dyad_mm.dyad_mm_blocks_two_plain(x1, x1, w1, w2)
+    for tc in (False, True):
+        call, out = _two_entry(x1, x1, w1, w2, tc)
+        call()
+        exact(f"dyad_mm_blocks_two/qwen3_split_down_M8/"
+              f"{'tc' if tc else 'fma'}_route/integer", out, want)
+    n, d_in, d_ff, d_out = 4, 256, 768, 256
+    for M in (4096, 128):
+        x = randint(M, n * d_in)
+        x1, x2 = x.reshape(M, n, d_in), x.reshape(M, d_in, n).transpose(
+            1, 2)
+        ws = [randint(n, d_ff, d_in).float() for _ in range(2)] + [
+            randint(n, d_out, d_ff).float() for _ in range(2)]
+        exact(f"dyad_ff_fused/qwen3_relu_M{M}/integer",
+              dyad_mm.dyad_ff_fused(x1, x2, *ws, act="relu"),
+              dyad_mm.dyad_ff_fused_plain(x1, x2, *ws, act="relu"),
+              plan=dyad_mm.ff_plan(M, n, d_in, d_ff, d_out,
+                                   dyad_mm.sm_count(gen.device),
+                                   bf16)[0])
 
 
 def _time_paged(torch, randn, record, time_ms):
@@ -965,23 +1138,26 @@ def main() -> int:
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         built=",".join(sorted(built)) or "none (cached)",
         dir=build.BUILD_DIR.relative_to(root))
-    # the DYAD GEMMs' and the flash kernels' bf16 routes on the tensor
-    # cores (HGMMA is wgmma's SASS), their fp32 routes on FMA
+    # the DYAD GEMMs', the ff megakernel's and the flash kernels' bf16
+    # routes on the tensor cores (HGMMA is wgmma's SASS), their fp32 routes
+    # on FMA
     sass = {name: tuple(len(re.findall(op, build.sass(name)))
                         for op in (r"\bHGMMA\.", r"\bFFMA\b"))
-            for name in ("dyad_mm", "dyad_dgrad", "dyad_dgrad_fused",
-                         "dyad_wgrad", "flash_prefill", "flash_bwd")}
+            for name in ("dyad_mm", "dyad_mm_two", "dyad_dgrad",
+                         "dyad_dgrad_fused", "dyad_wgrad", "dyad_ff",
+                         "flash_prefill", "flash_bwd")}
     bad = [name for name, counts in sass.items() if not all(counts)]
     log("sass", **{name: f"HGMMA:{h},FFMA:{f}"
                    for name, (h, f) in sass.items()}, ok=not bad)
     if bad:
         log("sass", failed=",".join(bad))
         return 1
-    # ptxas on the tensor-core flash forward and backward: registers, no
-    # spill
+    # ptxas on the tensor-core flash forward and backward and the
+    # tensor-core ff megakernel (<1> gated, <0> not): registers, no spill
     for source, kernels in (("flash_prefill", ("flash_fwd_tc_kernel",)),
                             ("flash_bwd", ("flash_dkv_tc_kernel",
-                                           "flash_dq_tc_kernel"))):
+                                           "flash_dq_tc_kernel")),
+                            ("dyad_ff", ("dyad_ff_tc_kernel",))):
         ptx = _ptxas((build.BUILD_DIR / f"{source}.log").read_text(),
                      kernels)
         spilled = [k for k, r in ptx.items() if r["spill_stores"]] or (
@@ -1005,6 +1181,7 @@ def main() -> int:
     # their inputs
     aside = torch.Generator(device=dev).manual_seed(args.seed + 1)
     aside_fwd = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    aside_ff = torch.Generator(device=dev).manual_seed(args.seed + 3)
 
     failures = []
 
@@ -1096,7 +1273,9 @@ def main() -> int:
         "aligned_n4_M200": (200, 4, 136, 72),
     }
     # dyad_ff_fused: (M, n, d_in, d_ff, d_out, act); the Qwen3 cases at the
-    # training, prefill and decode rows (the last two split the hidden)
+    # training, prefill, prefill-chunk and decode rows (all but the first
+    # split the hidden), then ragged edges; the M 128 case draws its inputs
+    # from aside_ff
     ff_cases = {
         "qwen3_M4096": (4096, N, QD // N, QFF // N, QD // N, "swiglu"),
         "qwen3_M1024": (1024, N, QD // N, QFF // N, QD // N, "swiglu"),
@@ -1105,6 +1284,7 @@ def main() -> int:
         "ragged_relu_wide_out": (45, 3, 33, 200, 300, "relu"),
         "ragged_silu": (37, 2, 64, 100, 64, "silu"),
         "ragged_swiglu": (5, 2, 129, 130, 17, "swiglu"),
+        "qwen3_M128": (128, N, QD // N, QFF // N, QD // N, "swiglu"),
     }
     # the backward kernels at the OPT-125m and Qwen3-0.6B training rows
     # (B 8 x S 512) and the edge cases, among them those off the
@@ -1191,11 +1371,11 @@ def main() -> int:
                 if not same:
                     failures.append(f"flash_prefill/{label}/bitwise_repeat")
             # lse: rows with a valid key within tolerance; fully-masked rows
-            # (lse = -1e30 + log 1e-30) must be such rows in both
+            # (lse = -1e30 + log 1e-30 = -1e30) the plain version's bits
             live = plse > -1e29
             check(f"flash_prefill/{label}/lse", lse[live], plse[live], dn)
             dead = int((~live).sum())
-            dead_ok = (bool((lse[~live] <= -1e29).all())
+            dead_ok = (torch.equal(lse[~live], plse[~live])
                        and bool((o.float().abs().amax(dim=-1) == 0).sum()
                                 >= dead))
             if label in ("gqa_window_offsets", "s_lt_t_offsets_window_h128"):
@@ -1280,6 +1460,9 @@ def main() -> int:
         if dt == torch.bfloat16:
             _check_integer_tc(torch, gen, dyad_mm, dyad_cases, bwd_cases,
                               failures)
+            _check_integer_ff_slice(
+                torch, torch.Generator(device=dev).manual_seed(args.seed + 4),
+                dyad_mm, two_cases, failures)
 
         grads_cases = {
             # the training attention of one layer: B 8, S 512, K 12, causal
@@ -1415,16 +1598,30 @@ def main() -> int:
                 f"dyad_mm_dgrad/{label}", dyad_mm.dyad_mm_dgrad(z1, z2, w1, w2),
                 dyad_mm.dyad_mm_dgrad_plain(z1, z2, w1, w2), dn))
 
+        def randn_ff(*shape, dtype=torch.float32):
+            return randn(*shape, dtype=dtype, generator=aside_ff)
+
         for label, (M, n, d_in, d_ff, d_out, act) in ff_cases.items():
             # the Qwen3 cases take what the main path gives the kernel: x
             # in the compute dtype, the fp32 params
             wdt = torch.float32 if label.startswith("qwen3") else dt
-            ff_in = _ff_args(randn, M, n, d_in, d_ff, d_out, act, dt, wdt)
+            ff_in = _ff_args(randn_ff if label == "qwen3_M128" else randn,
+                             M, n, d_in, d_ff, d_out, act, dt, wdt)
             got = dyad_mm.dyad_ff_fused(*ff_in, act=act)
             want = dyad_mm.dyad_ff_fused_plain(*ff_in, act=act)
             for c in (0, 1):
                 note("dyad_ff_fused", check(
                     f"dyad_ff_fused/{label}/z{c + 1}", got[c], want[c], dn))
+            if dt == torch.bfloat16 and label.startswith("qwen3"):
+                # both kernels, whichever ff_plan picks at these rows (the
+                # cut of phase 4 times both)
+                for tc in (False, True):
+                    call, out = _ff_entry(ff_in, act, tc)
+                    call()
+                    for c in (0, 1):
+                        check(f"dyad_ff_fused/{label}/"
+                              f"{'tc' if tc else 'fma'}_kernel/z{c + 1}",
+                              out[c], want[c], dn)
             # the hidden split adds in a fixed order: the same bits again
             again = dyad_mm.dyad_ff_fused(*ff_in, act=act)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -1436,10 +1633,10 @@ def main() -> int:
                 pre = dyad_mm.dyad_ff_fused(*cast, act=act)
                 same = same and all(torch.equal(a, b)
                                     for a, b in zip(got, pre))
+            kernel, split, _ = dyad_mm.ff_plan(
+                M, n, d_in, d_ff, d_out, dyad_mm.sm_count(dev), dt)
             log("check", case=f"dyad_ff_fused/{label}/bitwise_repeat",
-                dtype=dn, split=dyad_mm.ff_split(
-                    M, n, d_ff, d_out, dyad_mm.sm_count(dev))[0],
-                ok=same)
+                dtype=dn, kernel=kernel, split=split, ok=same)
             if not same:
                 failures.append(f"dyad_ff_fused/{label}/bitwise_repeat")
         _check_quant_kernels(torch, randn, check, failures, dt, max_err)
@@ -1674,7 +1871,7 @@ def main() -> int:
         "dyad_ff_fused": 2, "dyad_mm_blocks": 2, "dyad_mm_dgrad": 1,
         "dyad_mm_wgrad": 3, "dyad_mm_dgrad_two": 2, "flash_prefill": 2,
         "flash_prefill_grads": 1}, "qwen3_train",
-        profile_check=_flash_kernel_split)
+        profile_check=_qwen3_kernel_split)
     if qtrain is None:
         return 1
 
@@ -1781,7 +1978,8 @@ def main() -> int:
             "shape": "+".join(tm["shape"]), "dtype": tm["dtype"]}
         for key in ("split_route_ms", "bmm_chain_ms", "dequant_bmm_ms",
                     "dequant_bmm_chain_ms", "copied_views_ms",
-                    "contiguous_out_ms", "delta_ms"):
+                    "contiguous_out_ms", "delta_ms", "fma_ms", "tc_ms",
+                    "tc_fill_ms"):
             if key in tm:
                 entry[key] = tm[key]
         line.append(entry)
@@ -2001,13 +2199,17 @@ class _Run:
                 return None
             if lin == spec:
                 launches = got
-            if lin == spec and compare:
+            if compare:
+                # one profiled step each: the busy time beside the wall
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     trainer.run(trainer.step + 1)
-                per_kernel = _log_profile(prof, step_s[lin] * 1e3,
-                                          phase + "_profile")
-                if profile_check and not profile_check(per_kernel, n_layers):
+                per_kernel = _log_profile(
+                    prof, step_s[lin] * 1e3,
+                    phase + ("_profile" if lin == spec else
+                             "_dense_profile"))
+                if (lin == spec and profile_check
+                        and not profile_check(per_kernel, n_layers)):
                     return None
             del trainer, losses
             torch.cuda.empty_cache()

@@ -50,11 +50,11 @@ ENTRIES = {
                   [_P] * 9 + [_P, _I, _P, _I] + [_I] * 6 + [_LL] * 14
                   + [_I, _I, _F, _I, _P]),
     "dyad_mm_two": ("dyad_mm_two", "repro_dyad_mm_blocks_two",
-                    [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_I, _P]),
+                    [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_I, _I, _P]),
     "dyad_dgrad_fused": ("dyad_dgrad_fused", "repro_dyad_mm_dgrad",
                          [_P] * 5 + [_I] * 4 + [_LL] * 9 + [_I, _P]),
     "dyad_ff": ("dyad_ff", "repro_dyad_ff_fused",
-                [_P] * 11 + [_I] * 7 + [_LL] * 12 + [_I] * 3 + [_P]),
+                [_P] * 12 + [_I] * 7 + [_LL] * 12 + [_I] * 4 + [_P]),
     "flash_decode_paged": ("flash_decode_paged", "repro_flash_decode_paged",
                            [_P] * 8 + [_I] * 7 + [_LL] * 3
                            + [_I, _F, _I, _I, _P]),

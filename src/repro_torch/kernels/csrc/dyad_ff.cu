@@ -12,9 +12,17 @@
 // quantized weights (the entry repro_dyad_ff_fused_q) dyad_ff_fused_q
 // (_ff_kernel_q, _ff_kernel_swiglu_q, pallas_call in _dyad_ff_q_impl).
 //
-// The hidden never goes to device memory.  A block owns 32 rows of one
-// dyad block g and up to 256 output columns of both components, whose fp32
-// accumulators stay in registers (32 per thread and component).  For each
+// Two kernels, chosen by the wrapper (ff_plan) through the entry's tc
+// flag: bf16 x at every row count runs on the tensor cores
+// (dyad_ff_tc_kernel, dyad_ff_tc.cuh, fp32 weights cast to bf16 once a
+// call, in one launch); fp32 and the quantized weights on the fp32 FMA
+// kernel below (dyad_ff_kernel).  Both share the hidden split and its
+// second pass (dyad_ff_reduce).
+//
+// The FMA kernel.  The hidden never goes to device memory.  A block owns
+// 32 rows of one dyad block g and up to 256 output columns of both
+// components, whose fp32 accumulators stay in registers (32 per thread and
+// component).  For each
 // 64-column tile of the hidden it
 //   1. accumulates the up (and gate) tile in fp32 over k, 16 deep per
 //      shared-memory stage (2 rows x 4 columns per thread);
@@ -65,15 +73,14 @@
 // d_out_b 256, swiglu) does 38.7 GFLOP at M = 4096, 0.58 ms on fp32 FMA;
 // at M = 8 it moves its 4.7 M weights, 9.4 MB in bf16, 2.8 us at
 // 3.35 TB/s (4.7 MB of int8 or fp8 payloads and 57 KB of scales: 1.4 us).
-// This first version runs on FMA, not the tensor cores.
+// This kernel runs on FMA; it keeps the rows that bound is about.
 #include <type_traits>
 
+#include "dyad_ff_tc.cuh"
 #include "quant.cuh"
 
 namespace repro {
 namespace {
-
-enum Act : int { kGelu = 0, kRelu = 1, kSilu = 2, kSwiglu = 3 };
 
 constexpr int kBB = 32;        // rows per block
 constexpr int kBJ = 64;        // hidden columns per tile
@@ -89,24 +96,6 @@ constexpr int kUpFloats = 2 * kBK * kPX + 4 * kBK * kPW;
 constexpr int kDownFloats = 2 * kBD * kPD;
 constexpr int kStageFloats = kUpFloats > kDownFloats ? kUpFloats : kDownFloats;
 
-struct FFArgs {
-  const void* x1;
-  const void* x2;
-  long long x1_sb, x1_sg, x1_sk, x2_sb, x2_sg, x2_sk;
-  const void* wu[4];   // wu1, wu2, wg1, wg2: (n, d_ff, d_in), contiguous
-  const void* wd[2];   // wd1, wd2: (n, d_out, d_ff), contiguous
-  void* z[2];
-  long long z_sb[2], z_sg[2], z_so[2];
-  float* part;         // (split, 2, M, n, d_out) fp32 when split > 1
-  int M, n, d_in, d_ff, d_out;
-  int split, span;     // hidden columns [s * span, (s + 1) * span) per split
-  int act;
-  // quantized weights only: the scales of wu[w], (n, d_ff), and of wd[c],
-  // (n, d_out), fp32 and contiguous
-  const float* su[4];
-  const float* sd[2];
-};
-
 // a weight as the activation dtype T holds it, in fp32
 template <typename T, typename TW>
 __device__ __forceinline__ float load_w(const TW* p) {
@@ -114,21 +103,6 @@ __device__ __forceinline__ float load_w(const TW* p) {
     return to_f32(*p);   // a payload is exact in T: no rounding to do
   else
     return to_f32(from_f32<T>(to_f32(*p)));
-}
-
-__device__ __forceinline__ float silu(float u) { return u / (1.f + expf(-u)); }
-
-__device__ __forceinline__ float activate(int act, float u) {
-  switch (act) {
-    case kGelu: {
-      const float c = 0.7978845608028654f;   // sqrt(2 / pi)
-      return 0.5f * u * (1.f + tanhf(c * (u + 0.044715f * u * u * u)));
-    }
-    case kRelu:
-      return fmaxf(u, 0.f);
-    default:
-      return silu(u);
-  }
 }
 
 template <typename T, typename TW, bool kGated>
@@ -351,15 +325,9 @@ __global__ void dyad_ff_reduce(FFArgs a) {
       from_f32<T>(sum);
 }
 
-template <typename T, typename TW>
-cudaError_t launch(const FFArgs& a, cudaStream_t stream) {
-  const int o_tiles = (a.d_out + kBO - 1) / kBO;
-  dim3 grid(o_tiles * a.split, (a.M + kBB - 1) / kBB, a.n);
-  if (a.act == kSwiglu)
-    dyad_ff_kernel<T, TW, true><<<grid, kThreads, 0, stream>>>(a);
-  else
-    dyad_ff_kernel<T, TW, false><<<grid, kThreads, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+// after a launch: for split > 1, the second pass over the partials
+template <typename T>
+cudaError_t reduce(const FFArgs& a, cudaError_t err, cudaStream_t stream) {
   if (err != cudaSuccess || !a.part) return err;
   const long long total = 2LL * a.M * a.n * a.d_out;
   constexpr int kReduceThreads = 256;
@@ -369,18 +337,29 @@ cudaError_t launch(const FFArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T, typename TW>
+cudaError_t launch(const FFArgs& a, cudaStream_t stream) {
+  const int o_tiles = (a.d_out + kBO - 1) / kBO;
+  dim3 grid(o_tiles * a.split, (a.M + kBB - 1) / kBB, a.n);
+  if (a.act == kSwiglu)
+    dyad_ff_kernel<T, TW, true><<<grid, kThreads, 0, stream>>>(a);
+  else
+    dyad_ff_kernel<T, TW, false><<<grid, kThreads, 0, stream>>>(a);
+  return reduce<T>(a, cudaGetLastError(), stream);
+}
+
 }  // namespace
 }  // namespace repro
 
 extern "C" int repro_dyad_ff_fused(
     const void* x1, const void* x2, const void* wu1, const void* wu2,
     const void* wg1, const void* wg2, const void* wd1, const void* wd2,
-    void* z1, void* z2, float* part, int M, int n, int d_in, int d_ff,
-    int d_out, int split, int span, long long x1_sb, long long x1_sg,
-    long long x1_sk, long long x2_sb, long long x2_sg, long long x2_sk,
-    long long z1_sb, long long z1_sg, long long z1_so, long long z2_sb,
-    long long z2_sg, long long z2_so, int act, int dtype, int wdtype,
-    void* stream) {
+    void* z1, void* z2, float* part, void* wcast, int M, int n, int d_in,
+    int d_ff, int d_out, int split, int span, long long x1_sb,
+    long long x1_sg, long long x1_sk, long long x2_sb, long long x2_sg,
+    long long x2_sk, long long z1_sb, long long z1_sg, long long z1_so,
+    long long z2_sb, long long z2_sg, long long z2_so, int act, int dtype,
+    int wdtype, int tc, void* stream) {
   using namespace repro;
   if (split < 1 || span < 1 || (split > 1 && !part) || act < kGelu ||
       act > kSwiglu || (act == kSwiglu && !(wg1 && wg2)))
@@ -392,6 +371,18 @@ extern "C" int repro_dyad_ff_fused(
            split > 1 ? part : nullptr, M, n, d_in, d_ff, d_out, split, span,
            act};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // tc: the tensor-core kernel of dyad_ff_tc.cuh, bf16 x; fp32 weights are
+  // cast into wcast first
+  if (tc) {
+    if (dtype != kBF16 || !(wdtype == kBF16 || (wdtype == kF32 && wcast)))
+      return cudaErrorInvalidValue;
+    if (wdtype == kF32) {
+      const cudaError_t err = fftc::cast_weights(
+          a, static_cast<__nv_bfloat16*>(wcast), s);
+      if (err != cudaSuccess) return err;
+    }
+    return reduce<__nv_bfloat16>(a, fftc::launch(a, s), s);
+  }
   if (dtype == kF32 && wdtype == kF32) return launch<float, float>(a, s);
   if (dtype == kBF16 && wdtype == kBF16)
     return launch<__nv_bfloat16, __nv_bfloat16>(a, s);

@@ -1,6 +1,6 @@
-// The bf16 tensor-core mainloop of the DYAD GEMMs (dyad_mm.cu past the
-// decode rows, dyad_dgrad.cu, dyad_dgrad_fused.cu, dyad_wgrad.cu), beside
-// the fp32 FMA one of dyad_gemm.cuh.  It
+// The bf16 tensor-core mainloop of the DYAD GEMMs (dyad_mm.cu and
+// dyad_mm_two.cu past the decode rows, dyad_dgrad.cu, dyad_dgrad_fused.cu,
+// dyad_wgrad.cu), beside the fp32 FMA one of dyad_gemm.cuh.  It
 // computes what that one does, through the same DyadGemmArgs:
 //
 //   C_c[g][r, j] = sum_{k in [k_begin, k_end)} A_c[g][r, k] * B_c[g][k, j]
@@ -12,8 +12,9 @@
 // the sums fp32, and the output is rounded once.
 //
 // Replaces, on this card, the TPU kernels src/repro/kernels/dyad_mm.py:
-// dyad_mm_blocks (_dyad_kernel, Fuse), dyad_mm_dgrad_two (_dgrad_kernel_two),
-// dyad_mm_dgrad (_dgrad_kernel, Fuse) and dyad_mm_wgrad (_wgrad_kernel):
+// dyad_mm_blocks (_dyad_kernel, Fuse), dyad_mm_blocks_two
+// (_dyad_kernel_two), dyad_mm_dgrad_two (_dgrad_kernel_two), dyad_mm_dgrad
+// (_dgrad_kernel, Fuse) and dyad_mm_wgrad (_wgrad_kernel):
 // MXU products over VMEM tiles with the reduction carried across the
 // sequential grid axis.
 //
@@ -64,7 +65,9 @@
 //
 // The swizzled tile layout, the copies, the descriptors and the wgmma
 // wrappers (m64n128k16 here; m64n64k16 and the register-A m64n64k16 and
-// m64n128k16 for them) also serve the bf16 flash kernels, flash_tc.cuh.
+// m64n128k16 for them) also serve the bf16 flash kernels, flash_tc.cuh;
+// the layout, the copies and the gathers (of 64-row tiles) the bf16 ff
+// megakernel, dyad_ff_tc.cuh.
 #pragma once
 
 #include "dyad_gemm.cuh"
@@ -77,8 +80,18 @@ constexpr int kThreads = 256;   // two warpgroups, 64 rows of C each
 constexpr int kTileBytes = kBM * kBK * 2;             // 16 KB per operand
 constexpr int kStageBytes = 2 * kTileBytes;           // A, then B
 constexpr int kSmemBytes = kStages * kStageBytes + 1024;   // + alignment
-constexpr int kChunks = kBM * kBK / 8 / kThreads;     // 16-byte copies: 4
-constexpr int kPairs = kBM * kBK / 2 / kThreads;      // gathered pairs: 16
+// per thread, for a tile of ROWS (mn) x 64 (k): its 16-byte copies and
+// its gathered pairs; the loaders below take any ROWS, 128 by default
+// (the ff megakernel, dyad_ff_tc.cuh, stages 64)
+template <int ROWS>
+__host__ __device__ constexpr int chunks() {
+  return ROWS * kBK / 8 / kThreads;
+}
+template <int ROWS>
+__host__ __device__ constexpr int pairs() {
+  return ROWS * kBK / 2 / kThreads;
+}
+constexpr int kPairs = pairs<kBM>();   // 16
 
 // how an operand of one component reaches shared memory
 enum Load : int {
@@ -131,14 +144,14 @@ __device__ __forceinline__ void cp_async_wait() {
 // the 16-byte copies of one tile: chunk e covers 8 elements along the
 // operand's contiguous (staged) axis; neighbouring threads take
 // neighbouring chunks
-template <bool KMAJ>
+template <bool KMAJ, int ROWS = kBM>
 __device__ __forceinline__ void copy_tile(const Operand& o, int mn0, int k0,
                                           int k_end, uint32_t tile) {
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
+  for (int i = 0; i < chunks<ROWS>(); ++i) {
     const int e = threadIdx.x + i * kThreads;
-    const int mn = KMAJ ? e >> 3 : (e & 15) * 8;
-    const int k = KMAJ ? (e & 7) * 8 : e >> 4;
+    const int mn = KMAJ ? e >> 3 : (e % (ROWS / 8)) * 8;
+    const int k = KMAJ ? (e & 7) * 8 : e / (ROWS / 8);
     const int gm = mn0 + mn, gk = k0 + k;
     int n = 0;
     if (KMAJ) {
@@ -155,15 +168,15 @@ __device__ __forceinline__ void copy_tile(const Operand& o, int mn0, int k0,
 // operands are both gathered): pair q covers 2 neighbouring elements along
 // the staged axis, read one by one through the strides (zeros past an
 // edge)
-template <bool KMAJ>
+template <bool KMAJ, int ROWS = kBM>
 __device__ __forceinline__ void gather_tile(const Operand& o, int mn0,
                                             int k0, int k_end,
-                                            uint32_t (&reg)[kPairs]) {
+                                            uint32_t (&reg)[pairs<ROWS>()]) {
 #pragma unroll
-  for (int i = 0; i < kPairs; ++i) {
+  for (int i = 0; i < pairs<ROWS>(); ++i) {
     const int q = threadIdx.x + i * kThreads;
-    const int mn = KMAJ ? q >> 5 : (q & 63) * 2;
-    const int k = KMAJ ? (q & 31) * 2 : q >> 6;
+    const int mn = KMAJ ? q >> 5 : (q % (ROWS / 2)) * 2;
+    const int k = KMAJ ? (q & 31) * 2 : q / (ROWS / 2);
     const int gm = mn0 + mn, gk = k0 + k;
     uint32_t lo = 0, hi = 0;
     if (gm < o.ext && gk < k_end) {
@@ -183,17 +196,17 @@ __device__ __forceinline__ void gather_tile(const Operand& o, int mn0,
 // element m of block g at span[4 m + g]) the aligned 16-byte span load
 // that holds the whole pair (m, m + 1), picked out at the store with one
 // byte permute.
-template <bool KMAJ>
+template <bool KMAJ, int ROWS = kBM>
 __device__ __forceinline__ void load_raw(const Operand& o, int mode, int g,
                                          int mn0, int k0, int k_end,
-                                         uint4 (&raw)[kPairs]) {
+                                         uint4 (&raw)[pairs<ROWS>()]) {
   const long long s_ax = KMAJ ? o.s_k : o.s_mn;
   const long long s_ot = KMAJ ? o.s_mn : o.s_k;
 #pragma unroll
-  for (int i = 0; i < kPairs; ++i) {
+  for (int i = 0; i < pairs<ROWS>(); ++i) {
     const int q = threadIdx.x + i * kThreads;
-    const int mn = KMAJ ? q >> 5 : (q & 63) * 2;
-    const int k = KMAJ ? (q & 31) * 2 : q >> 6;
+    const int mn = KMAJ ? q >> 5 : (q % (ROWS / 2)) * 2;
+    const int k = KMAJ ? (q & 31) * 2 : q / (ROWS / 2);
     const int gm = mn0 + mn, gk = k0 + k;
     const int ax = KMAJ ? gk : gm, ax_end = KMAJ ? k_end : o.ext;
     uint4 w = make_uint4(0, 0, 0, 0);
@@ -214,15 +227,15 @@ __device__ __forceinline__ void load_raw(const Operand& o, int mode, int g,
   }
 }
 
-template <bool KMAJ>
-__device__ __forceinline__ void store_raw(uint32_t tile, int mode, int g,
-                                          const uint4 (&raw)[kPairs]) {
+template <bool KMAJ, int ROWS = kBM>
+__device__ __forceinline__ void store_raw(
+    uint32_t tile, int mode, int g, const uint4 (&raw)[pairs<ROWS>()]) {
   const uint32_t sel = g & 1 ? 0x7632 : 0x5410;
 #pragma unroll
-  for (int i = 0; i < kPairs; ++i) {
+  for (int i = 0; i < pairs<ROWS>(); ++i) {
     const int q = threadIdx.x + i * kThreads;
-    const int mn = KMAJ ? q >> 5 : (q & 63) * 2;
-    const int k = KMAJ ? (q & 31) * 2 : q >> 6;
+    const int mn = KMAJ ? q >> 5 : (q % (ROWS / 2)) * 2;
+    const int k = KMAJ ? (q & 31) * 2 : q / (ROWS / 2);
     const uint4 w = raw[i];
     const uint32_t v = mode == kSpan4
                            ? __byte_perm(g & 2 ? w.y : w.x,
@@ -234,14 +247,14 @@ __device__ __forceinline__ void store_raw(uint32_t tile, int mode, int g,
   }
 }
 
-template <bool KMAJ>
-__device__ __forceinline__ void store_tile(uint32_t tile,
-                                           const uint32_t (&reg)[kPairs]) {
+template <bool KMAJ, int ROWS = kBM>
+__device__ __forceinline__ void store_tile(
+    uint32_t tile, const uint32_t (&reg)[pairs<ROWS>()]) {
 #pragma unroll
-  for (int i = 0; i < kPairs; ++i) {
+  for (int i = 0; i < pairs<ROWS>(); ++i) {
     const int q = threadIdx.x + i * kThreads;
-    const int mn = KMAJ ? q >> 5 : (q & 63) * 2;
-    const int k = KMAJ ? (q & 31) * 2 : q >> 6;
+    const int mn = KMAJ ? q >> 5 : (q % (ROWS / 2)) * 2;
+    const int k = KMAJ ? (q & 31) * 2 : q / (ROWS / 2);
     asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(tile + tile_off<KMAJ>(
                      mn, k)),
                  "r"(reg[i]));

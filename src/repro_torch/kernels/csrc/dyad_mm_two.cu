@@ -17,18 +17,30 @@
 //
 // Bound on the H100: at the training rows of OPT-125m (M = 4096, n = 4,
 // 192 x 768) a call does 4.8 GFLOP per component on about 20 MB, so fp32
-// operations bound it; at Qwen3-0.6B's split ff (d_ff_b 768 -> d_out 256)
-// likewise.  Each (component, dyad block) is one GEMM of the shared FMA
-// kernel in dyad_gemm.cuh (128 x 64 tiles, 8 x 8 per thread, two
-// shared-memory stages); no tensor cores yet.
-#include "dyad_gemm.cuh"
+// operations bound it; Qwen3-0.6B's split-route down projection (M 4096,
+// d_ff_b 768 -> d_out_b 256, bf16) does 12.9 GFLOP on 45 MB: 0.013 ms on
+// the bf16 tensor cores, 0.0135 ms of bytes.  Each (component, dyad
+// block) is one GEMM, routed by the wrapper (the entry's tc flag):
+//  - bf16, at every row count: the tensor-core mainloop of
+//    dyad_gemm_tc.cuh (128 x 128 tiles, 64-deep cp.async stages, wgmma),
+//    A = x and B = w[g] (o rows of k) both K-major, the components apart
+//    (no Fuse): x1 and the weights copied with cp.async, the stride-n x2
+//    gathered through registers (the 16-byte runs at n = 4), z2 written
+//    through its permuted strides.  It runs the split ff route (the
+//    ff demotion rung of the continuous engine, REPRO_KERNEL_FF=split)
+//    and the bf16 OT/DT forward.  At Qwen3's decode rows (M 8) it is
+//    faster than the FMA kernel too, so there is no cut by M.
+//  - fp32: the shared FMA kernel of dyad_gemm.cuh (128 x 64 tiles, 8 x 8
+//    per thread, two shared-memory stages), as for OPT-125m's OT/DT train
+//    step.  (The entry's tc flag 0 also runs bf16 on it, for timing.)
+#include "dyad_gemm_tc.cuh"
 
 extern "C" int repro_dyad_mm_blocks_two(
     const void* x1, const void* x2, const void* w1, const void* w2, void* z1,
     void* z2, int M, int n, int d_in, int d_out, long long x1_sb,
     long long x1_sg, long long x1_sk, long long x2_sb, long long x2_sg,
     long long x2_sk, long long z1_sb, long long z1_sg, long long z1_so,
-    long long z2_sb, long long z2_sg, long long z2_so, int dtype,
+    long long z2_sb, long long z2_sg, long long z2_so, int dtype, int tc,
     void* stream) {
   const long long w_sg = (long long)d_out * d_in;
   // C_c[g] = z_c (M x d_out), A_c[g] = x_c (M x d_in), B_c[g][k, o] =
@@ -41,11 +53,14 @@ extern "C" int repro_dyad_mm_blocks_two(
                         d_out,          d_in,           1,
                         d_in};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // tc: the tensor-core mainloop, bf16 only
   switch (dtype) {
     case repro::kF32:
-      return repro::gemm::launch<float, float>(a, s);
+      return tc ? cudaErrorInvalidValue
+                : repro::gemm::launch<float, float>(a, s);
     case repro::kBF16:
-      return repro::gemm::launch<__nv_bfloat16, __nv_bfloat16>(a, s);
+      return tc ? repro::tc::launch<true, true, __nv_bfloat16>(a, s)
+                : repro::gemm::launch<__nv_bfloat16, __nv_bfloat16>(a, s);
     default:
       return cudaErrorInvalidValue;
   }

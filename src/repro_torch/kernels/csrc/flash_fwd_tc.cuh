@@ -247,9 +247,13 @@ flash_fwd_tc_kernel(PrefillArgs a, int flags) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int rg = r0 + 16 * warp + lane / 4 + 8 * hh;
+      // a row with no live key (l clamped to kTiny; a live row has
+      // l >= 1) takes the reference's m + log(max(l, 1e-30)) in natural
+      // units, m = -1e30: -1e30, the plain version's bits
       if (rg < SG)
         a.lse[((long long)b * a.K + kh) * SG + rg] =
-            m[hh] * kLn2 + logf(l[hh]);
+            l[hh] > kTiny ? m[hh] * kLn2 + logf(l[hh])
+                          : kNegInf + logf(kTiny);
     }
   }
 }

@@ -28,10 +28,12 @@ same name in ``repro.kernels.dyad_mm``:
 All but ``dyad_mm_blocks`` read their (b, g, inner) operands through
 strides, so the strided views (``x2``, ``z2bar``) are passed as they are.
 Every accumulation is fp32.  With bf16 operands ``dyad_mm_blocks`` (past
-its decode rows, M > 8), ``dyad_mm_dgrad_two``, ``dyad_mm_dgrad`` and
-``dyad_mm_wgrad`` run on the tensor cores (the ``wgmma`` mainloop of
-``dyad_gemm_tc.cuh``); ``dyad_mm_blocks_two``, the ff megakernel, the
-quantized kernels, the decode rows and every fp32 operand run on fp32 FMA.
+its decode rows, M > 8), ``dyad_mm_blocks_two``, ``dyad_mm_dgrad_two``,
+``dyad_mm_dgrad`` and ``dyad_mm_wgrad`` run on the tensor cores (the
+``wgmma`` mainloop of ``dyad_gemm_tc.cuh``), and the ff megakernel on a
+``wgmma`` kernel of its own (``dyad_ff_tc.cuh``, picked by
+:func:`ff_plan`); the quantized kernels, ``dyad_mm_blocks``' decode rows
+and every fp32 operand run on fp32 FMA.
 Each wrapper takes its plain version only for a CPU tensor; a CUDA tensor
 launches the kernel or raises.
 """
@@ -137,7 +139,9 @@ def dyad_mm_blocks_two(x1, x2, w1, w2):
 
     Returns ``(z1, z2)``, each (M, n, d_out) in x's dtype.  On CUDA ``z2``
     is a view of a contiguous (M, d_out, n) buffer, so the OT/DT
-    ``ref.combine`` (transpose, reshape, add) reshapes it for free."""
+    ``ref.combine`` (transpose, reshape, add) reshapes it for free.  bf16
+    runs on the tensor-core mainloop at every row count (at Qwen3's decode
+    rows, M 8, it beats the FMA kernel too), fp32 on the FMA kernel."""
     if x1.device.type == "cpu":
         return dyad_mm_blocks_two_plain(x1, x2, w1, w2)
     _check_views("dyad_mm_blocks_two", x1, x2, w1, w2)
@@ -156,7 +160,7 @@ def dyad_mm_blocks_two(x1, x2, w1, w2):
         build.ptr(x1), build.ptr(x2), build.ptr(w1), build.ptr(w2),
         build.ptr(z1), build.ptr(z2), M, n, d_in, d_out, *x1.stride(),
         *x2.stride(), *z1.stride(), *z2.stride(), _DTYPES[x1.dtype],
-        build.stream(x1.device))
+        int(x1.dtype == torch.bfloat16), build.stream(x1.device))
     build.check(err, "dyad_mm_blocks_two")
     dyad_mm_blocks_two.launches += 1
     return z1, z2
@@ -337,6 +341,10 @@ _ACT_CODES = {"gelu": 0, "relu": 1, "silu": 2, "swiglu": 3}
 # the tiles of csrc/dyad_ff.cu: 32 rows x 256 outputs per block, the
 # hidden in 16-column down stages
 _FF_ROWS, _FF_OUT, _FF_STAGE = 32, 256, 16
+# the tensor-core kernel of csrc/dyad_ff_tc.cuh: 64 rows x 256 outputs per
+# block, one block an SM, x resident in shared memory up to d_in 256 per
+# component
+_FF_TC_ROWS, _FF_TC_HIDDEN, _FF_TC_MAX_IN = 64, 64, 256
 
 
 @functools.lru_cache(maxsize=None)
@@ -356,6 +364,45 @@ def ff_split(M: int, n: int, d_ff: int, d_out: int, sms: int):
     split = max(1, min(units, math.ceil(2 * sms / max(base, 1))))
     span = math.ceil(units / split) * _FF_STAGE
     return max(1, math.ceil(d_ff / span)), span
+
+
+def ff_plan(M: int, n: int, d_in: int, d_ff: int, d_out: int, sms: int,
+            dtype: torch.dtype):
+    """(kernel, split, span) of ``dyad_ff_fused``: ``"tc"``, the tensor-core
+    kernel, for bf16 x at every row count (d_in up to 256), with
+    :func:`ff_tc_split`'s ranges; else ``"fma"``, the FMA kernel (fp32),
+    with :func:`ff_split`'s.  On an H100 the tensor-core kernel, its
+    weights cast in the call, beats the FMA kernel at Qwen3's decode rows
+    too (0.0426 against 0.0828 ms at M 8, PERF.md)."""
+    if dtype != torch.bfloat16 or d_in > _FF_TC_MAX_IN:
+        return ("fma",) + ff_split(M, n, d_ff, d_out, sms)
+    return ("tc",) + ff_tc_split(M, n, d_ff, d_out, sms)
+
+
+def ff_tc_split(M: int, n: int, d_ff: int, d_out: int, sms: int):
+    """(split, span) of the tensor-core kernel.  While one range per
+    64-column hidden tile keeps its grid of 64-row blocks within two waves
+    of ``sms`` (one block an SM; Qwen3-0.6B's serving rows, M <= 320),
+    each tile is a range: a row's result then has the same bits whatever
+    M, so routes that batch rows apart (chunked or one-shot prefill,
+    decode) agree.  Past that, ranges (``span`` columns, a multiple of 16)
+    as narrow as keep the grid within one wave (a second wave cost more
+    than it spread, PERF.md), down to one range once the rows fill the
+    card."""
+    base = n * math.ceil(M / _FF_TC_ROWS) * math.ceil(d_out / _FF_OUT)
+    tiles = max(1, math.ceil(d_ff / _FF_TC_HIDDEN))
+    if base * tiles <= 2 * sms:
+        return tiles, _FF_TC_HIDDEN
+    units = max(1, math.ceil(d_ff / _FF_STAGE))
+    want = max(1, sms // base)
+    span = math.ceil(units / want) * _FF_STAGE
+    return max(1, math.ceil(d_ff / span)), span
+
+
+def ff_cast_elems(weights) -> int:
+    """The bf16 scratch the C entry casts fp32 weights into: each weight's
+    elements rounded up to 8, so that every one starts on 16 bytes."""
+    return sum(-(-t.numel() // 8) * 8 for t in weights)
 
 
 def dyad_ff_fused_plain(x1, x2, wu1, wu2, wd1, wd2, wg1=None, wg2=None, *,
@@ -407,8 +454,10 @@ def dyad_ff_fused(x1, x2, wu1, wu2, wd1, wd2, wg1=None, wg2=None, *,
     wd1, wd2: (n, d_out, d_ff_b) down weights (OT, read from the block
               layout, so both components consume the same hidden).
     The weights are contiguous, in x's dtype or, for bf16 x, in fp32: the
-    kernel then rounds each weight to bf16 as it loads it, which computes
-    what a cast before the call would, without the copy.
+    C entry then casts them to bf16 once a call, in one launch into a
+    scratch buffer the wrapper allocates, which computes what a cast
+    before the call would.  :func:`ff_plan` picks the kernel and the
+    hidden split.
 
     Returns ``(z1, z2)``, each (M, n, d_out) in x's dtype; the caller
     applies the OT re-view and add (``ref.combine``).  On CUDA ``z2`` is a
@@ -442,16 +491,21 @@ def dyad_ff_fused(x1, x2, wu1, wu2, wd1, wd2, wg1=None, wg2=None, *,
     dev = x1.device
     z1 = torch.empty(M, n, d_out, dtype=x1.dtype, device=dev)
     z2 = _permuted_out(M, n, d_out, x1)
-    split, span = ff_split(M, n, d_ff, d_out, sm_count(dev))
+    kernel, split, span = ff_plan(M, n, d_in, d_ff, d_out, sm_count(dev),
+                                  x1.dtype)
+    # the tensor-core kernel stages bf16 weights with cp.async: fp32 ones
+    # are cast into this scratch by the entry
+    wcast = (torch.empty(ff_cast_elems(weights), dtype=x1.dtype, device=dev)
+             if kernel == "tc" and wdt != x1.dtype else None)
     part = (torch.empty(split, 2, M, n, d_out, dtype=torch.float32,
                         device=dev) if split > 1 else None)
     err = build.entry("dyad_ff")(
         build.ptr(x1), build.ptr(x2), build.ptr(wu1), build.ptr(wu2),
         build.ptr(wg1), build.ptr(wg2), build.ptr(wd1), build.ptr(wd2),
-        build.ptr(z1), build.ptr(z2), build.ptr(part), M, n, d_in, d_ff,
-        d_out, split, span, *x1.stride(), *x2.stride(), *z1.stride(),
-        *z2.stride(), _ACT_CODES[act], _DTYPES[x1.dtype], _DTYPES[wdt],
-        build.stream(dev))
+        build.ptr(z1), build.ptr(z2), build.ptr(part), build.ptr(wcast), M,
+        n, d_in, d_ff, d_out, split, span, *x1.stride(), *x2.stride(),
+        *z1.stride(), *z2.stride(), _ACT_CODES[act], _DTYPES[x1.dtype],
+        _DTYPES[wdt], int(kernel == "tc"), build.stream(dev))
     build.check(err, "dyad_ff_fused")
     dyad_ff_fused.launches += 1
     return z1, z2

@@ -143,6 +143,57 @@ def test_ff_split_covers_the_hidden():
     assert dyad_mm.ff_split(8, 4, 768, 256, 132) == (48, 16)
 
 
+@pytest.mark.parametrize("M,dtype,want", [
+    (128, "bfloat16", "tc"), (1024, "bfloat16", "tc"),
+    (4096, "bfloat16", "tc"), (8, "bfloat16", "tc"), (1, "bfloat16", "tc"),
+    (4096, "float32", "fma"), (8, "float32", "fma")])
+def test_ff_plan_picks_the_kernel(M, dtype, want):
+    """bf16 takes the tensor-core megakernel at every row count, its
+    hidden ranges covering the hidden in multiples of 16 columns: one per
+    64-column tile while that keeps its 64-row grid within two waves of an
+    H100's 132 SMs (the serving rows), else as narrow as keep it within
+    one wave (one narrower would not); fp32 takes the FMA kernel with
+    ff_split's ranges."""
+    n, d_in, d_ff, d_out, sms = 4, 256, 768, 256, 132
+    kernel, split, span = dyad_mm.ff_plan(M, n, d_in, d_ff, d_out, sms,
+                                          TDT[dtype])
+    assert kernel == want
+    assert span % 16 == 0 and (split - 1) * span < d_ff <= split * span
+    if want == "fma":
+        assert (split, span) == dyad_mm.ff_split(M, n, d_ff, d_out, sms)
+        return
+    rows = n * math.ceil(M / 64)
+    if rows * math.ceil(d_ff / 64) <= 2 * sms:
+        assert (split, span) == (d_ff // 64, 64)
+    elif rows >= sms:
+        assert split == 1
+    else:
+        assert rows * split <= sms
+        assert rows * math.ceil(d_ff / (span - 16)) > sms
+
+
+def test_ff_plan_keeps_the_route_and_its_edges(monkeypatch):
+    """The plan picks among the megakernels only: the ``ff`` demotion rung
+    (``force_ff_route``) still sends the forward to the split route, and
+    ``fused`` stays the default.  Qwen3's training rows run unsplit, its
+    prefill rows in two ranges, its serving rows (decode, prefill chunks
+    and one-shot prompts up to 320 rows) in the same twelve one-tile
+    ranges; a d_in past the resident x tiles (256) stays on FMA."""
+    bf16 = torch.bfloat16
+    assert dyad_mm.ff_plan(4096, 4, 256, 768, 256, 132, bf16) == (
+        "tc", 1, 768)
+    assert dyad_mm.ff_plan(1024, 4, 256, 768, 256, 132, bf16) == (
+        "tc", 2, 384)
+    assert {dyad_mm.ff_plan(M, 4, 256, 768, 256, 132, bf16)
+            for M in (1, 8, 100, 128, 200, 288, 320)} == {("tc", 12, 64)}
+    assert dyad_mm.ff_plan(4096, 4, 512, 768, 256, 132, bf16)[0] == "fma"
+    monkeypatch.delenv("REPRO_KERNEL_FF", raising=False)
+    assert ops.ff_route() == "fused"
+    with ops.force_ff_route("split"):
+        assert ops.ff_route() == "split"
+    assert ops.ff_route() == "fused"
+
+
 MM_SHAPES = [
     # (M, n, d_in, d_out): ragged and prime dims, past-lane dims
     (129, 2, 13, 17),

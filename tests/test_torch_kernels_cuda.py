@@ -211,7 +211,8 @@ def test_flash_prefill_kernel_matches_plain(cuda, B, S, T, K, G, h, causal,
     live = plse > -1e29
     if live.any():
         _close(lse[live], plse[live], dtype)
-    assert bool((lse[~live] <= -1e29).all())
+    # a row with no live key: m + log(max(l, 1e-30)) = -1e30, bit for bit
+    assert torch.equal(lse[~live], plse[~live])
     assert bool((o[(~live).reshape(B, K, S, G).permute(0, 2, 1, 3)]
                  == 0).all())
 
@@ -665,6 +666,50 @@ def test_dyad_blocks_two_kernel_matches_plain(cuda, M, n, d_in, d_out,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("M,n,d_in,d_out", [
+    # Qwen3-0.6B's split-route down at the training and decode rows; off
+    # the tensor-core tiles: n 3 (the stride-n x2 gathered element by
+    # element) and n 4 (its 16-byte runs)
+    (4096, 4, 768, 256), (8, 4, 768, 256), (300, 3, 200, 130),
+    (200, 4, 136, 72)])
+def test_dyad_blocks_two_bf16_integer_inputs_are_exact(cuda, M, n, d_in,
+                                                       d_out):
+    """The bf16 route (the tensor-core mainloop, both operands K-major,
+    the components apart) on integer-valued inputs, x2 = x1 (OT) and the
+    stride-n view (DT): the fp32 sums are exact, so the result is the
+    plain version's, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(M + d_in)
+    x = _randint(gen, M, n * d_in, device=cuda)
+    w1, w2 = (_randint(gen, n, d_out, d_in, device=cuda) for _ in range(2))
+    x1 = x.reshape(M, n, d_in)
+    for xb in (x1, x.reshape(M, d_in, n).transpose(1, 2)):
+        before = dyad_mm.dyad_mm_blocks_two.launches
+        got = dyad_mm.dyad_mm_blocks_two(x1, xb, w1, w2)
+        torch.cuda.synchronize()
+        assert dyad_mm.dyad_mm_blocks_two.launches == before + 1
+        want = dyad_mm.dyad_mm_blocks_two_plain(x1, xb, w1, w2)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_dyad_blocks_two_bf16_gives_the_same_bits_every_run(cuda):
+    """No atomics on the tensor-core route: Qwen3's split-route down with
+    the stride-n x2, twice, the same bits."""
+    M, n, d_in, d_out = 4096, 4, 768, 256
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = _randn(gen, M, n * d_in, device=cuda, dtype=torch.bfloat16)
+    w1, w2 = ((_randn(gen, n, d_out, d_in, device=cuda) / d_in ** 0.5).to(
+        torch.bfloat16) for _ in range(2))
+    x1, x2 = x.reshape(M, n, d_in), x.reshape(M, d_in, n).transpose(1, 2)
+    before = dyad_mm.dyad_mm_blocks_two.launches
+    a = dyad_mm.dyad_mm_blocks_two(x1, x2, w1, w2)
+    b = dyad_mm.dyad_mm_blocks_two(x1, x2, w1, w2)
+    torch.cuda.synchronize()
+    assert dyad_mm.dyad_mm_blocks_two.launches == before + 2
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,n,d_in,d_out", [
     # Qwen3-0.6B's down dh at the training rows; OPT-125m's OT dx
@@ -692,10 +737,13 @@ def test_dyad_dgrad_fused_kernel_matches_plain(cuda, M, n, d_in, d_out,
 
 
 FF_SHAPES = [
-    # (M, n, d_in_b, d_ff_b, d_out_b): Qwen3-0.6B at the training, prefill
-    # and decode rows, then ragged edges and an output wider than a tile
+    # (M, n, d_in_b, d_ff_b, d_out_b): Qwen3-0.6B at the training, prefill,
+    # prefill-chunk and decode rows (bf16: the tensor-core kernel unsplit,
+    # then split into 2, 12 and 12 ranges), then ragged edges and an output
+    # wider than a tile
     (4096, 4, 256, 768, 256), (1024, 4, 256, 768, 256),
-    (8, 4, 256, 768, 256), (3, 2, 129, 130, 17), (45, 3, 33, 200, 300)]
+    (128, 4, 256, 768, 256), (8, 4, 256, 768, 256), (3, 2, 129, 130, 17),
+    (45, 3, 33, 200, 300)]
 
 
 def _ff_case(cuda, M, n, d_in, d_ff, d_out, dtype, act, wdtype=None):
@@ -734,8 +782,9 @@ def test_dyad_ff_fused_kernel_matches_plain(cuda, M, n, d_in, d_ff, d_out,
 @pytest.mark.gpu
 @pytest.mark.parametrize("M", [4096, 8])
 def test_dyad_ff_fused_rounds_fp32_weights_in_kernel(cuda, M):
-    """bf16 activations with the fp32 params: the same bits as casting
-    the weights to bf16 before the call."""
+    """bf16 activations with the fp32 params: the C entry's cast (one
+    launch into the wrapper's scratch) gives the same bits as casting the
+    weights to bf16 before the call, unsplit (M 4096) and split (M 8)."""
     args = _ff_case(cuda, M, 4, 256, 768, 256, torch.bfloat16, "swiglu",
                     wdtype=torch.float32)
     got = dyad_mm.dyad_ff_fused(*args, act="swiglu")
@@ -743,6 +792,78 @@ def test_dyad_ff_fused_rounds_fp32_weights_in_kernel(cuda, M):
             for i, a in enumerate(args)]
     want = dyad_mm.dyad_ff_fused(*cast, act="swiglu")
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [4096, 128])
+def test_dyad_ff_fused_bf16_relu_integer_inputs_are_exact(cuda, M):
+    """Qwen3-0.6B's widths with relu on integers in [-2, 2] (the fp32
+    params, as the main path hands them over): the up sums are exact in
+    fp32, the hidden rounds to bf16 the same way on both sides and the
+    down sums stay below 2^24, so the tensor-core kernel (unsplit at
+    M 4096, split at 128) gives the plain version's bits."""
+    n, d_in, d_ff, d_out = 4, 256, 768, 256
+    assert dyad_mm.ff_plan(M, n, d_in, d_ff, d_out, dyad_mm.sm_count(cuda),
+                           torch.bfloat16)[0] == "tc"
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    x = _randint(gen, M, n * d_in, device=cuda)
+    x1, x2 = x.reshape(M, n, d_in), x.reshape(M, d_in, n).transpose(1, 2)
+    ws = [_randint(gen, n, d_ff, d_in, device=cuda, dtype=torch.float32)
+          for _ in range(2)] + [
+        _randint(gen, n, d_out, d_ff, device=cuda, dtype=torch.float32)
+        for _ in range(2)]
+    before = dyad_mm.dyad_ff_fused.launches
+    got = dyad_mm.dyad_ff_fused(x1, x2, *ws, act="relu")
+    torch.cuda.synchronize()
+    assert dyad_mm.dyad_ff_fused.launches == before + 1
+    want = dyad_mm.dyad_ff_fused_plain(x1, x2, *ws, act="relu")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_dyad_ff_fused_bf16_rows_keep_their_bits_at_every_serving_M(cuda):
+    """At Qwen3's serving rows (up to 320) the tensor-core kernel splits
+    the hidden into the same one-tile ranges, so a row's result has the
+    same bits whether it is computed among 8, 128 or 300 rows (a decode
+    step, a prefill chunk, a one-shot prompt)."""
+    n, d_in, d_ff, d_out = 4, 256, 768, 256
+    args = _ff_case(cuda, 300, n, d_in, d_ff, d_out, torch.bfloat16,
+                    "swiglu", wdtype=torch.float32)
+    x = args[0].reshape(300, n * d_in)
+    outs = []
+    for M in (8, 128, 300):
+        xm = x[:M]
+        z1, z2 = dyad_mm.dyad_ff_fused(
+            xm.reshape(M, n, d_in), xm.reshape(M, d_in, n).transpose(1, 2),
+            *args[2:], act="swiglu")
+        outs.append((z1[:8], z2[:8]))
+    torch.cuda.synchronize()
+    for z1, z2 in outs[1:]:
+        assert torch.equal(z1, outs[0][0]) and torch.equal(z2, outs[0][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad,off", [(8, 0), (3, 0), (8, 1)])
+def test_dyad_ff_fused_bf16_reads_strided_views(cuda, pad, off):
+    """x1 and x2 as views into a wider buffer: rows of n * d_in + pad from
+    column off (16-byte aligned rows copied and gathered in 16-byte runs;
+    rows off a multiple of 8 elements or a start off 16 bytes gathered
+    element by element), at Qwen3's widths on the tensor-core kernel."""
+    M, n, d_in, d_ff, d_out = 1024, 4, 256, 768, 256
+    gen = torch.Generator(device=cuda).manual_seed(pad + off)
+    rows = _randn(gen, M, n * d_in + pad, device=cuda, dtype=torch.bfloat16)
+    x = rows[:, off:off + n * d_in]
+    x1 = x.as_strided((M, n, d_in), (x.stride(0), d_in, 1))
+    x2 = x.as_strided((M, n, d_in), (x.stride(0), 1, n))
+    ws = _ff_case(cuda, M, n, d_in, d_ff, d_out, torch.bfloat16, "swiglu",
+                  wdtype=torch.float32)[2:]
+    before = dyad_mm.dyad_ff_fused.launches
+    z1, z2 = dyad_mm.dyad_ff_fused(x1, x2, *ws, act="swiglu")
+    torch.cuda.synchronize()
+    assert dyad_mm.dyad_ff_fused.launches == before + 1
+    p1, p2 = dyad_mm.dyad_ff_fused_plain(x1, x2, *ws, act="swiglu")
+    _close(z1, p1, torch.bfloat16)
+    _close(z2, p2, torch.bfloat16)
 
 
 @pytest.mark.gpu

@@ -38,10 +38,11 @@ exit and no result line):
    {-1, 0, 1}, whose sums are exact: o bitwise, lse within 1e-6
    relative; every ``flash_prefill`` case's fully-masked rows with the
    plain version's lse bits; bf16 ``dyad_mm_blocks_two`` on integer
-   inputs at Qwen3's split-route down shape, ragged shapes and at M 8 on
-   both routes, and ``dyad_ff_fused`` with relu on integer inputs at
-   Qwen3's widths, M 4096 and 128, bitwise; the bf16 Qwen3
-   ``dyad_ff_fused`` cases also on each kernel through the C entry);
+   inputs at Qwen3's split-route down shape and ragged shapes, and
+   ``dyad_ff_fused`` with relu on integer inputs at Qwen3's widths, M 4096
+   and 128, bitwise; the bf16 Qwen3 ``dyad_ff_fused`` cases also on the
+   FMA kernel through the C entry, the parent's route that phase 4
+   times);
 4. the time of each kernel, its plain version and a library yardstick
    (CUDA events around device work queued ahead, L2 flushed before each
    run, median of 25 after warm-up), under the kernel's name or, at
@@ -55,11 +56,8 @@ exit and no result line):
    timing, and the same with the dequantization timed too;
    ``dyad_ff_fused`` at Qwen3's training, prefill, prefill-chunk and
    decode rows (``@prefill``, ``@prefill_chunk``, ``@decode``), each
-   beside the split route, a torch.bmm chain and each kernel through the
-   C entry (``fma_ms``, ``tc_ms``; ``tc_fill_ms`` the tensor-core kernel
-   with the hidden split into a grid of at least the SM count, which
-   ff_plan does not take); ``dyad_mm_blocks_two@qwen3_split`` also on the
-   FMA route (``fma_ms``), and a ``cut`` line with both routes at M 8;
+   beside the split route, a torch.bmm chain and the FMA kernel through
+   the C entry (``fma_ms``, the parent's route);
 5. the OPT serving path: OPT-125m at full width with ``dyad_it_4_kernel``,
    random weights from ``--seed``, ``Engine.generate`` at batch 8, prompt
    128, 32 new tokens, with the kernels' launch counters read around it;
@@ -294,28 +292,17 @@ def _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases):
         xc = torch.cat([x1, x1], dim=1).transpose(0, 1).contiguous()
         wc = torch.cat([w1, w2], dim=0).transpose(1, 2).contiguous()
         es = x1.element_size()
-        # bf16: the FMA route at the same rows, for the parent's time
-        extra = {} if dt == f32 else {"fma_ms": time_ms(
-            _two_entry(x1, x1, w1, w2, False)[0])}
         record("dyad_mm_blocks_two" + ("" if dt == f32 else "@qwen3_split"),
                time_ms(lambda: dyad_mm.dyad_mm_blocks_two(x1, x1, w1, w2)),
                time_ms(lambda: dyad_mm.dyad_mm_blocks_two_plain(
                    x1, x1, w1, w2)),
                time_ms(lambda: torch.bmm(xc, wc)),
                es * (M * n * d_in + 2 * n * d_out * d_in + 2 * M * n * d_out),
-               4.0 * M * n * d_out * d_in, label, rate, str(dt)[6:], **extra)
+               4.0 * M * n * d_out * d_in, label, rate, str(dt)[6:])
 
     two("opt_up_M4096", f32, FP32_FLOPS)
     two("opt_down_M4096", f32, FP32_FLOPS)
     two("qwen3_split_down_M4096", bf16, BF16_FLOPS)
-    # dyad_mm_blocks_two at Qwen3's split-route down, decode rows (M 8), on
-    # both routes: why the wrapper takes the tensor cores at every M
-    _, n, d_in, d_out = two_cases["qwen3_split_down_M4096"]
-    x1 = randn(8, n, d_in, dtype=bf16)
-    w1, w2 = (randn(n, d_out, d_in).to(bf16) for _ in range(2))
-    log("cut", kernel="dyad_mm_blocks_two", shape="qwen3_split_down_M8", **{
-            f"{route}_ms": f"{time_ms(_two_entry(x1, x1, w1, w2, tc)[0]):.4f}"
-            for route, tc in (("fma", False), ("tc", True))})
 
     # dyad_mm_dgrad: Qwen3's down projection dh at the training rows, the
     # OT cotangent views; yardstick: one torch.bmm over the contraction
@@ -337,8 +324,8 @@ def _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases):
                lambda: dyad_mm.dyad_mm_dgrad(z1, z1, w1, w2)))
 
     # dyad_ff_fused: bf16 x, fp32 params (the main path's inputs); beside
-    # the wrapper (ff_plan's kernel), each kernel through the entry
-    # (fma_ms, tc_ms: the parent's route and the cut between them)
+    # the wrapper (ff_plan's kernel), the FMA kernel through the entry
+    # (fma_ms, the parent's route)
     for label, suffix in (("qwen3_M4096", ""), ("qwen3_M1024", "@prefill"),
                           ("qwen3_M128", "@prefill_chunk"),
                           ("qwen3_M8", "@decode")):
@@ -372,10 +359,7 @@ def _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases):
                time_ms(lambda: dyad_mm.dyad_ff_fused_plain(*args, act=act)),
                None, nbytes, flops, label, BF16_FLOPS, "bfloat16",
                split_route_ms=time_ms(split), bmm_chain_ms=time_ms(chain),
-               fma_ms=time_ms(_ff_entry(args, act, False)[0]),
-               tc_ms=time_ms(_ff_entry(args, act, True)[0]),
-               tc_fill_ms=time_ms(_ff_entry(args, act, True, _fill_split(
-                   M, n, d_ff, d_out, dyad_mm.sm_count(x1.device)))[0]))
+               fma_ms=time_ms(_ff_fma_entry(args, act)[0]))
 
 
 def _time_qwen3_bwd(torch, randn, record, time_ms, bwd_cases):
@@ -675,76 +659,36 @@ def _dgrad_two_entry(z1, z2, w1, w2, dx1, dx2):
     return call
 
 
-def _two_entry(x1, x2, w1, w2, tc: bool):
-    """dyad_mm_blocks_two's C entry on the route given (tc: the tensor-core
-    mainloop, else the FMA kernel), whatever the wrapper's cut; returns
-    (the call, its outputs), for timing and checking.  Not counted."""
-    import torch
-    from repro_torch.kernels import build, dyad_mm
-
-    M, n, d_in = x1.shape
-    d_out = w1.shape[1]
-    z1 = torch.empty(M, n, d_out, dtype=x1.dtype, device=x1.device)
-    z2 = dyad_mm._permuted_out(M, n, d_out, x1)
-    fn = build.entry("dyad_mm_two")
-
-    def call():
-        build.check(fn(
-            build.ptr(x1), build.ptr(x2), build.ptr(w1), build.ptr(w2),
-            build.ptr(z1), build.ptr(z2), M, n, d_in, d_out, *x1.stride(),
-            *x2.stride(), *z1.stride(), *z2.stride(),
-            dyad_mm._DTYPES[x1.dtype], int(tc), build.stream(x1.device)),
-            "dyad_mm_blocks_two")
-    return call, (z1, z2)
-
-
-def _ff_entry(args, act: str, tc: bool, split_span=None):
-    """dyad_ff_fused's C entry on the kernel given (tc: the tensor-core
-    kernel, fp32 weights cast in the entry as for the wrapper; else the
-    FMA kernel) with that kernel's hidden split, or ``split_span``,
-    whatever ff_plan picks; returns (the call, its outputs), for timing
-    and checking.  Not counted."""
+def _ff_fma_entry(args, act: str):
+    """dyad_ff_fused's C entry on the FMA kernel (the parent's route for
+    bf16 x) with its hidden split, whatever ff_plan picks; returns (the
+    call, its outputs), for timing and checking.  Not counted."""
     import torch
     from repro_torch.kernels import build, dyad_mm
 
     x1, x2 = args[0], args[1]
     M, n, d_in = x1.shape
     d_ff, d_out = args[2].shape[1], args[4].shape[1]
-    split, span = split_span or (
-        dyad_mm.ff_tc_split if tc else dyad_mm.ff_split)(
-        M, n, d_ff, d_out, dyad_mm.sm_count(x1.device))
+    split, span = dyad_mm.ff_split(M, n, d_ff, d_out,
+                                   dyad_mm.sm_count(x1.device))
     z1 = torch.empty(M, n, d_out, dtype=x1.dtype, device=x1.device)
     z2 = dyad_mm._permuted_out(M, n, d_out, x1)
     part = (torch.empty(split, 2, M, n, d_out, dtype=torch.float32,
                         device=x1.device) if split > 1 else None)
     wu1, wu2, wd1, wd2, wg1, wg2 = args[2:]
-    weights = [t for t in (wu1, wu2, wg1, wg2, wd1, wd2) if t is not None]
-    wcast = (torch.empty(dyad_mm.ff_cast_elems(weights), dtype=x1.dtype,
-                         device=x1.device)
-             if tc and wu1.dtype != x1.dtype else None)
     fn = build.entry("dyad_ff")
 
     def call():
         build.check(fn(
             build.ptr(x1), build.ptr(x2), build.ptr(wu1), build.ptr(wu2),
             build.ptr(wg1), build.ptr(wg2), build.ptr(wd1), build.ptr(wd2),
-            build.ptr(z1), build.ptr(z2), build.ptr(part), build.ptr(wcast),
+            build.ptr(z1), build.ptr(z2), build.ptr(part), None,
             M, n, d_in, d_ff, d_out, split, span, *x1.stride(),
             *x2.stride(), *z1.stride(), *z2.stride(),
             dyad_mm._ACT_CODES[act], dyad_mm._DTYPES[x1.dtype],
-            dyad_mm._DTYPES[wu1.dtype], int(tc), build.stream(x1.device)),
+            dyad_mm._DTYPES[wu1.dtype], 0, build.stream(x1.device)),
             "dyad_ff_fused")
     return call, (z1, z2)
-
-
-def _fill_split(M, n, d_ff, d_out, sms):
-    """(split, span): the fewest 16-column ranges of the hidden that bring
-    the tensor-core kernel's grid to ``sms`` blocks or more, the rule
-    ff_tc_split does not take (phase 4 times it beside, tc_fill_ms)."""
-    base = n * math.ceil(M / 64) * math.ceil(d_out / 256)
-    units = math.ceil(d_ff / 16)
-    span = max(1, units // math.ceil(sms / base)) * 16
-    return math.ceil(d_ff / span), span
 
 
 def _check_integer_ff_slice(torch, gen, dyad_mm, two_cases, failures):
@@ -779,16 +723,6 @@ def _check_integer_ff_slice(torch, gen, dyad_mm, two_cases, failures):
             exact(f"dyad_mm_blocks_two/{label}/{xl}/integer",
                   dyad_mm.dyad_mm_blocks_two(x1, xb, w1, w2),
                   dyad_mm.dyad_mm_blocks_two_plain(x1, xb, w1, w2))
-    # the decode rows on both routes (the wrapper takes the tensor cores)
-    M, n, d_in, d_out = 8, *two_cases["qwen3_split_down_M4096"][1:]
-    x1 = randint(M, n, d_in)
-    w1, w2 = randint(n, d_out, d_in), randint(n, d_out, d_in)
-    want = dyad_mm.dyad_mm_blocks_two_plain(x1, x1, w1, w2)
-    for tc in (False, True):
-        call, out = _two_entry(x1, x1, w1, w2, tc)
-        call()
-        exact(f"dyad_mm_blocks_two/qwen3_split_down_M8/"
-              f"{'tc' if tc else 'fma'}_route/integer", out, want)
     n, d_in, d_ff, d_out = 4, 256, 768, 256
     for M in (4096, 128):
         x = randint(M, n * d_in)
@@ -1613,15 +1547,13 @@ def main() -> int:
                 note("dyad_ff_fused", check(
                     f"dyad_ff_fused/{label}/z{c + 1}", got[c], want[c], dn))
             if dt == torch.bfloat16 and label.startswith("qwen3"):
-                # both kernels, whichever ff_plan picks at these rows (the
-                # cut of phase 4 times both)
-                for tc in (False, True):
-                    call, out = _ff_entry(ff_in, act, tc)
-                    call()
-                    for c in (0, 1):
-                        check(f"dyad_ff_fused/{label}/"
-                              f"{'tc' if tc else 'fma'}_kernel/z{c + 1}",
-                              out[c], want[c], dn)
+                # the FMA kernel on bf16 x too, the parent's route that
+                # phase 4 times beside (fma_ms)
+                call, out = _ff_fma_entry(ff_in, act)
+                call()
+                for c in (0, 1):
+                    check(f"dyad_ff_fused/{label}/fma_kernel/z{c + 1}",
+                          out[c], want[c], dn)
             # the hidden split adds in a fixed order: the same bits again
             again = dyad_mm.dyad_ff_fused(*ff_in, act=act)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -1978,8 +1910,7 @@ def main() -> int:
             "shape": "+".join(tm["shape"]), "dtype": tm["dtype"]}
         for key in ("split_route_ms", "bmm_chain_ms", "dequant_bmm_ms",
                     "dequant_bmm_chain_ms", "copied_views_ms",
-                    "contiguous_out_ms", "delta_ms", "fma_ms", "tc_ms",
-                    "tc_fill_ms"):
+                    "contiguous_out_ms", "delta_ms", "fma_ms"):
             if key in tm:
                 entry[key] = tm[key]
         line.append(entry)

@@ -50,7 +50,7 @@ ENTRIES = {
                   [_P] * 9 + [_P, _I, _P, _I] + [_I] * 6 + [_LL] * 14
                   + [_I, _I, _F, _I, _P]),
     "dyad_mm_two": ("dyad_mm_two", "repro_dyad_mm_blocks_two",
-                    [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_I, _I, _P]),
+                    [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_I, _P]),
     "dyad_dgrad_fused": ("dyad_dgrad_fused", "repro_dyad_mm_dgrad",
                          [_P] * 5 + [_I] * 4 + [_LL] * 9 + [_I, _P]),
     "dyad_ff": ("dyad_ff", "repro_dyad_ff_fused",

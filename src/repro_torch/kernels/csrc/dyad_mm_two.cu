@@ -20,7 +20,7 @@
 // operations bound it; Qwen3-0.6B's split-route down projection (M 4096,
 // d_ff_b 768 -> d_out_b 256, bf16) does 12.9 GFLOP on 45 MB: 0.013 ms on
 // the bf16 tensor cores, 0.0135 ms of bytes.  Each (component, dyad
-// block) is one GEMM, routed by the wrapper (the entry's tc flag):
+// block) is one GEMM, routed by dtype:
 //  - bf16, at every row count: the tensor-core mainloop of
 //    dyad_gemm_tc.cuh (128 x 128 tiles, 64-deep cp.async stages, wgmma),
 //    A = x and B = w[g] (o rows of k) both K-major, the components apart
@@ -32,7 +32,7 @@
 //    faster than the FMA kernel too, so there is no cut by M.
 //  - fp32: the shared FMA kernel of dyad_gemm.cuh (128 x 64 tiles, 8 x 8
 //    per thread, two shared-memory stages), as for OPT-125m's OT/DT train
-//    step.  (The entry's tc flag 0 also runs bf16 on it, for timing.)
+//    step.
 #include "dyad_gemm_tc.cuh"
 
 extern "C" int repro_dyad_mm_blocks_two(
@@ -40,7 +40,7 @@ extern "C" int repro_dyad_mm_blocks_two(
     void* z2, int M, int n, int d_in, int d_out, long long x1_sb,
     long long x1_sg, long long x1_sk, long long x2_sb, long long x2_sg,
     long long x2_sk, long long z1_sb, long long z1_sg, long long z1_so,
-    long long z2_sb, long long z2_sg, long long z2_so, int dtype, int tc,
+    long long z2_sb, long long z2_sg, long long z2_so, int dtype,
     void* stream) {
   const long long w_sg = (long long)d_out * d_in;
   // C_c[g] = z_c (M x d_out), A_c[g] = x_c (M x d_in), B_c[g][k, o] =
@@ -53,14 +53,11 @@ extern "C" int repro_dyad_mm_blocks_two(
                         d_out,          d_in,           1,
                         d_in};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // tc: the tensor-core mainloop, bf16 only
   switch (dtype) {
     case repro::kF32:
-      return tc ? cudaErrorInvalidValue
-                : repro::gemm::launch<float, float>(a, s);
+      return repro::gemm::launch<float, float>(a, s);
     case repro::kBF16:
-      return tc ? repro::tc::launch<true, true, __nv_bfloat16>(a, s)
-                : repro::gemm::launch<__nv_bfloat16, __nv_bfloat16>(a, s);
+      return repro::tc::launch<true, true, __nv_bfloat16>(a, s);
     default:
       return cudaErrorInvalidValue;
   }

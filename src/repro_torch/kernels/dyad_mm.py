@@ -160,7 +160,7 @@ def dyad_mm_blocks_two(x1, x2, w1, w2):
         build.ptr(x1), build.ptr(x2), build.ptr(w1), build.ptr(w2),
         build.ptr(z1), build.ptr(z2), M, n, d_in, d_out, *x1.stride(),
         *x2.stride(), *z1.stride(), *z2.stride(), _DTYPES[x1.dtype],
-        int(x1.dtype == torch.bfloat16), build.stream(x1.device))
+        build.stream(x1.device))
     build.check(err, "dyad_mm_blocks_two")
     dyad_mm_blocks_two.launches += 1
     return z1, z2

@@ -739,11 +739,12 @@ def test_dyad_dgrad_fused_kernel_matches_plain(cuda, M, n, d_in, d_out,
 FF_SHAPES = [
     # (M, n, d_in_b, d_ff_b, d_out_b): Qwen3-0.6B at the training, prefill,
     # prefill-chunk and decode rows (bf16: the tensor-core kernel unsplit,
-    # then split into 2, 12 and 12 ranges), then ragged edges and an output
-    # wider than a tile
+    # then split into 2, 12 and 12 ranges), then ragged edges, an output
+    # wider than a tile, and a 2-block layer on Qwen3's d_model (d_in_b 512,
+    # past the tensor-core kernel's resident x: bf16 on the FMA kernel)
     (4096, 4, 256, 768, 256), (1024, 4, 256, 768, 256),
     (128, 4, 256, 768, 256), (8, 4, 256, 768, 256), (3, 2, 129, 130, 17),
-    (45, 3, 33, 200, 300)]
+    (45, 3, 33, 200, 300), (64, 2, 512, 768, 512)]
 
 
 def _ff_case(cuda, M, n, d_in, d_ff, d_out, dtype, act, wdtype=None):
@@ -766,6 +767,11 @@ def _ff_case(cuda, M, n, d_in, d_ff, d_out, dtype, act, wdtype=None):
 def test_dyad_ff_fused_kernel_matches_plain(cuda, M, n, d_in, d_ff, d_out,
                                             act, dtype):
     args = _ff_case(cuda, M, n, d_in, d_ff, d_out, dtype, act)
+    # bf16 up to d_in_b 256 takes the tensor-core kernel, the rest FMA
+    kernel = dyad_mm.ff_plan(M, n, d_in, d_ff, d_out, dyad_mm.sm_count(cuda),
+                             dtype)[0]
+    assert kernel == ("tc" if dtype == torch.bfloat16 and d_in <= 256
+                      else "fma")
     before = dyad_mm.dyad_ff_fused.launches
     z1, z2 = dyad_mm.dyad_ff_fused(*args, act=act)
     torch.cuda.synchronize()

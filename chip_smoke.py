@@ -12,13 +12,17 @@ exit and no result line):
 2. the build of every kernel in ``src/repro_torch/kernels/csrc``, then
    the SASS of the DYAD GEMM libraries (``dyad_mm``, ``dyad_mm_two``,
    ``dyad_dgrad``, ``dyad_dgrad_fused``, ``dyad_wgrad``), of the ff
-   megakernels (``dyad_ff``) and of the flash forward and backward
-   (``flash_prefill``, ``flash_bwd``; ``cuobjdump -sass``): each must hold
-   ``HGMMA`` (wgmma, its bf16 route) and ``FFMA`` (its fp32 route), counts
-   on one line; and ptxas's registers, spills and wgmma serialisation of
-   the tensor-core flash kernels and ff megakernel, one line each for the
-   flash forward (``flash_fwd_tc_kernel``), the flash backward and the ff
-   megakernel (``dyad_ff_tc_kernel``, gated and not; no spill allowed);
+   megakernels (``dyad_ff``), of the quantized GEMMs (``dyad_mm_q``) and
+   of the flash forward and backward (``flash_prefill``, ``flash_bwd``;
+   ``cuobjdump -sass``): each must hold ``HGMMA`` (wgmma, its bf16 route)
+   and ``FFMA`` (its fp32 route), counts on one line; ptxas's registers,
+   spills and wgmma serialisation of the tensor-core flash kernels, ff
+   megakernel and quantized GEMM, one line each for the flash forward
+   (``flash_fwd_tc_kernel``), the flash backward, the ff megakernel
+   (``dyad_ff_tc_kernel``, gated and not, over bf16, int8 and fp8
+   weights) and the quantized GEMM (``dyad_mm_q_tc_kernel``, int8 and
+   fp8; no spill and no serialised wgmma allowed); and the HGMMA count of
+   each of those ff and quantized instantiations (none may lack it);
 3. each kernel against its plain PyTorch version on the card, fp32 and
    bf16, at the OPT-125m and Qwen3-0.6B serving and training shapes and
    the edge cases (``dyad_mm_blocks`` also off the tensor-core tiles, n 2,
@@ -29,7 +33,12 @@ exit and no result line):
    bf16 inputs, whose fp32 sums are exact, bitwise against the plain
    version; the paged decode kernels also over bf16 and int8 pools, at
    head dims 16, 32, 80 and 128, and with a poisoned scratch page; the
-   quantized-weight kernels over int8 and fp8 payloads; bf16
+   quantized-weight kernels over int8 and fp8 payloads, bf16 x on the
+   tensor cores also repeated bitwise, on the FMA kernels through the C
+   entries at Qwen3's shapes (the route phase 4 times beside), and on
+   payloads that cover every int8 and every finite e4m3 value with
+   power-of-two scales and integer x (the ff: one-hot x, relu), whose
+   sums are exact, bitwise against the plain version; bf16
    ``flash_prefill_grads`` also at h 80 and S < T, repeated bitwise at
    Qwen3's shape, and on integer-valued inputs with lse 0 whose sums are
    exact, bitwise against the plain version; bf16 ``flash_prefill`` also
@@ -53,7 +62,11 @@ exit and no result line):
    Qwen3-0.6B's training attention in bf16, against SDPA, the backward
    with the wrapper's delta alone, ``delta_ms``); for the quantized-weight
    kernels the yardstick is torch.bmm over weights dequantized before the
-   timing, and the same with the dequantization timed too;
+   timing, and the same with the dequantization timed too, and beside
+   each bf16 one the FMA kernel through the C entry (``fma_ms``, the
+   parent's route) and for the quantized GEMMs the tensor-core route
+   through it (``tc_ms``: the two routes whichever the plan picks;
+   ``dyad_mm_blocks_q@split_up``: Qwen3's split-route up and gate);
    ``dyad_ff_fused`` at Qwen3's training, prefill, prefill-chunk and
    decode rows (``@prefill``, ``@prefill_chunk``, ``@decode``), each
    beside the split route, a torch.bmm chain and the FMA kernel through
@@ -115,8 +128,11 @@ exit and no result line):
    (b) the README's quantized serving command on Qwen3-0.6B at full width
    and depth, int8 weights (quantized after the ff weights x 4) and int8
    pools, in phase 12's engine and trace, launch counters exact, then a
-   profiled window; (c) the same at 2 layers on the split ff route
-   (``REPRO_KERNEL_FF=split``) with fp8 weights, held against the fused
+   profiled window whose ff launches by kernel name are the tensor-core
+   megakernel's, one per counted ``dyad_ff_fused_q`` call of the window,
+   with no FMA megakernel and no weight cast; (c) the same at 2 layers
+   on the split ff route (``REPRO_KERNEL_FF=split``) with fp8 weights,
+   held against the fused
    fp8 run by the bf16 tie rule; (d) at 2 layers in fp32 the card's
    greedy tokens against the CPU port's, int8 and fp8 weights, fused and
    split: exactly equal; (e) ``REPRO_KERNEL_QUANT=off`` at 2 layers in
@@ -210,7 +226,8 @@ QUANT_MM_CASES = {
     "opt_up_M1024": (1024, 4, 192, 768), "opt_down_M1024": (1024, 4, 768, 192),
     "qwen3_up_M8": (8, 4, 256, 768), "qwen3_up_M128": (128, 4, 256, 768),
     "qwen3_down_M8": (8, 4, 768, 256), "qwen3_down_M1024": (1024, 4, 768, 256),
-    "ragged_M77": (77, 3, 129, 67), "ragged_M5": (5, 2, 70, 131)}
+    "ragged_M77": (77, 3, 129, 67), "ragged_M5": (5, 2, 70, 131),
+    "qwen3_down_M128": (128, 4, 768, 256)}
 # (M, n, d_in_b, d_ff_b, d_out_b, act): Qwen3's ff at decode, prefill-chunk
 # and prefill rows, swiglu and gelu, then ragged edges
 QUANT_FF_CASES = {
@@ -587,22 +604,40 @@ def _check_exact_prefill(torch, gen, flash_attn, failures):
                 failures.append(label)
 
 
+# the weight types of the tensor-core kernels' template arguments, as
+# mangled
+_MANGLED_TYPES = {"a": "int8", "13__nv_fp8_e4m3": "fp8",
+                  "13__nv_bfloat16": "bf16"}
+
+
+def _kernel_key(mangled: str, kernels):
+    """``name<args>`` of a mangled entry function whose name holds one of
+    ``kernels`` (its int or bool template argument, as 0/1, and its weight
+    type), or None."""
+    base = next((k for k in kernels if k in mangled), None)
+    if base is None:
+        return None
+    hd = re.search(r"IL[ib](\d+)E", mangled)   # <HD> or <kGated>
+    wt = re.search(r"[EI](a|13__nv_fp8_e4m3|13__nv_bfloat16)E", mangled)
+    targs = [hd.group(1)] if hd else []
+    targs += [_MANGLED_TYPES[wt.group(1)]] if wt else []
+    return f"{base}<{','.join(targs) or '?'}>"
+
+
 def _ptxas(text: str, kernels) -> dict:
     """Registers, spill bytes and wgmma serialisation warnings of each
     entry function of nvcc's ``-Xptxas -v`` output whose name holds one of
-    ``kernels``, by its name and first template argument (an int or a
-    bool, as 0/1)."""
+    ``kernels``, by ``_kernel_key``."""
     out = {}
     for chunk in text.split("Compiling entry function '")[1:]:
         mangled = chunk.split("'", 1)[0]
-        base = next((k for k in kernels if k in mangled), None)
-        if base is None:
+        key = _kernel_key(mangled, kernels)
+        if key is None:
             continue
-        hd = re.search(r"IL[ib](\d+)E", mangled)   # <HD> or <kGated>
         regs = re.search(r"Used (\d+) registers", chunk)
         st = re.search(r"(\d+) bytes spill stores", chunk)
         ld = re.search(r"(\d+) bytes spill loads", chunk)
-        out[f"{base}<{hd.group(1) if hd else '?'}>"] = {
+        out[key] = {
             "regs": int(regs.group(1)) if regs else -1,
             "spill_stores": int(st.group(1)) if st else -1,
             "spill_loads": int(ld.group(1)) if ld else -1,
@@ -611,14 +646,27 @@ def _ptxas(text: str, kernels) -> dict:
     return out
 
 
-def _launches_by_name(per_kernel: dict, want: dict, key: str) -> bool:
+def _sass_by_function(sass: str, kernel: str) -> dict:
+    """HGMMA instructions of each instantiation of ``kernel`` in a
+    library's SASS (``cuobjdump -sass``: one ``Function :`` header each),
+    by ``_kernel_key``."""
+    out = {}
+    for chunk in sass.split("Function : ")[1:]:
+        key = _kernel_key(chunk.split(None, 1)[0], (kernel,))
+        if key is not None:
+            out[key] = len(re.findall(r"\bHGMMA\.", chunk))
+    return out
+
+
+def _launches_by_name(per_kernel: dict, want: dict, key: str,
+                      phase: str = "qwen3_train_profile") -> bool:
     """The profiled launches of each kernel of ``want`` by name, held to
     its count; one log line (``{key}_launches``, ``{key}_ms``)."""
     mine = {name: [v for k, v in per_kernel.items()
                    if re.search(rf"\b{name}\b", k)] for name in want}
     got = {name: sum(cnt for _, cnt in v) for name, v in mine.items()}
     ok = bool(per_kernel) and got == want
-    log("qwen3_train_profile", **{
+    log(phase, **{
         f"{key}_launches": json.dumps(got, separators=(",", ":")),
         "want": json.dumps(want, separators=(",", ":")),
         f"{key}_ms": json.dumps({name: round(sum(ms for ms, _ in v), 3)
@@ -738,6 +786,180 @@ def _check_integer_ff_slice(torch, gen, dyad_mm, two_cases, failures):
                                    bf16)[0])
 
 
+def _mm_q_entry(args, two: bool, tc: bool):
+    """dyad_mm_blocks_q's (``two``: dyad_mm_blocks_two_q's) C entry on the
+    tensor-core route (``tc``, with mm_q_tc_split's ranges) or the FMA
+    kernels, whatever mm_q_plan picks; returns (the call, its outputs),
+    for timing and checking.  Not counted."""
+    import torch
+    from repro_torch.kernels import build, dyad_mm
+
+    x1, x2, q1, q2, s1, s2 = args
+    M, n, d_in = x1.shape
+    d_out = q1.shape[1]
+    dev = x1.device
+    z1 = torch.empty(M, n, d_out, dtype=x1.dtype, device=dev)
+    z2 = dyad_mm._permuted_out(M, n, d_out, x1)
+    outs = (z1, z2) if two else (z1,)
+    split, krows = (dyad_mm.mm_q_tc_split(M, n, d_in, d_out,
+                                          dyad_mm.sm_count(dev))
+                    if tc else (1, d_in))
+    part = (torch.empty(split, 2, n, M, d_out, dtype=torch.float32,
+                        device=dev) if tc and (split > 1 or not two)
+            else None)
+    fn = build.entry("dyad_mm_two_q" if two else "dyad_mm_q")
+    codes = (dyad_mm._DTYPES[x1.dtype], dyad_mm._PAYLOADS[q1.dtype], int(tc))
+
+    def call():
+        build.check(fn(
+            *(build.ptr(t) for t in (x1, x2, q1, q2, s1, s2) + outs + (part,)),
+            M, n, d_in, d_out, split, krows, *x1.stride(), *x2.stride(),
+            *(st for t in outs for st in t.stride()), *codes,
+            build.stream(dev)), "dyad_mm_blocks_q")
+    return call, outs
+
+
+def _ff_q_fma_entry(args, gate: dict, act: str):
+    """dyad_ff_fused_q's C entry on the FMA kernel (the parent's route for
+    bf16 x) with its hidden split, whatever ff_q_plan picks; returns (the
+    call, its outputs).  Not counted."""
+    import torch
+    from repro_torch.kernels import build, dyad_mm
+
+    x1, x2, wu1, wu2, wd1, wd2, su1, su2, sd1, sd2 = args
+    M, n, d_in = x1.shape
+    d_ff, d_out = wu1.shape[1], wd1.shape[1]
+    split, span = dyad_mm.ff_split(M, n, d_ff, d_out,
+                                   dyad_mm.sm_count(x1.device))
+    z1 = torch.empty(M, n, d_out, dtype=x1.dtype, device=x1.device)
+    z2 = dyad_mm._permuted_out(M, n, d_out, x1)
+    part = (torch.empty(split, 2, M, n, d_out, dtype=torch.float32,
+                        device=x1.device) if split > 1 else None)
+    g = [gate.get(k) for k in ("wg1", "wg2", "sg1", "sg2")]
+    fn = build.entry("dyad_ff_q")
+
+    def call():
+        build.check(fn(
+            *(build.ptr(t) for t in (x1, x2, wu1, wu2, g[0], g[1], wd1, wd2,
+                                     su1, su2, g[2], g[3], sd1, sd2, z1, z2,
+                                     part)),
+            M, n, d_in, d_ff, d_out, split, span, *x1.stride(),
+            *x2.stride(), *z1.stride(), *z2.stride(),
+            dyad_mm._ACT_CODES[act], dyad_mm._DTYPES[x1.dtype],
+            dyad_mm._PAYLOADS[wu1.dtype], 0, build.stream(x1.device)),
+            "dyad_ff_fused_q")
+    return call, (z1, z2)
+
+
+def _exact_payload(torch, shape, qdtype, device, salt=0):
+    """(payload, exponent) of ``shape`` (n, rows, k) whose bytes cover
+    every int8 value, or every finite e4m3 value, with sums that stay
+    exact: int8 row r of block g holds the 256 values cyclically along k;
+    an fp8 row holds one binade (exponent e = (r + g + salt) % 16, e 0 the
+    subnormals) with every mantissa and both signs along k (the NaN code
+    of e 15 replaced by 448's).  ``exponent`` is e (zeros for int8)."""
+    n, rows, k = shape
+    g = torch.arange(n, device=device)[:, None, None]
+    r = torch.arange(rows, device=device)[None, :, None]
+    kk = torch.arange(k, device=device)[None, None, :]
+    if qdtype == "int8":
+        q = ((kk + 7 * r + 13 * g + salt) % 256 - 128).to(torch.int8)
+        return q, torch.zeros(n, rows, device=device, dtype=torch.long)
+    e = (r + g + salt) % 16
+    m = kk % 8
+    m = torch.where((e == 15) & (m == 7), torch.full_like(m, 6), m)
+    byte = ((kk // 8) % 2) << 7 | (e << 3) | m
+    return byte.to(torch.uint8).view(torch.float8_e4m3fn), e[..., 0].expand(
+        n, rows)
+
+
+def _check_exact_quant(torch, gen, dyad_mm, failures):
+    """Phase 3: the bf16 tensor-core routes of the quantized kernels on
+    payloads that cover every int8 value and every finite e4m3 value
+    (``_exact_payload``), power-of-two scales and integer x, whose fp32
+    sums are exact, bitwise against the plain version.
+    dyad_mm_blocks_q and dyad_mm_blocks_two_q (IT and OT views) at Qwen3's
+    split-route down (M 8, 128) and up (M 128): x in [-2, 2], every sum
+    below 2^24 of its row's quantum (int8: 768 x 2 x 128; fp8: one binade
+    a row, 768 x 2 x 16), the two components' scales within 8x.
+    dyad_ff_fused_q with relu at Qwen3's widths (M 128, split into the
+    serving rows' 12 ranges, and 1024): each row of x one +-1, placed so
+    that one component at most feeds each block's up sum; the up scales
+    bring each hidden value to a multiple of 2^-7 (int8) or 1/16 (fp8)
+    below 1, exact in bf16, and the down sums stay below 768 x 128 (int8)
+    or 768 x 2^8 (fp8) of their quantum."""
+    bf16 = torch.bfloat16
+    dev = gen.device
+
+    def exact(label, got, want, **kw):
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        log("check", case=label, dtype="bfloat16", exact_inputs=True,
+            **kw, bitwise=same, ok=same)
+        if not same:
+            failures.append(label)
+
+    def pow2(n, rows, c):
+        o = torch.arange(rows, device=dev)[None, :]
+        g = torch.arange(n, device=dev)[:, None]
+        return torch.exp2(-((o + g + c) % 4).float()).contiguous()
+
+    sms = dyad_mm.sm_count(dev)
+    for qdt in ("int8", "fp8"):
+        for label, (M, n, d_in, d_out) in (
+                ("qwen3_down_M8", (8, 4, 768, 256)),
+                ("qwen3_down_M128", (128, 4, 768, 256)),
+                ("qwen3_up_M128", (128, 4, 256, 768))):
+            x = torch.randint(-2, 3, (M, n * d_in), generator=gen,
+                              device=dev).to(bf16)
+            x1 = x.reshape(M, n, d_in)
+            q1 = _exact_payload(torch, (n, d_out, d_in), qdt, dev)[0]
+            q2 = _exact_payload(torch, (n, d_out, d_in), qdt, dev, 5)[0]
+            if qdt == "fp8":   # both components' rows in one binade
+                q2 = q1.view(torch.uint8).flip(-1).contiguous().view(
+                    torch.float8_e4m3fn)
+            s1, s2 = pow2(n, d_out, 0), pow2(n, d_out, 1)
+            plan = dyad_mm.mm_q_plan(M, n, d_in, d_out, sms, bf16)
+            for xl, xb in (("it", x.reshape(M, d_in, n).transpose(1, 2)),
+                           ("ot", x1)):
+                args = (x1, xb, q1, q2, s1, s2)
+                exact(f"dyad_mm_blocks_q/{label}/{xl}/{qdt}/exact",
+                      (dyad_mm.dyad_mm_blocks_q(*args),),
+                      (dyad_mm.dyad_mm_blocks_q_plain(*args),),
+                      kernel=plan[0], split=plan[1])
+                exact(f"dyad_mm_blocks_two_q/{label}/{xl}/{qdt}/exact",
+                      dyad_mm.dyad_mm_blocks_two_q(*args),
+                      dyad_mm.dyad_mm_blocks_two_q_plain(*args),
+                      kernel=plan[0], split=plan[1])
+        n, d_in, d_ff, d_out = 4, 256, 768, 256
+        for M in (128, 1024):
+            m = torch.arange(M, device=dev)
+            b = m % n
+            k = (m * 37 + 1) % d_in
+            k = torch.where(k % n == b, (k + 1) % d_in, k)
+            x = torch.zeros(M, n * d_in, device=dev)
+            x[m, b * d_in + k] = torch.where((m // 3) % 2 == 0, 1.0, -1.0)
+            x = x.to(bf16)
+            x1, x2 = x.reshape(M, n, d_in), x.reshape(M, d_in, n).transpose(
+                1, 2)
+            ups, su = [], []
+            for c in range(2):
+                q, e = _exact_payload(torch, (n, d_ff, d_in), qdt, dev, 3 * c)
+                ups.append(q)
+                su.append(torch.full((n, d_ff), 2.0 ** -7, device=dev)
+                          if qdt == "int8" else
+                          torch.exp2(torch.where(e > 0, 6 - e, 5).float()))
+            downs = [_exact_payload(torch, (n, d_out, d_ff), qdt, dev, c)[0]
+                     for c in range(2)]
+            sd = [pow2(n, d_out, c) for c in range(2)]
+            args = (x1, x2, ups[0], ups[1], downs[0], downs[1], su[0],
+                    su[1], sd[0], sd[1])
+            plan = dyad_mm.ff_q_plan(M, n, d_in, d_ff, d_out, sms, bf16)
+            exact(f"dyad_ff_fused_q/qwen3_relu_M{M}/{qdt}/exact",
+                  dyad_mm.dyad_ff_fused_q(*args, act="relu"),
+                  dyad_mm.dyad_ff_fused_q_plain(*args, act="relu"),
+                  kernel=plan[0], split=plan[1])
+
+
 def _time_paged(torch, randn, record, time_ms):
     """Phase 4 for the paged decode kernels: one layer's decode step of
     the continuous path, Qwen3 at 8 slots with 512 tokens of context each,
@@ -838,15 +1060,26 @@ def _ff_q_args(randn, M, n, d_in, d_ff, d_out, act, dtype, qdtype):
 def _check_quant_kernels(torch, randn, check, failures, dt, max_err):
     """Phase 3 for the quantized-weight kernels at x dtype ``dt``: int8 and
     fp8 payloads, dyad_mm_blocks_q and dyad_mm_blocks_two_q over the IT
-    (stride-n x2) and OT views, dyad_ff_fused_q with a second call that
-    must give the same bits (the hidden split adds in a fixed order)."""
+    (stride-n x2) and OT views, dyad_ff_fused_q, each with a second call
+    that must give the same bits (the split partials add in a fixed
+    order); for bf16 x at Qwen3's shapes also the FMA kernels through the
+    C entries, the parent's route that phase 4 times beside (fma_ms)."""
     from repro_torch.kernels import dyad_mm
 
     dn = str(dt).split(".")[1]
+    bf16 = dt == torch.bfloat16
+    sms = dyad_mm.sm_count(torch.device("cuda"))
 
     def note(name, err):
         if dt == torch.float32:
             max_err[name] = max(max_err[name], err)
+
+    def repeat(label, got, again, **kw):
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log("check", case=f"{label}/bitwise_repeat", dtype=dn, **kw,
+            ok=same)
+        if not same:
+            failures.append(f"{label}/bitwise_repeat")
 
     for qdt in ("int8", "fp8"):
         for label, (M, n, d_in, d_out) in QUANT_MM_CASES.items():
@@ -854,19 +1087,38 @@ def _check_quant_kernels(torch, randn, check, failures, dt, max_err):
             x1 = x.reshape(M, n, d_in)
             (q1, s1), (q2, s2) = (_qweight(randn, (n, d_out, d_in), qdt)
                                   for _ in range(2))
+            kernel, split, _ = dyad_mm.mm_q_plan(M, n, d_in, d_out, sms, dt)
             for xl, xb in (("it", x.reshape(M, d_in, n).transpose(1, 2)),
                            ("ot", x1)):
                 args = (x1, xb, q1, q2, s1, s2)
+                case = f"{label}/{xl}/{qdt}"
+                got_q = dyad_mm.dyad_mm_blocks_q(*args)
+                want_q = dyad_mm.dyad_mm_blocks_q_plain(*args)
                 note("dyad_mm_blocks_q", check(
-                    f"dyad_mm_blocks_q/{label}/{xl}/{qdt}",
-                    dyad_mm.dyad_mm_blocks_q(*args),
-                    dyad_mm.dyad_mm_blocks_q_plain(*args), dn))
+                    f"dyad_mm_blocks_q/{case}", got_q, want_q, dn))
                 got = dyad_mm.dyad_mm_blocks_two_q(*args)
                 want = dyad_mm.dyad_mm_blocks_two_q_plain(*args)
                 for c in (0, 1):
                     note("dyad_mm_blocks_two_q", check(
-                        f"dyad_mm_blocks_two_q/{label}/{xl}/{qdt}/z{c + 1}",
-                        got[c], want[c], dn))
+                        f"dyad_mm_blocks_two_q/{case}/z{c + 1}", got[c],
+                        want[c], dn))
+                if not bf16:
+                    continue
+                repeat(f"dyad_mm_blocks_q/{case}", (got_q,),
+                       (dyad_mm.dyad_mm_blocks_q(*args),), kernel=kernel,
+                       split=split)
+                repeat(f"dyad_mm_blocks_two_q/{case}", got,
+                       dyad_mm.dyad_mm_blocks_two_q(*args), kernel=kernel,
+                       split=split)
+                if label.startswith("qwen3"):
+                    for two, name, ref in (
+                            (False, "dyad_mm_blocks_q", (want_q,)),
+                            (True, "dyad_mm_blocks_two_q", want)):
+                        call, out = _mm_q_entry(args, two, False)
+                        call()
+                        for c, (a, b) in enumerate(zip(out, ref)):
+                            check(f"{name}/{case}/fma_kernel/z{c + 1}", a,
+                                  b, dn)
         for label, (M, n, d_in, d_ff, d_out, act) in QUANT_FF_CASES.items():
             args, gate = _ff_q_args(randn, M, n, d_in, d_ff, d_out, act, dt,
                                     qdt)
@@ -876,78 +1128,97 @@ def _check_quant_kernels(torch, randn, check, failures, dt, max_err):
                 note("dyad_ff_fused_q", check(
                     f"dyad_ff_fused_q/{label}/{qdt}/z{c + 1}", got[c],
                     want[c], dn))
-            again = dyad_mm.dyad_ff_fused_q(*args, act=act, **gate)
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            log("check", case=f"dyad_ff_fused_q/{label}/{qdt}/bitwise_repeat",
-                dtype=dn, ok=same)
-            if not same:
-                failures.append(
-                    f"dyad_ff_fused_q/{label}/{qdt}/bitwise_repeat")
+            kernel, split, _ = dyad_mm.ff_q_plan(M, n, d_in, d_ff, d_out, sms,
+                                                 dt)
+            repeat(f"dyad_ff_fused_q/{label}/{qdt}", got,
+                   dyad_mm.dyad_ff_fused_q(*args, act=act, **gate),
+                   kernel=kernel, split=split)
+            if bf16 and label.startswith("qwen3"):
+                call, out = _ff_q_fma_entry(args, gate, act)
+                call()
+                for c in (0, 1):
+                    check(f"dyad_ff_fused_q/{label}/{qdt}/fma_kernel/"
+                          f"z{c + 1}", out[c], want[c], dn)
 
 
 def _time_quant(torch, randn, record, time_ms):
     """Phase 4 for the quantized-weight kernels, each at the shapes and
     with the payload of the path that launches it: dyad_mm_blocks_q at one
     OPT-125m layer's up + down (fp32 x, int8: phase 13a) at prefill and
-    decode rows; dyad_mm_blocks_two_q at Qwen3's split-route down
-    projection (bf16 x, fp8: phase 13c) at decode and prefill-chunk rows;
-    dyad_ff_fused_q at one Qwen3 ff (bf16 x, int8: phase 13b) at decode,
-    prefill-chunk and prefill rows.  Yardstick: torch.bmm over the -CAT
-    operands with the weights dequantized to x's dtype before the timing
-    (library_ms), and the same with the dequantization timed too; for the
-    ff, the quantized split route and both bmm chains.  Bounds: the inputs
-    read once (one byte a payload, four a scale), the output written once,
-    and the operations at the peak of x's type (the payloads counted as
-    converted)."""
+    decode rows, and at Qwen3's split-route up (and gate) projection
+    (bf16 x, fp8: phase 13c) at decode and prefill-chunk rows;
+    dyad_mm_blocks_two_q at Qwen3's split-route down projection (bf16 x,
+    fp8: phase 13c) at decode and prefill-chunk rows; dyad_ff_fused_q at
+    one Qwen3 ff (bf16 x, int8: phase 13b) at decode, prefill-chunk and
+    prefill rows.  Beside each bf16 record the FMA kernel through the C
+    entry (fma_ms, the parent's route).  Yardstick: torch.bmm over the
+    -CAT operands with the weights dequantized to x's dtype before the
+    timing (library_ms), and the same with the dequantization timed too;
+    for the ff, the quantized split route and both bmm chains.  Bounds:
+    the inputs read once (one byte a payload, four a scale), the output
+    written once, and the operations at the peak of x's type (the
+    payloads counted as converted)."""
     from repro_torch.kernels import dyad_mm
 
     bf16, f32 = torch.bfloat16, torch.float32
+
+    def mm(name, label, M, n, d_in, d_out, dt, qdt, two, x1, x2, **kw):
+        (q1, s1), (q2, s2) = (_qweight(randn, (n, d_out, d_in), qdt)
+                              for _ in range(2))
+        args = (x1, x2, q1, q2, s1, s2)
+        # one bmm over both components: their -CAT contraction for the
+        # summed forward, the stacked blocks for the two outputs
+        if two:
+            xc = torch.cat([x1, x2], dim=1).transpose(0, 1).contiguous()
+        else:
+            xc = torch.cat([x1, x2], dim=-1).transpose(0, 1).contiguous()
+
+        def wcat():
+            dq = [_dequant(q1, s1, dt), _dequant(q2, s2, dt)]
+            return torch.cat(dq, dim=0 if two else -1).transpose(1, 2)
+        wc = wcat().contiguous()
+        fn = (dyad_mm.dyad_mm_blocks_two_q if two
+              else dyad_mm.dyad_mm_blocks_q)
+        plain = (dyad_mm.dyad_mm_blocks_two_q_plain if two
+                 else dyad_mm.dyad_mm_blocks_q_plain)
+        es = x1.element_size()
+        if dt == bf16:   # both routes, whichever mm_q_plan picks
+            kw["fma_ms"] = time_ms(_mm_q_entry(args, two, False)[0])
+            kw["tc_ms"] = time_ms(_mm_q_entry(args, two, True)[0])
+        record(name, time_ms(lambda: fn(*args)),
+               time_ms(lambda: plain(*args)),
+               time_ms(lambda: torch.bmm(xc, wc)),
+               es * M * n * d_in + 2 * n * d_out * d_in
+               + 4 * 2 * n * d_out + es * (2 if two else 1) * M * n * d_out,
+               4.0 * M * n * d_out * d_in, label,
+               FP32_FLOPS if dt == f32 else BF16_FLOPS,
+               f"{str(dt)[6:]} x, {qdt} payloads",
+               dequant_bmm_ms=time_ms(lambda: torch.bmm(xc, wcat())), **kw)
+
     for label in ("opt_up_M1024", "opt_down_M1024", "opt_up_M8",
                   "opt_down_M8"):
         M, n, d_in, d_out = QUANT_MM_CASES[label]
         x = randn(M, n * d_in)
-        x1, x2 = x.reshape(M, n, d_in), x.reshape(M, d_in, n).transpose(1, 2)
-        (q1, s1), (q2, s2) = (_qweight(randn, (n, d_out, d_in), "int8")
-                              for _ in range(2))
-        xc = torch.cat([x1, x2], dim=-1).transpose(0, 1).contiguous()
-
-        def wcat():
-            return torch.cat([_dequant(q1, s1, f32), _dequant(q2, s2, f32)],
-                             dim=-1).transpose(1, 2)
-        wc = wcat().contiguous()
-        record("dyad_mm_blocks_q",
-               time_ms(lambda: dyad_mm.dyad_mm_blocks_q(x1, x2, q1, q2, s1,
-                                                        s2)),
-               time_ms(lambda: dyad_mm.dyad_mm_blocks_q_plain(
-                   x1, x2, q1, q2, s1, s2)),
-               time_ms(lambda: torch.bmm(xc, wc)),
-               4 * M * n * d_in + 2 * n * d_out * d_in + 4 * 2 * n * d_out
-               + 4 * M * n * d_out, 4.0 * M * n * d_out * d_in, label,
-               FP32_FLOPS, "float32 x, int8 payloads",
-               dequant_bmm_ms=time_ms(lambda: torch.bmm(xc, wcat())))
+        mm("dyad_mm_blocks_q", label, M, n, d_in, d_out, f32, "int8", False,
+           x.reshape(M, n, d_in), x.reshape(M, d_in, n).transpose(1, 2))
 
     for label, M in (("qwen3_split_down_M8", 8),
                      ("qwen3_split_down_M128", 128)):
         _, n, d_in, d_out = QUANT_MM_CASES["qwen3_down_M8"]
         h = randn(M, n, d_in, dtype=bf16)
-        (q1, s1), (q2, s2) = (_qweight(randn, (n, d_out, d_in), "fp8")
-                              for _ in range(2))
-        hc = torch.cat([h, h], dim=1).transpose(0, 1).contiguous()
+        mm("dyad_mm_blocks_two_q", label, M, n, d_in, d_out, bf16, "fp8",
+           True, h, h)
 
-        def wcat():
-            return torch.cat([_dequant(q1, s1, bf16), _dequant(q2, s2, bf16)],
-                             dim=0).transpose(1, 2)
-        wc = wcat().contiguous()
-        record("dyad_mm_blocks_two_q",
-               time_ms(lambda: dyad_mm.dyad_mm_blocks_two_q(h, h, q1, q2, s1,
-                                                            s2)),
-               time_ms(lambda: dyad_mm.dyad_mm_blocks_two_q_plain(
-                   h, h, q1, q2, s1, s2)),
-               time_ms(lambda: torch.bmm(hc, wc)),
-               2 * M * n * d_in + 2 * n * d_out * d_in + 4 * 2 * n * d_out
-               + 2 * 2 * M * n * d_out, 4.0 * M * n * d_out * d_in, label,
-               BF16_FLOPS, "bfloat16 x, fp8 payloads",
-               dequant_bmm_ms=time_ms(lambda: torch.bmm(hc, wcat())))
+    for label, M in (("qwen3_split_up_M8", 8),
+                     ("qwen3_split_up_M128", 128)):
+        _, n, d_in, d_out = QUANT_MM_CASES["qwen3_up_M8"]
+        x = randn(M, n * d_in, dtype=bf16)
+        log("plan", kernel="dyad_mm_blocks_q", shape=label,
+            route=dyad_mm.mm_q_plan(M, n, d_in, d_out,
+                                    dyad_mm.sm_count(x.device), bf16)[0])
+        mm("dyad_mm_blocks_q@split_up", label, M, n, d_in, d_out, bf16,
+           "fp8", False, x.reshape(M, n, d_in),
+           x.reshape(M, d_in, n).transpose(1, 2))
 
     for label, suffix in (("qwen3_M8", ""), ("qwen3_M128", "@chunk"),
                           ("qwen3_M1024", "@prefill")):
@@ -988,7 +1259,8 @@ def _time_quant(torch, randn, record, time_ms):
                None, nbytes, flops, label, BF16_FLOPS,
                "bfloat16 x, int8 payloads", split_route_ms=time_ms(split),
                bmm_chain_ms=time_ms(lambda: chain(*pre)),
-               dequant_bmm_chain_ms=time_ms(lambda: chain(*weights())))
+               dequant_bmm_chain_ms=time_ms(lambda: chain(*weights())),
+               fma_ms=time_ms(_ff_q_fma_entry(args, gate, act)[0]))
 
 
 def _ff_args(randn, M, n, d_in, d_ff, d_out, act, dtype, wdtype):
@@ -1079,22 +1351,26 @@ def main() -> int:
                         for op in (r"\bHGMMA\.", r"\bFFMA\b"))
             for name in ("dyad_mm", "dyad_mm_two", "dyad_dgrad",
                          "dyad_dgrad_fused", "dyad_wgrad", "dyad_ff",
-                         "flash_prefill", "flash_bwd")}
+                         "dyad_mm_q", "flash_prefill", "flash_bwd")}
     bad = [name for name, counts in sass.items() if not all(counts)]
     log("sass", **{name: f"HGMMA:{h},FFMA:{f}"
                    for name, (h, f) in sass.items()}, ok=not bad)
     if bad:
         log("sass", failed=",".join(bad))
         return 1
-    # ptxas on the tensor-core flash forward and backward and the
-    # tensor-core ff megakernel (<1> gated, <0> not): registers, no spill
+    # ptxas on the tensor-core flash forward and backward, the
+    # tensor-core ff megakernel (<1> gated, <0> not; bf16, int8 and fp8
+    # weights) and the quantized GEMM (int8, fp8): registers, no spill, no
+    # wgmma serialised; and each ff and quantized instantiation's HGMMA
     for source, kernels in (("flash_prefill", ("flash_fwd_tc_kernel",)),
                             ("flash_bwd", ("flash_dkv_tc_kernel",
                                            "flash_dq_tc_kernel")),
-                            ("dyad_ff", ("dyad_ff_tc_kernel",))):
+                            ("dyad_ff", ("dyad_ff_tc_kernel",)),
+                            ("dyad_mm_q", ("dyad_mm_q_tc_kernel",))):
         ptx = _ptxas((build.BUILD_DIR / f"{source}.log").read_text(),
                      kernels)
-        spilled = [k for k, r in ptx.items() if r["spill_stores"]] or (
+        spilled = [k for k, r in ptx.items()
+                   if r["spill_stores"] or r["serialized"]] or (
             [] if ptx else ["no report"])
         log("ptxas", source=source, **{
             k: "regs:{regs},spill_stores:{spill_stores},spill_loads:"
@@ -1103,6 +1379,17 @@ def main() -> int:
         if spilled:
             log("ptxas", failed=",".join(spilled))
             return 1
+    per_fn = {}
+    for source, kernel in (("dyad_ff", "dyad_ff_tc_kernel"),
+                           ("dyad_mm_q", "dyad_mm_q_tc_kernel")):
+        per_fn.update(_sass_by_function(build.sass(source), kernel))
+    missing = [k for k, c in per_fn.items() if not c] or (
+        [] if len(per_fn) == 8 else ["instantiations"])
+    log("sass_tc", **{k: f"HGMMA:{c}" for k, c in per_fn.items()},
+        ok=not missing)
+    if missing:
+        log("sass_tc", failed=",".join(missing))
+        return 1
 
     # -- 3. each kernel against its plain version ----------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1397,6 +1684,9 @@ def main() -> int:
             _check_integer_ff_slice(
                 torch, torch.Generator(device=dev).manual_seed(args.seed + 4),
                 dyad_mm, two_cases, failures)
+            _check_exact_quant(
+                torch, torch.Generator(device=dev).manual_seed(args.seed + 5),
+                dyad_mm, failures)
 
         grads_cases = {
             # the training attention of one layer: B 8, S 512, K 12, causal
@@ -1874,6 +2164,7 @@ def main() -> int:
                  "flash_decode_paged": cont["paged"],
                  "flash_decode_paged_int8": cont["int8"],
                  "dyad_mm_blocks_q": qopt,
+                 "dyad_mm_blocks_q@split_up": qcont["split"],
                  "dyad_ff_fused_q": qcont["continuous"],
                  "dyad_mm_blocks_two_q": qcont["split"]}
     line = []
@@ -1885,7 +2176,7 @@ def main() -> int:
         src, replaces = files[base]
         path = (train_launches if at == "train" else qtrain
                 if at.startswith("qwen3") else
-                main_path.get(base, serve_launches))
+                main_path.get(name) or main_path.get(base, serve_launches))
         _, by = _bound_ms(tm["bytes"], tm["flops"], tm["rate"])
         entry = {
             "name": name, "route": "cuda", "source": csrc + src,
@@ -1910,7 +2201,7 @@ def main() -> int:
             "shape": "+".join(tm["shape"]), "dtype": tm["dtype"]}
         for key in ("split_route_ms", "bmm_chain_ms", "dequant_bmm_ms",
                     "dequant_bmm_chain_ms", "copied_views_ms",
-                    "contiguous_out_ms", "delta_ms", "fma_ms"):
+                    "contiguous_out_ms", "delta_ms", "fma_ms", "tc_ms"):
             if key in tm:
                 entry[key] = tm[key]
         line.append(entry)
@@ -2421,12 +2712,22 @@ class _Run:
                                  ff=q_fused):
             return None
         prof = profile(activities=[ProfilerActivity.CUDA])
-        self._serve_trace(cfg, params, prompts, max_new, window=window,
-                          prof=prof, **kw)
-        _log_profile(prof, full["window_s"] * 1e3,
-                     "quant_continuous_profile")
+        traced = self._serve_trace(cfg, params, prompts, max_new,
+                                   window=window, prof=prof, **kw)
+        per_kernel = _log_profile(prof, full["window_s"] * 1e3,
+                                  "quant_continuous_profile")
         log("quant_continuous_profile", steps=f"{window[0]}-{window[1] - 1}",
             of_steps=full["engine_steps"])
+        # the window's quantized ff calls on the tensor-core megakernel's
+        # payload instantiation: no FMA megakernel, no weight cast
+        calls = traced["window_launches"]["dyad_ff_fused_q"]
+        if not (calls and _launches_by_name(
+                per_kernel, {"dyad_ff_tc_kernel": calls, "dyad_ff_kernel": 0,
+                             "dyad_ff_cast_kernel": 0}, "ff",
+                "quant_continuous_profile")):
+            log("quant_continuous_profile",
+                failed=f"ff kernels by name, {calls} calls in the window")
+            return None
         del params
         torch.cuda.empty_cache()
 
@@ -2557,12 +2858,13 @@ class _Run:
             self.zero_counts()
             t0 = time.perf_counter()
             uids = [eng.submit(p, m) for p, m in zip(prompts, max_new)]
-            n_steps, bounds = 0, {}
+            n_steps, bounds, at = 0, {}, {}
             while eng.slots.active or eng.queue:
                 if window and n_steps in window:
                     if device.type == "cuda":
                         torch.cuda.synchronize()
                     bounds[n_steps] = time.perf_counter()
+                    at[n_steps] = self.counts()
                     if prof is not None:
                         (prof.start if n_steps == window[0]
                          else prof.stop)()
@@ -2589,6 +2891,9 @@ class _Run:
                 "engine_steps": n_steps,
                 "window_s": (bounds[window[1]] - bounds[window[0]]
                              if window else None),
+                "window_launches": ({k: at[window[1]][k] - at[window[0]][k]
+                                     for k in at[window[0]]}
+                                    if window else None),
                 "decode_s": steps.total, "summary": summary,
                 "paged": eng.paged, "layers": cfg.n_layers,
                 "stats": getattr(eng, "stats", {}), "device": device,

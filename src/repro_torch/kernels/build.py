@@ -59,11 +59,11 @@ ENTRIES = {
                            [_P] * 8 + [_I] * 7 + [_LL] * 3
                            + [_I, _F, _I, _I, _P]),
     "dyad_mm_q": ("dyad_mm_q", "repro_dyad_mm_blocks_q",
-                  [_P] * 7 + [_I] * 4 + [_LL] * 9 + [_I, _I, _P]),
+                  [_P] * 8 + [_I] * 6 + [_LL] * 9 + [_I] * 3 + [_P]),
     "dyad_mm_two_q": ("dyad_mm_q", "repro_dyad_mm_blocks_two_q",
-                      [_P] * 8 + [_I] * 4 + [_LL] * 12 + [_I, _I, _P]),
+                      [_P] * 9 + [_I] * 6 + [_LL] * 12 + [_I] * 3 + [_P]),
     "dyad_ff_q": ("dyad_ff", "repro_dyad_ff_fused_q",
-                  [_P] * 17 + [_I] * 7 + [_LL] * 12 + [_I] * 3 + [_P]),
+                  [_P] * 17 + [_I] * 7 + [_LL] * 12 + [_I] * 4 + [_P]),
 }
 SOURCES = sorted({src for src, _, _ in ENTRIES.values()})
 

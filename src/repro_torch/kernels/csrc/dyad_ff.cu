@@ -12,12 +12,13 @@
 // quantized weights (the entry repro_dyad_ff_fused_q) dyad_ff_fused_q
 // (_ff_kernel_q, _ff_kernel_swiglu_q, pallas_call in _dyad_ff_q_impl).
 //
-// Two kernels, chosen by the wrapper (ff_plan) through the entry's tc
-// flag: bf16 x at every row count runs on the tensor cores
-// (dyad_ff_tc_kernel, dyad_ff_tc.cuh, fp32 weights cast to bf16 once a
-// call, in one launch); fp32 and the quantized weights on the fp32 FMA
-// kernel below (dyad_ff_kernel).  Both share the hidden split and its
-// second pass (dyad_ff_reduce).
+// Two kernels, chosen by the wrapper (ff_plan, ff_q_plan) through the
+// entries' tc flag: bf16 x at every row count runs on the tensor cores
+// (dyad_ff_tc_kernel, dyad_ff_tc.cuh: fp32 weights cast to bf16 once a
+// call, in one launch; quantized weights on its payload instantiation,
+// converted as they are staged); fp32 x on the fp32 FMA kernel below
+// (dyad_ff_kernel), with fp32 or quantized weights.  Both share the
+// hidden split and its second pass (dyad_ff_reduce).
 //
 // The FMA kernel.  The hidden never goes to device memory.  A block owns
 // 32 rows of one dyad block g and up to 256 output columns of both
@@ -42,8 +43,9 @@
 // activations: each is then rounded to bf16 as it is loaded, which is what
 // a cast before the call computes, without the copy of every weight.
 //
-// Quantized weights (dyad_ff_fused_q): int8 or fp8 e4m3 payloads, read as
-// bytes and converted exactly to fp32 as they are staged (quant.cuh), with
+// Quantized weights on the FMA kernel (dyad_ff_fused_q's fp32 route): int8
+// or fp8 e4m3 payloads, read as bytes and converted exactly to fp32 as
+// they are staged (quant.cuh), with
 // one fp32 scale per (block, hidden column) for the up and gate payloads
 // and per (block, output column) for the down payloads.  The two up (and
 // gate) components then sum in accumulators of their own, and their
@@ -381,7 +383,7 @@ extern "C" int repro_dyad_ff_fused(
           a, static_cast<__nv_bfloat16*>(wcast), s);
       if (err != cudaSuccess) return err;
     }
-    return reduce<__nv_bfloat16>(a, fftc::launch(a, s), s);
+    return reduce<__nv_bfloat16>(a, fftc::launch<__nv_bfloat16>(a, s), s);
   }
   if (dtype == kF32 && wdtype == kF32) return launch<float, float>(a, s);
   if (dtype == kBF16 && wdtype == kBF16)
@@ -392,7 +394,8 @@ extern "C" int repro_dyad_ff_fused(
 }
 
 // the quantized weights: wdtype is the payload (kInt8 or kE4M3); su1, su2
-// (and sg1, sg2) scale the up (and gate) payloads, sd1, sd2 the down ones
+// (and sg1, sg2) scale the up (and gate) payloads, sd1, sd2 the down ones;
+// tc: the tensor-core kernel's payload instantiation (bf16 x)
 extern "C" int repro_dyad_ff_fused_q(
     const void* x1, const void* x2, const void* wu1, const void* wu2,
     const void* wg1, const void* wg2, const void* wd1, const void* wd2,
@@ -402,7 +405,7 @@ extern "C" int repro_dyad_ff_fused_q(
     long long x1_sb, long long x1_sg, long long x1_sk, long long x2_sb,
     long long x2_sg, long long x2_sk, long long z1_sb, long long z1_sg,
     long long z1_so, long long z2_sb, long long z2_sg, long long z2_so,
-    int act, int dtype, int wdtype, void* stream) {
+    int act, int dtype, int wdtype, int tc, void* stream) {
   using namespace repro;
   if (split < 1 || span < 1 || (split > 1 && !part) || act < kGelu ||
       act > kSwiglu || !(su1 && su2 && sd1 && sd2) ||
@@ -415,6 +418,13 @@ extern "C" int repro_dyad_ff_fused_q(
            split > 1 ? part : nullptr, M, n, d_in, d_ff, d_out, split, span,
            act, {su1, su2, sg1, sg2}, {sd1, sd2}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tc) {
+    if (dtype == kBF16 && wdtype == kInt8)
+      return reduce<__nv_bfloat16>(a, fftc::launch<int8_t>(a, s), s);
+    if (dtype == kBF16 && wdtype == kE4M3)
+      return reduce<__nv_bfloat16>(a, fftc::launch<__nv_fp8_e4m3>(a, s), s);
+    return cudaErrorInvalidValue;
+  }
   if (dtype == kF32 && wdtype == kInt8) return launch<float, int8_t>(a, s);
   if (dtype == kF32 && wdtype == kE4M3)
     return launch<float, __nv_fp8_e4m3>(a, s);

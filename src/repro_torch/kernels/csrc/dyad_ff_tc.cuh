@@ -18,11 +18,12 @@
 // never goes to device memory (the fp32 partials of a hidden split are
 // sums over a range of it, not the hidden).
 //
-// Replaces, for bf16 x, the TPU kernel src/repro/kernels/dyad_mm.py:
+// Replaces, for bf16 x, the TPU kernels src/repro/kernels/dyad_mm.py:
 // dyad_ff_fused (_ff_kernel, _ff_kernel_swiglu, pallas_call in
-// _dyad_ff_impl).  dyad_ff.cu's FMA kernel keeps fp32 and the quantized
-// weights; the wrapper's ff_plan picks the kernel, the hidden split and
-// its span.
+// _dyad_ff_impl) and, instantiated on a payload type W (int8, fp8 e4m3),
+// dyad_ff_fused_q (_ff_kernel_q, _ff_kernel_swiglu_q, pallas_call in
+// _dyad_ff_q_impl).  dyad_ff.cu's FMA kernel keeps fp32 x; the wrapper's
+// ff_plan (ff_q_plan) picks the kernel, the hidden split and its span.
 //
 // What bounds it on the H100: one Qwen3-0.6B layer (n 4, d_in_b 256,
 // d_ff_b 768, d_out_b 256, swiglu) at M 4096 does 38.7 GFLOP, 0.039 ms on
@@ -73,11 +74,35 @@
 //   row then gets the same bits whatever M, and serving routes that batch
 //   rows apart agree.  Past that, ranges as narrow as keep the grid within
 //   one wave (a second wave cost more than it spread).
+// - Quantized weights (W int8 or fp8: the quantized serving path), the
+//   same walk with these changes:
+//   - the payloads reach the swizzled bf16 tiles through quant_tc.cuh's
+//     loader: the ring holds raw up (and gate) bytes (8 KB a stage), each
+//     stage converted into one of two bf16 stages after a barrier, then a
+//     proxy fence and a second barrier before its wgmma (it runs under
+//     the previous stage's products); the down bytes land in a raw buffer
+//     and are converted after the activation, fenced like the hidden
+//     tile.  No weight is cast or dequantized in device memory, so there
+//     is no per-call cast launch;
+//   - the scales differ by component, so each up (and gate) sum is kept
+//     per component (component 0's k tiles into up / gate, then component
+//     1's into up2 / gate2: two loops, no branch around a wgmma) and each
+//     is multiplied by its per-(block, hidden column) scale and added in
+//     fp32 before the activation;
+//   - a block owns 128 outputs of each component (m64n128k16 down, 64
+//     accumulators a thread), so that the four up sums (64 registers)
+//     fit beside them: the up product is computed once per 128 outputs
+//     (twice for Qwen3's 256);
+//   - each output's down sum is multiplied by its scale once, before it
+//     is stored or written as a partial of the hidden split (whose second
+//     pass only adds).
+//   Shared memory: 64 + 8 + 32 (bf16 down) + 32 (converted stages) + 16
+//   (raw down) + 40 (raw ring) KB and 1 KB of alignment, 193 KB.
 // - Not yet: TMA, a producer warp, setmaxnreg, or a cluster multicasting a
 //   dyad block's weights to its row tiles (the L2 reads above).
 #pragma once
 
-#include "dyad_gemm_tc.cuh"
+#include "quant_tc.cuh"
 
 namespace repro {
 
@@ -120,19 +145,38 @@ namespace fftc {
 
 constexpr int kRows = 64;     // rows of one dyad block per block
 constexpr int kHid = 64;      // hidden columns per tile
-constexpr int kOut = 256;     // outputs per block and component
+constexpr int kOut = 256;     // outputs per block and component (bf16)
 constexpr int kBK = tc::kBK;  // up contraction per stage: 64
 constexpr int kMaxIn = 256;   // d_in whose x tiles stay resident
 constexpr int kStages = 5, kAhead = kStages - 2;
 constexpr int kThreads = tc::kThreads;   // 256: two warpgroups
 constexpr int kTile = kRows * kBK * 2;   // 8 KB: 64 rows of 64 bf16
 constexpr int kXBytes = 2 * (kMaxIn / kBK) * kTile;   // 64 KB
-constexpr int kDBytes = 2 * (kOut / kRows) * kTile;   // 64 KB: wd1, wd2
 constexpr int kStageBytes = 2 * kTile;                // up, gate
-constexpr int kSmemBytes =
-    kXBytes + kTile + kDBytes + kStages * kStageBytes + 1024;
 constexpr int kPairs = tc::pairs<kRows>();
-static_assert(kSmemBytes <= 232448, "over the H100's 227 KB a block");
+
+// the shared-memory plan of the kernel for weight type W: x tiles, the
+// hidden tile, the bf16 down tiles (wd1's rows, then wd2's) and the ring;
+// payloads add the raw down tiles and two converted up (and gate) stages,
+// and their ring holds raw bytes.  A payload block owns 128 outputs of a
+// component (64 accumulators a thread), so that the up and gate sums of
+// both components fit beside them in registers.
+template <typename W>
+struct Plan {
+  static constexpr bool kQ = is_payload<W>::value;
+  static constexpr int kO = kQ ? 128 : kOut;
+  static constexpr int kRawUp = qtc::raw_bytes<kRows>();   // 4 KB
+  static constexpr int kD = 2 * (kO / kRows) * kTile;      // wd1, wd2
+  static constexpr int kConv = kQ ? 2 * kStageBytes : 0;
+  static constexpr int kDRaw = kQ ? 2 * qtc::raw_bytes<kO>() : 0;
+  static constexpr int kSlot = kQ ? 2 * kRawUp : kStageBytes;
+  // offsets from the 1 KB-aligned base: every bf16 tile starts on 1 KB
+  static constexpr int kHs = kXBytes, kDs = kHs + kTile, kCv = kDs + kD;
+  static constexpr int kDr = kCv + kConv, kRing = kDr + kDRaw;
+  static constexpr int kSmem = kRing + kStages * kSlot + 1024;
+  static_assert(kCv % 1024 == 0, "swizzled tiles start on 1 KB");
+  static_assert(kSmem <= 232448, "over the H100's 227 KB a block");
+};
 
 // how each operand reaches shared memory (tc::Load)
 struct Loads {
@@ -252,18 +296,23 @@ __device__ __forceinline__ void stage_w(const tc::Operand& o, int mode,
   }
 }
 
-template <bool kGated>
+template <bool kGated, typename W>
 __global__ void __launch_bounds__(kThreads, 1)
     dyad_ff_tc_kernel(FFArgs a, Loads f) {
+  using P = Plan<W>;
+  constexpr bool kQ = P::kQ;
+  constexpr int kO = P::kO;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (tc::smem_u32(smem_raw) + 1023) & ~1023u;
   // x tiles (component 0's k tiles, then component 1's), the hidden
-  // tile, the down-weight tiles (wd1's 256 rows, then wd2's), the ring
-  const uint32_t xs = base, hs = xs + kXBytes, ds = hs + kTile;
-  const uint32_t ring = ds + kDBytes;
+  // tile, the down-weight tiles (wd1's kO rows, then wd2's), the
+  // converted up stages and raw down tiles (payloads), the ring
+  const uint32_t xs = base, hs = base + P::kHs, ds = base + P::kDs;
+  const uint32_t cv = base + P::kCv, dr = base + P::kDr;
+  const uint32_t ring = base + P::kRing;
 
-  const int o_tiles = (a.d_out + kOut - 1) / kOut;
-  const int o0 = (blockIdx.x % o_tiles) * kOut;
+  const int o_tiles = (a.d_out + kO - 1) / kO;
+  const int o0 = (blockIdx.x % o_tiles) * kO;
   const int s = blockIdx.x / o_tiles;
   const int m0 = blockIdx.y * kRows;
   const int g = blockIdx.z;
@@ -280,6 +329,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto up_op = [&](int i) {   // wu1 wu2 wg1 wg2[g]: j rows of k
     return tc::Operand{static_cast<const unsigned short*>(a.wu[i]) + wu_g,
                        a.d_in, 1, j_end};
+  };
+  auto up_q = [&](int i) {
+    return qtc::Operand{static_cast<const uint8_t*>(a.wu[i]) + wu_g, a.d_in,
+                        j_end};
   };
   auto x_op = [&](int c) {
     return c ? tc::Operand{static_cast<const unsigned short*>(a.x2) +
@@ -301,21 +354,37 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int c = kt < kt1 ? 0 : 1;
       const int k0 = (kt - c * kt1) * kBK;
       const int j0 = j_begin + jt * kHid;
-      const uint32_t slot = ring + (t % kStages) * kStageBytes;
-      stage_w(up_op(c), f.wu, j0, k0, a.d_in, slot);
-      if (kGated) stage_w(up_op(2 + c), f.wu, j0, k0, a.d_in, slot + kTile);
+      const uint32_t slot = ring + (t % kStages) * P::kSlot;
+      if constexpr (kQ) {
+        qtc::copy_raw<kRows>(up_q(c), f.wu == tc::kCopy, j0, k0, a.d_in,
+                             slot);
+        if (kGated)
+          qtc::copy_raw<kRows>(up_q(2 + c), f.wu == tc::kCopy, j0, k0,
+                               a.d_in, slot + P::kRawUp);
+      } else {
+        stage_w(up_op(c), f.wu, j0, k0, a.d_in, slot);
+        if (kGated)
+          stage_w(up_op(2 + c), f.wu, j0, k0, a.d_in, slot + kTile);
+      }
     }
     if (d_due) {
       const int j0 = j_begin + d_next * kHid;
 #pragma unroll 1
       for (int c = 0; c < 2; ++c) {
-        const tc::Operand o{static_cast<const unsigned short*>(a.wd[c]) +
-                                wd_g,
-                            a.d_ff, 1, a.d_out};
+        if constexpr (kQ) {
+          const qtc::Operand o{static_cast<const uint8_t*>(a.wd[c]) + wd_g,
+                               a.d_ff, a.d_out};
+          qtc::copy_raw<kO>(o, f.wd == tc::kCopy, o0, j0, j_end,
+                            dr + c * qtc::raw_bytes<kO>());
+        } else {
+          const tc::Operand o{static_cast<const unsigned short*>(a.wd[c]) +
+                                  wd_g,
+                              a.d_ff, 1, a.d_out};
 #pragma unroll 1
-        for (int q = 0; q < kOut / kRows; ++q)
-          stage_w(o, f.wd, o0 + q * kRows, j0, j_end,
-                  ds + (c * (kOut / kRows) + q) * kTile);
+          for (int q = 0; q < kO / kRows; ++q)
+            stage_w(o, f.wd, o0 + q * kRows, j0, j_end,
+                    ds + (c * (kO / kRows) + q) * kTile);
+        }
       }
       d_due = false;
       d_group = t;
@@ -351,20 +420,33 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // the accumulators are touched only by wgmma until the waits that
-  // precede their reads (the up pair before the activation, the down pair
-  // after the walk); the first product of each sum overwrites (scale_d 0)
-  float up[16], gate[16], acc[128];
+  // precede their reads (the up pairs before the activation, the down pair
+  // after the walk); the first product of each sum overwrites (scale_d 0).
+  // Payloads sum each component's up (and gate) apart (up2, gate2: the
+  // scales differ), component 0's k tiles first.
+  float up[16], gate[16], up2[kQ ? 16 : 1], gate2[kQ ? 16 : 1];
+  float acc[kO / 2];
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
 
 #pragma unroll 1
   for (int jt = 0; jt < NJ; ++jt) {
     const int j0 = j_begin + jt * kHid;
     const int live = min(kHid, j_end - j0);
-#pragma unroll 1
-    for (int kt = 0; kt < KT; ++kt) {
+    // up stage kt of the tile into (u, gt); `first`: the sums' first stage
+    auto stage = [&](int kt, bool first, float (&u)[16], float (&gt)[16]) {
       const int t = jt * KT + kt;
       // stage t has landed: this thread's copies, then everyone's
       tc::cp_async_wait<kAhead - 1>();
+      uint32_t wt = ring + (t % kStages) * P::kSlot;
+      if constexpr (kQ) {
+        // every warpgroup's products of stage t - 2 are done: their
+        // converted tiles take stage t's
+        __syncthreads();
+        const uint32_t cb = cv + (t & 1) * kStageBytes;
+        qtc::convert<W, kRows>(wt, cb);
+        if (kGated) qtc::convert<W, kRows>(wt + P::kRawUp, cb + kTile);
+        wt = cb;
+      }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
       // every warpgroup's down products of tile jt - 1 were done before
@@ -373,17 +455,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         d_due = true;
         d_next = jt;
       }
-      const uint32_t slot = ring + (t % kStages) * kStageBytes;
       const uint32_t xt = xs + kt * kTile;
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int ks = 0; ks < kBK / 16; ++ks) {
         const uint64_t da = desc_k(xt + ks * 32);
-        const int acc_in = kt > 0 || ks > 0;
-        wgmma_m64n32k16(up, da, desc_k(slot + w * 4096 + ks * 32), acc_in);
+        const int acc_in = !first || ks > 0;
+        wgmma_m64n32k16(u, da, desc_k(wt + w * 4096 + ks * 32), acc_in);
         if (kGated)
-          wgmma_m64n32k16(gate, da,
-                          desc_k(slot + kTile + w * 4096 + ks * 32), acc_in);
+          wgmma_m64n32k16(gt, da, desc_k(wt + kTile + w * 4096 + ks * 32),
+                          acc_in);
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       // stage t - 1's products (and tile jt - 1's down) are done here, and
@@ -391,44 +472,89 @@ __global__ void __launch_bounds__(kThreads, 1)
       // its slot takes stage t + kAhead
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
       issue(t + kAhead);
+    };
+    if constexpr (kQ) {
+#pragma unroll 1
+      for (int kt = 0; kt < kt1; ++kt) stage(kt, kt == 0, up, gate);
+#pragma unroll 1
+      for (int kt = kt1; kt < KT; ++kt) stage(kt, kt == kt1, up2, gate2);
+    } else {
+#pragma unroll 1
+      for (int kt = 0; kt < KT; ++kt) stage(kt, kt == 0, up, gate);
     }
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     tc::fence_acc(up);
     if (kGated) tc::fence_acc(gate);
+    if constexpr (kQ) {
+      tc::fence_acc(up2);
+      if (kGated) tc::fence_acc(gate2);
+    }
 
-    // the activation on the fp32 sums, rounded to bf16 into the hidden
-    // tile; fragment register 4 jj + 2 hh + e: row 16 warp + lane / 4 +
-    // 8 hh, column 32 w + 8 jj + 2 (lane % 4) + e
+    // the activation on the fp32 sums (payloads: each component's sum
+    // times its scale, added), rounded to bf16 into the hidden tile;
+    // fragment register 4 jj + 2 hh + e: row 16 warp + lane / 4 + 8 hh,
+    // column 32 w + 8 jj + 2 (lane % 4) + e
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = 32 * w + 8 * jj + 2 * (lane % 4);
+      float sc[4][2];   // su1 su2 sg1 sg2 of columns col, col + 1
+      if constexpr (kQ) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jc = j0 + col + e;
+          const long long sj = (long long)g * a.d_ff + jc;
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            sc[p][e] = (p < 2 || kGated) && jc < j_end ? __ldg(a.su[p] + sj)
+                                                       : 0.f;
+        }
+      }
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int i = 4 * jj + 2 * hh;
-        const float h0 = kGated ? silu(gate[i]) * up[i]
-                                : activate(a.act, up[i]);
-        const float h1 = kGated ? silu(gate[i + 1]) * up[i + 1]
-                                : activate(a.act, up[i + 1]);
-        const __nv_bfloat162 v = __floats2bfloat162_rn(h0, h1);
+        float h[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float u = up[i + e], v = kGated ? gate[i + e] : 0.f;
+          if constexpr (kQ) {
+            u = up[i + e] * sc[0][e] + up2[i + e] * sc[1][e];
+            if (kGated) v = gate[i + e] * sc[2][e] + gate2[i + e] * sc[3][e];
+          }
+          h[e] = kGated ? silu(v) * u : activate(a.act, u);
+        }
+        const __nv_bfloat162 v = __floats2bfloat162_rn(h[0], h[1]);
         const int r = 16 * warp + lane / 4 + 8 * hh;
-        const int col = 32 * w + 8 * jj + 2 * (lane % 4);
         asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
                          hs + tc::tile_off<true>(r, col)),
                      "r"(*reinterpret_cast<const uint32_t*>(&v)));
       }
+    }
     // the down tiles landed: their group is waited for here if the up
     // stages did not reach it (few k tiles)
     const int t_last = jt * KT + KT - 1;
     if (d_group > t_last) cp_async_wait_n(t_last + kAhead - d_group);
+    if constexpr (kQ) {   // every warpgroup's down of tile jt - 1 is done
+      __syncthreads();
+#pragma unroll 1
+      for (int c = 0; c < 2; ++c)
+        qtc::convert<W, kO>(dr + c * qtc::raw_bytes<kO>(),
+                            ds + c * (kO / kRows) * kTile);
+    }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
     // z_w += h wd_w^T over the tile's live k steps
     const int nk = (live + 15) / 16;
-    const uint32_t dw = ds + w * (kOut / kRows) * kTile;
+    const uint32_t dw = ds + w * (kO / kRows) * kTile;
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll 1
-    for (int ks = 0; ks < nk; ++ks)
-      wgmma_m64n256k16(acc, desc_k(hs + ks * 32), desc_k(dw + ks * 32),
-                       jt > 0 || ks > 0);
+    for (int ks = 0; ks < nk; ++ks) {
+      if constexpr (kQ)
+        tc::wgmma_m64n128k16<0, 0>(acc, desc_k(hs + ks * 32),
+                                   desc_k(dw + ks * 32), jt > 0 || ks > 0);
+      else
+        wgmma_m64n256k16(acc, desc_k(hs + ks * 32), desc_k(dw + ks * 32),
+                         jt > 0 || ks > 0);
+    }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   }
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -437,20 +563,28 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // warpgroup w writes z_w (or its fp32 partial of split s); fragment
   // register 4 jj + 2 hh + e: row 16 warp + lane / 4 + 8 hh, output
-  // 8 jj + 2 (lane % 4) + e
+  // 8 jj + 2 (lane % 4) + e; payloads: each output's sum times its down
+  // scale, once, here
   const long long per = (long long)a.M * a.n * a.d_out;
   __nv_bfloat16* z = static_cast<__nv_bfloat16*>(a.z[w]);
   const long long z_sb = a.z_sb[w], z_sg = a.z_sg[w], z_so = a.z_so[w];
+  // (rows outer: with the outputs outer the decode rows, M 8, took 1.45x
+  // as long on an H100)
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int m = m0 + 16 * warp + lane / 4 + 8 * hh;
     if (m >= a.M) continue;
 #pragma unroll
-    for (int jj = 0; jj < 32; ++jj) {
+    for (int jj = 0; jj < kO / 8; ++jj) {
       const int o = o0 + 8 * jj + 2 * (lane % 4);
-      const float v0 = acc[4 * jj + 2 * hh], v1 = acc[4 * jj + 2 * hh + 1];
+      float v0 = acc[4 * jj + 2 * hh], v1 = acc[4 * jj + 2 * hh + 1];
       if (o >= a.d_out) continue;
       const bool both = o + 1 < a.d_out;
+      if constexpr (kQ) {
+        const float* sd = a.sd[w] + (long long)g * a.d_out + o;
+        v0 *= __ldg(sd);
+        v1 *= both ? __ldg(sd + 1) : 0.f;
+      }
       if (a.part) {
         float* d = a.part + (2LL * s + w) * per +
                    ((long long)m * a.n + g) * a.d_out + o;
@@ -524,31 +658,44 @@ inline cudaError_t cast_weights(FFArgs& a, __nv_bfloat16* buf,
   return cudaGetLastError();
 }
 
-// bf16 x and weights; the caller adds a split's partials (dyad_ff.cu)
+// bf16 x, with bf16 weights or (W a payload type) int8 / fp8 payloads and
+// their scales; the caller adds a split's partials (dyad_ff.cu)
+template <typename W>
 inline cudaError_t launch(const FFArgs& a, cudaStream_t stream) {
-  // x resident for d_in <= 256; a split range starts on an 8-column run,
-  // so the down tiles' 16-byte copies stay aligned
-  if (a.d_in > kMaxIn || a.span % 8) return cudaErrorInvalidValue;
+  using P = Plan<W>;
+  // x resident for d_in <= 256; a split range starts on a 16-byte run of
+  // the down rows (8 bf16, 16 payloads), so their copies stay aligned
+  if (a.d_in > kMaxIn || a.span % (P::kQ ? 16 : 8))
+    return cudaErrorInvalidValue;
+  if (P::kQ && !(a.su[0] && a.su[1] && a.sd[0] && a.sd[1] &&
+                 (a.act != kSwiglu || (a.su[2] && a.su[3]))))
+    return cudaErrorInvalidValue;
   const bool gated = a.act == kSwiglu;
   Loads f;
   f.x[0] = tc::load_of(a.x1, a.x1_sk, a.x1_sb, a.x1_sg, a.n);
   f.x[1] = tc::load_of(a.x2, a.x2_sk, a.x2_sb, a.x2_sg, a.n);
+  // payloads: kCopy where every row starts on 16 bytes, else byte by byte
+  auto load_w = [&](const void* p, long long row, long long per_g) -> int {
+    if constexpr (P::kQ)
+      return qtc::vec_ok(p, row) ? tc::kCopy : tc::kGather;
+    else
+      return tc::load_of(p, 1, row, per_g, a.n);
+  };
   f.wu = f.wd = tc::kCopy;
   for (int i = 0; i < (gated ? 4 : 2); ++i)
-    if (tc::load_of(a.wu[i], 1, a.d_in, (long long)a.d_ff * a.d_in, a.n) !=
-        tc::kCopy)
+    if (load_w(a.wu[i], a.d_in, (long long)a.d_ff * a.d_in) != tc::kCopy)
       f.wu = tc::kGather;
   for (int c = 0; c < 2; ++c)
-    if (tc::load_of(a.wd[c], 1, a.d_ff, (long long)a.d_out * a.d_ff, a.n) !=
-        tc::kCopy)
+    if (load_w(a.wd[c], a.d_ff, (long long)a.d_out * a.d_ff) != tc::kCopy)
       f.wd = tc::kGather;
-  auto kernel = gated ? dyad_ff_tc_kernel<true> : dyad_ff_tc_kernel<false>;
+  auto kernel =
+      gated ? dyad_ff_tc_kernel<true, W> : dyad_ff_tc_kernel<false, W>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (err != cudaSuccess) return err;
-  const int o_tiles = (a.d_out + kOut - 1) / kOut;
+  const int o_tiles = (a.d_out + P::kO - 1) / P::kO;
   dim3 grid(o_tiles * a.split, (a.M + kRows - 1) / kRows, a.n);
-  kernel<<<grid, kThreads, kSmemBytes, stream>>>(a, f);
+  kernel<<<grid, kThreads, P::kSmem, stream>>>(a, f);
   return cudaGetLastError();
 }
 

@@ -286,11 +286,12 @@ __device__ __forceinline__ uint64_t desc_b(uint32_t tile, int s) {
               : desc(tile + s * 2048, 8192, 1024);
 }
 
-// D (64 x 128, fp32) += A (64 x 16) B (16 x 128), both bf16 from shared
-// memory; TA / TB = 1 for an MN-major operand
+// D (64 x 128, fp32) (+)= A (64 x 16) B (16 x 128), both bf16 from shared
+// memory; TA / TB = 1 for an MN-major operand; scale_d = 0 overwrites D
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
+                                                 uint64_t db,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -322,7 +323,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // D (64 x 64, fp32) (+)= A (64 x 16) B (16 x 64), both bf16 from shared

@@ -12,31 +12,53 @@
 // dyad_mm_blocks_q and dyad_mm_blocks_two_q (_dyad_kernel_q and
 // _dyad_kernel_two_q, pallas_call in _dyad_mm_q_impl).
 //
-// The payload goes from device memory to registers as bytes and is
-// converted to fp32 there (quant.cuh); no dequantized weight exists in
-// device memory.  Each component sums in its own fp32 accumulator and its
-// scale multiplies the finished sum once, after the k loop (the TPU kernel
-// multiplies each k step's partial: the same in exact arithmetic, apart in
-// fp32 rounding only).  x1, x2, z1 and z2 are read and written through
-// their (b, g, inner) strides, so the IT/DT x2 is the stride-n view of the
-// flat input and z2 can be a view of a (M, d_out, n) buffer, as in
-// dyad_mm_two.cu.  Ragged edges are masked on load and store; there are no
-// padded copies (the TPU kernel's padded output rows and their scales do
-// not exist here).
+// No dequantized weight exists in device memory: the payload is read as
+// bytes and converted exactly where the products need it.  Each
+// component sums in its own fp32 accumulator and its scale multiplies the
+// finished sum once (the TPU kernel multiplies each k step's partial: the
+// same in exact arithmetic, apart in fp32 rounding only).  x1, x2, z1 and
+// z2 are read and written through their (b, g, inner) strides, so the
+// IT/DT x2 is the stride-n view of the flat input and z2 can be a view of
+// a (M, d_out, n) buffer, as in dyad_mm_two.cu.  Ragged edges are masked
+// on load and store; there are no padded copies.
 //
-// Bound on the H100: at decode rows (M = 8) the payload bytes (one byte a
-// weight: 1.2 MB for one OPT-125m projection, 1.6 MB for a Qwen3-0.6B up
-// projection) against a few KB of x; at prefill rows (M = 1024) fp32 FMA,
-// as dyad_mm.cu.  The two designs of dyad_mm.cu, chosen by M:
-//  - M <= 8: one warp per output row o of block g; the block stages both
-//    x views of its group in shared memory, then each warp streams its two
-//    payload rows once, four bytes a lane per load (one 32-bit word where
-//    d_in allows), and reduces the M dot products with shuffles;
-//  - larger M: a (64 x 64) output tile of one block g per CTA, 32-deep
-//    slices of x1, x2 and both payloads through shared memory as fp32, a
-//    4 x 4 register tile per thread and component.
-// The tensor cores (int8 and fp8 mma) are later work.
-#include "quant.cuh"
+// Bound on the H100: at the decode and prefill-chunk rows the payload
+// bytes (one a weight: 1.6 MB for a Qwen3-0.6B up or down projection,
+// 0.5 us at 3.35 TB/s) against a few hundred KB of x; at the prefill rows
+// the products, on the bf16 tensor cores for bf16 x and on fp32 FMA for
+// fp32 x.  Two routes, picked by the wrapper (dyad_mm.mm_q_plan) through
+// the entry's tc flag:
+//  - bf16 x (Qwen3's split ff route): the tensor cores, one wgmma GEMM
+//    per (component, dyad block) on dyad_gemm_tc.cuh's pieces: a block of
+//    two warpgroups owns a 128 x 128 tile of z_c, m64n128k16 per
+//    warpgroup; x staged K-major as in dyad_mm_two.cu (copied with
+//    cp.async, the stride-n x2 through the register gather); the payload
+//    staged K-major as it lies (o rows of k) through quant_tc.cuh's
+//    loader: a 6-stage cp.async ring of the x tile and the raw payload
+//    bytes (24 KB a stage), each stage's bytes converted to bf16 into one
+//    of two swizzled tiles after a barrier, then a proxy fence and a
+//    second barrier before its wgmma (the conversion runs under the
+//    previous stage's products).  Each component's scale multiplies its
+//    sum once, in the epilogue.  The hidden k is split into ranges when
+//    the tiles alone leave SMs idle (the split route's down at M 128 has
+//    16 tiles for 132 SMs): each range writes its scaled fp32 partial and
+//    a second pass (dyad_mm_q_reduce) adds them in a fixed order and
+//    rounds once, so no scale is applied twice and every run gives the
+//    same bits.  dyad_mm_blocks_q always takes that pass, since its two
+//    components' scales differ: each (component, block) GEMM writes its
+//    scaled partial and the pass adds both components, rounding the sum
+//    once.
+//  - fp32 x (OPT-125m's quantized serving), and bf16 x where the plan
+//    says so: fp32 FMA, chosen by M.  M <= 8: one warp per output row o
+//    of block g; the block stages both x views of its group in shared
+//    memory, then each warp streams its two payload rows once, four
+//    bytes a lane per load (one 32-bit word where d_in allows), and
+//    reduces the M dot products with shuffles.  Larger M: a (64 x 64)
+//    output tile of one block g per CTA, 32-deep slices of x1, x2 and
+//    both payloads through shared memory as fp32, a 4 x 4 register tile
+//    per thread and component.  fp32 on the tensor cores needs a
+//    split-TF32 scheme (ROADMAP R.1).
+#include "quant_tc.cuh"
 
 namespace repro {
 namespace {
@@ -284,10 +306,207 @@ cudaError_t launch(const QArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// -- the tensor-core route (bf16 x) -----------------------------------------
+
+// the k split and how each operand reaches shared memory
+struct QTc {
+  float* part;     // (split, 2, n, M, d_out) scaled fp32 partials, or null
+  int split, krows;
+  int xload[2];    // tc::Load of x_c
+  int vec[2];      // payload c in 16-byte copies
+};
+
+constexpr int kQStages = 6, kQAhead = kQStages - 2;
+constexpr int kQRaw = qtc::raw_bytes<tc::kBN>();          // 8 KB
+constexpr int kQStage = tc::kTileBytes + kQRaw;           // x, then raw
+constexpr int kQSmem = kQStages * kQStage + 2 * tc::kTileBytes + 1024;
+static_assert(kQStage % 1024 == 0, "swizzled tiles start on 1 KB");
+static_assert(kQSmem <= 232448, "over the H100's 227 KB a block");
+
+template <typename W>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+    dyad_mm_q_tc_kernel(QArgs a, QTc q) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (tc::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t conv = base + kQStages * kQStage;   // two bf16 tiles
+
+  const int z = blockIdx.z;
+  const int g = z % a.n, c = (z / a.n) % 2, s = z / (2 * a.n);
+  const int r0 = blockIdx.y * tc::kBM, o0 = blockIdx.x * tc::kBN;
+  const int k_begin = s * q.krows;
+  const int k_end = min(a.d_in, k_begin + q.krows);
+  const int T =
+      k_end > k_begin ? (k_end - k_begin + tc::kBK - 1) / tc::kBK : 0;
+  const int w = threadIdx.x / 128;
+  const int mode = q.xload[c];
+  const tc::Operand xo{
+      static_cast<const unsigned short*>(a.x[c]) + g * a.x_sg[c],
+      a.x_sb[c], a.x_sk[c], a.M};
+  const qtc::Operand wo{static_cast<const uint8_t*>(a.w[c]) +
+                            (long long)g * a.d_out * a.d_in,
+                        a.d_in, a.d_out};
+  auto slot = [&](int t) { return base + (t % kQStages) * kQStage; };
+
+  // a gathered x tile's loads fly for one iteration before their stores
+  uint4 raw[tc::kPairs];
+  auto issue = [&](int t) {
+    if (t < T) {
+      const int k0 = k_begin + t * tc::kBK;
+      if (mode == tc::kCopy)
+        tc::copy_tile<true>(xo, r0, k0, k_end, slot(t));
+      else
+        tc::load_raw<true>(xo, mode, g, r0, k0, k_end, raw);
+      qtc::copy_raw<tc::kBN>(wo, q.vec[c], o0, k0, k_end,
+                             slot(t) + tc::kTileBytes);
+    }
+    tc::cp_async_commit();
+  };
+  auto store_gathered = [&](int t) {
+    if (t < T && mode != tc::kCopy)
+      tc::store_raw<true>(slot(t), mode, g, raw);
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  tc::fence_acc(acc);
+
+  for (int t = 0; t < kQAhead; ++t) {
+    if (t) store_gathered(t - 1);
+    issue(t);
+  }
+  for (int t = 0; t < T; ++t) {
+    // stage t has landed everywhere, and every warpgroup's products of
+    // stage t - 2 are done: their converted tile takes stage t's
+    tc::cp_async_wait<kQAhead - 1>();
+    __syncthreads();
+    const uint32_t cb = conv + (t & 1) * tc::kTileBytes;
+    qtc::convert<W, tc::kBN>(slot(t) + tc::kTileBytes, cb);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < tc::kBK / 16; ++ks)
+      tc::wgmma_m64n128k16<0, 0>(acc, tc::desc_a<true>(slot(t), w, ks),
+                                 tc::desc_b<true>(cb, ks));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    store_gathered(t + kQAhead - 1);
+    issue(t + kQAhead);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  tc::cp_async_wait<0>();
+  tc::fence_acc(acc);
+
+  // accumulator fragment: register 4 j + 2 h + e of a thread holds row
+  // 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e of its
+  // warpgroup's 64 x 128 tile; the scale of column o multiplies its sum
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  const float* sc = a.s[c] + (long long)g * a.d_out;
+  float* part = q.part ? q.part + (((long long)s * 2 + c) * a.n + g) *
+                                      a.M * a.d_out
+                       : nullptr;
+  __nv_bfloat16* zc = static_cast<__nv_bfloat16*>(a.z[c]) + g * a.z_sg[c];
+  const long long z_sb = a.z_sb[c], z_so = a.z_so[c];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + w * 64 + warp * 16 + lane / 4 + 8 * h;
+    if (r >= a.M) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int o = o0 + 8 * j + 2 * (lane % 4);
+      if (o >= a.d_out) continue;
+      const bool both = o + 1 < a.d_out;
+      const float v0 = acc[4 * j + 2 * h] * __ldg(sc + o);
+      const float v1 = both ? acc[4 * j + 2 * h + 1] * __ldg(sc + o + 1)
+                            : 0.f;
+      if (part) {
+        float* d = part + (long long)r * a.d_out + o;
+        const bool pair =
+            both && (reinterpret_cast<unsigned long long>(d) & 7) == 0;
+        tc::store2(d, pair, v0, v1);
+        if (!pair) {
+          d[0] = v0;
+          if (both) d[1] = v1;
+        }
+      } else {
+        __nv_bfloat16* d = zc + r * z_sb + o * z_so;
+        const bool pair = both && z_so == 1 &&
+                          (reinterpret_cast<unsigned long long>(d) & 3) == 0;
+        tc::store2(d, pair, v0, v1);
+        if (!pair) {
+          d[0] = __float2bfloat16(v0);
+          if (both) d[z_so] = __float2bfloat16(v1);
+        }
+      }
+    }
+  }
+}
+
+// the second pass over the scaled partials, rounded once: z_c = the sum
+// over the splits (kTwo), or z = component 0's sum over the splits, then
+// component 1's (the IT forward)
 template <bool kTwo>
-int dispatch(const QArgs& a, int dtype, int wdtype, void* stream) {
+__global__ void dyad_mm_q_reduce(QArgs a, QTc q) {
+  const long long per = (long long)a.n * a.M * a.d_out;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (kTwo ? 2 : 1) * per) return;
+  const int c = kTwo ? (int)(e / per) : 0;
+  const long long i = e % per;
+  float sum = 0.f;
+#pragma unroll 1
+  for (int cc = c; cc < (kTwo ? c + 1 : 2); ++cc)
+#pragma unroll 1
+    for (int s = 0; s < q.split; ++s) sum += q.part[(2LL * s + cc) * per + i];
+  const int o = (int)(i % a.d_out);
+  const long long m = (i / a.d_out) % a.M;
+  const int g = (int)(i / ((long long)a.M * a.d_out));
+  static_cast<__nv_bfloat16*>(a.z[c])[m * a.z_sb[c] + g * a.z_sg[c] +
+                                      o * a.z_so[c]] = __float2bfloat16(sum);
+}
+
+template <typename W, bool kTwo>
+cudaError_t launch_tc(const QArgs& a, QTc q, cudaStream_t stream) {
+  // a split range starts on a stage (16-byte copies stay aligned); the
+  // summed forward always goes through the partials
+  if (q.split < 1 || q.krows < 1 || q.krows % tc::kBK ||
+      (long long)q.split * q.krows < a.d_in ||
+      ((q.split > 1 || !kTwo) && !q.part))
+    return cudaErrorInvalidValue;
+  if (kTwo && q.split == 1) q.part = nullptr;
+  for (int c = 0; c < 2; ++c) {
+    q.xload[c] = tc::load_of(a.x[c], a.x_sk[c], a.x_sb[c], a.x_sg[c], a.n);
+    q.vec[c] = qtc::vec_ok(a.w[c], a.d_in);
+  }
+  auto kernel = dyad_mm_q_tc_kernel<W>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kQSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.d_out + tc::kBN - 1) / tc::kBN, (a.M + tc::kBM - 1) / tc::kBM,
+            2 * a.n * q.split);
+  kernel<<<grid, tc::kThreads, kQSmem, stream>>>(a, q);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !q.part) return err;
+  const long long total = (kTwo ? 2LL : 1LL) * a.n * a.M * a.d_out;
+  constexpr int kReduceThreads = 256;
+  dyad_mm_q_reduce<kTwo><<<(unsigned)((total + kReduceThreads - 1) /
+                                      kReduceThreads),
+                           kReduceThreads, 0, stream>>>(a, q);
+  return cudaGetLastError();
+}
+
+template <bool kTwo>
+int dispatch(const QArgs& a, const QTc& q, int dtype, int wdtype, int tc,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.M == 0 || a.n == 0 || a.d_out == 0) return cudaSuccess;
+  if (tc) {   // the tensor cores: bf16 x only
+    if (dtype == kBF16 && wdtype == kInt8)
+      return launch_tc<int8_t, kTwo>(a, q, s);
+    if (dtype == kBF16 && wdtype == kE4M3)
+      return launch_tc<__nv_fp8_e4m3, kTwo>(a, q, s);
+    return cudaErrorInvalidValue;
+  }
   if (dtype == kF32 && wdtype == kInt8)
     return launch<float, int8_t, kTwo>(a, s);
   if (dtype == kF32 && wdtype == kE4M3)
@@ -302,31 +521,39 @@ int dispatch(const QArgs& a, int dtype, int wdtype, void* stream) {
 }  // namespace
 }  // namespace repro
 
+// tc: the tensor-core route (bf16 x) with the k split into `split` ranges
+// of `krows` (a multiple of 64) and the partials in `part` ((split, 2, n,
+// M, d_out) fp32; always for the summed forward, else for split > 1);
+// else the FMA kernels (part, split, krows unused)
 extern "C" int repro_dyad_mm_blocks_q(
     const void* x1, const void* x2, const void* w1, const void* w2,
-    const float* s1, const float* s2, void* out, int M, int n, int d_in,
-    int d_out, long long x1_sb, long long x1_sg, long long x1_sk,
-    long long x2_sb, long long x2_sg, long long x2_sk, long long o_sb,
-    long long o_sg, long long o_so, int dtype, int wdtype, void* stream) {
+    const float* s1, const float* s2, void* out, float* part, int M, int n,
+    int d_in, int d_out, int split, int krows, long long x1_sb,
+    long long x1_sg, long long x1_sk, long long x2_sb, long long x2_sg,
+    long long x2_sk, long long o_sb, long long o_sg, long long o_so,
+    int dtype, int wdtype, int tc, void* stream) {
   repro::QArgs a{{x1, x2},     {x1_sb, x2_sb}, {x1_sg, x2_sg},
                  {x1_sk, x2_sk}, {w1, w2},     {s1, s2},
                  {out, nullptr}, {o_sb, 0},    {o_sg, 0},
                  {o_so, 0},      M,            n,
                  d_in,           d_out};
-  return repro::dispatch<false>(a, dtype, wdtype, stream);
+  const repro::QTc q{part, split, krows, {0, 0}, {0, 0}};
+  return repro::dispatch<false>(a, q, dtype, wdtype, tc, stream);
 }
 
 extern "C" int repro_dyad_mm_blocks_two_q(
     const void* x1, const void* x2, const void* w1, const void* w2,
-    const float* s1, const float* s2, void* z1, void* z2, int M, int n,
-    int d_in, int d_out, long long x1_sb, long long x1_sg, long long x1_sk,
-    long long x2_sb, long long x2_sg, long long x2_sk, long long z1_sb,
-    long long z1_sg, long long z1_so, long long z2_sb, long long z2_sg,
-    long long z2_so, int dtype, int wdtype, void* stream) {
+    const float* s1, const float* s2, void* z1, void* z2, float* part,
+    int M, int n, int d_in, int d_out, int split, int krows,
+    long long x1_sb, long long x1_sg, long long x1_sk, long long x2_sb,
+    long long x2_sg, long long x2_sk, long long z1_sb, long long z1_sg,
+    long long z1_so, long long z2_sb, long long z2_sg, long long z2_so,
+    int dtype, int wdtype, int tc, void* stream) {
   repro::QArgs a{{x1, x2},     {x1_sb, x2_sb}, {x1_sg, x2_sg},
                  {x1_sk, x2_sk}, {w1, w2},     {s1, s2},
                  {z1, z2},       {z1_sb, z2_sb}, {z1_sg, z2_sg},
                  {z1_so, z2_so}, M,            n,
                  d_in,           d_out};
-  return repro::dispatch<true>(a, dtype, wdtype, stream);
+  const repro::QTc q{part, split, krows, {0, 0}, {0, 0}};
+  return repro::dispatch<true>(a, q, dtype, wdtype, tc, stream);
 }

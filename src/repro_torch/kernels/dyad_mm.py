@@ -22,8 +22,8 @@ same name in ``repro.kernels.dyad_mm``:
   (``dyad_mm_q.cu``) and :func:`dyad_ff_fused_q` (``dyad_ff.cu``'s second
   entry): the forward kernels over quantized weights, int8 or fp8 payloads
   with one fp32 scale per (block, out_row) (``repro_torch.quant``).  The
-  payload reaches the kernel as it is stored and is converted in
-  registers; each scale multiplies its fp32 sum.
+  payload reaches the kernel as it is stored and is converted exactly
+  on chip; each scale multiplies its fp32 sum.
 
 All but ``dyad_mm_blocks`` read their (b, g, inner) operands through
 strides, so the strided views (``x2``, ``z2bar``) are passed as they are.
@@ -32,8 +32,11 @@ its decode rows, M > 8), ``dyad_mm_blocks_two``, ``dyad_mm_dgrad_two``,
 ``dyad_mm_dgrad`` and ``dyad_mm_wgrad`` run on the tensor cores (the
 ``wgmma`` mainloop of ``dyad_gemm_tc.cuh``), and the ff megakernel on a
 ``wgmma`` kernel of its own (``dyad_ff_tc.cuh``, picked by
-:func:`ff_plan`); the quantized kernels, ``dyad_mm_blocks``' decode rows
-and every fp32 operand run on fp32 FMA.
+:func:`ff_plan`); so do the quantized kernels for bf16 x (the mainloop's
+pieces in ``dyad_mm_q.cu``, the megakernel's payload instantiation,
+picked by :func:`mm_q_plan` and :func:`ff_q_plan`, the payloads converted
+to bf16 in shared memory by ``quant_tc.cuh``); ``dyad_mm_blocks``' decode
+rows and every fp32 operand run on fp32 FMA.
 Each wrapper takes its plain version only for a CPU tensor; a CUDA tensor
 launches the kernel or raises.
 """
@@ -342,9 +345,10 @@ _ACT_CODES = {"gelu": 0, "relu": 1, "silu": 2, "swiglu": 3}
 # hidden in 16-column down stages
 _FF_ROWS, _FF_OUT, _FF_STAGE = 32, 256, 16
 # the tensor-core kernel of csrc/dyad_ff_tc.cuh: 64 rows x 256 outputs per
-# block, one block an SM, x resident in shared memory up to d_in 256 per
-# component
+# block (128 over payloads), one block an SM, x resident in shared memory
+# up to d_in 256 per component
 _FF_TC_ROWS, _FF_TC_HIDDEN, _FF_TC_MAX_IN = 64, 64, 256
+_FF_TC_Q_OUT = 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -379,17 +383,20 @@ def ff_plan(M: int, n: int, d_in: int, d_ff: int, d_out: int, sms: int,
     return ("tc",) + ff_tc_split(M, n, d_ff, d_out, sms)
 
 
-def ff_tc_split(M: int, n: int, d_ff: int, d_out: int, sms: int):
-    """(split, span) of the tensor-core kernel.  While one range per
-    64-column hidden tile keeps its grid of 64-row blocks within two waves
-    of ``sms`` (one block an SM; Qwen3-0.6B's serving rows, M <= 320),
-    each tile is a range: a row's result then has the same bits whatever
+def ff_tc_split(M: int, n: int, d_ff: int, d_out: int, sms: int,
+                out: int = _FF_OUT):
+    """(split, span) of the tensor-core kernel, whose blocks own ``out``
+    outputs of each component (256, or 128 over payloads).  While one
+    range per 64-column hidden tile keeps its grid of 64-row blocks within
+    two waves of ``sms`` (one block an SM; Qwen3-0.6B's serving rows, M <=
+    320, or 128 over payloads), each tile is a range: a row's result then
+    has the same bits whatever
     M, so routes that batch rows apart (chunked or one-shot prefill,
     decode) agree.  Past that, ranges (``span`` columns, a multiple of 16)
     as narrow as keep the grid within one wave (a second wave cost more
     than it spread, PERF.md), down to one range once the rows fill the
     card."""
-    base = n * math.ceil(M / _FF_TC_ROWS) * math.ceil(d_out / _FF_OUT)
+    base = n * math.ceil(M / _FF_TC_ROWS) * math.ceil(d_out / out)
     tiles = max(1, math.ceil(d_ff / _FF_TC_HIDDEN))
     if base * tiles <= 2 * sms:
         return tiles, _FF_TC_HIDDEN
@@ -520,6 +527,51 @@ dyad_ff_fused.launches = 0
 _PAYLOADS = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
 
+# the FMA decode-row kernel of csrc/dyad_mm_q.cu: up to 8 rows of x, one
+# warp per output row, 8 output rows a block
+_MV_ROWS, _MV_OUTS = 8, 8
+
+
+def mm_q_tc_split(M: int, n: int, d_in: int, d_out: int, sms: int):
+    """(split, krows) of the quantized GEMMs' tensor-core route: k cut into
+    ``split`` ranges of ``krows`` (a multiple of its 64-deep stage) as far
+    as its 128 x 128 tiles per (component, block) alone leave SMs of a
+    card with ``sms`` idle (one block an SM; each range writes scaled fp32
+    partials that a second pass adds in a fixed order)."""
+    tiles = 2 * n * math.ceil(M / _TC_TILE_O) * math.ceil(d_out / _TC_TILE_I)
+    stages = max(1, math.ceil(d_in / _TC_ROWS))
+    per = math.ceil(stages / max(1, min(stages, sms // max(tiles, 1))))
+    return math.ceil(stages / per), per * _TC_ROWS
+
+
+def mm_q_plan(M: int, n: int, d_in: int, d_out: int, sms: int,
+              dtype: torch.dtype):
+    """(kernel, split, krows) of ``dyad_mm_blocks_q`` and
+    ``dyad_mm_blocks_two_q``: ``"tc"``, the tensor-core route, for bf16 x,
+    with :func:`mm_q_tc_split`'s ranges; else ``"fma"``, the FMA kernels:
+    fp32 x, and bf16 decode rows (M <= 8) whose decode kernel has at
+    least two waves of blocks.  On an H100 that kernel beats the tensor
+    cores at Qwen3's up and gate (M 8, 384 blocks), and loses at its down
+    (128 blocks; PERF.md)."""
+    if dtype != torch.bfloat16 or (
+            M <= _MV_ROWS and n * math.ceil(d_out / _MV_OUTS) >= 2 * sms):
+        return "fma", 1, max(d_in, 1)
+    return ("tc",) + mm_q_tc_split(M, n, d_in, d_out, sms)
+
+
+def ff_q_plan(M: int, n: int, d_in: int, d_ff: int, d_out: int, sms: int,
+              dtype: torch.dtype):
+    """(kernel, split, span) of ``dyad_ff_fused_q``: ``"tc"``, the
+    tensor-core megakernel's payload instantiation, for bf16 x at every row
+    count (d_in up to 256), with :func:`ff_tc_split`'s ranges for its
+    128-output blocks (one range per 64-column hidden tile at the serving
+    rows, so a row's bits do not depend on M); else ``"fma"``, the FMA
+    kernel, with :func:`ff_split`'s."""
+    if dtype != torch.bfloat16 or d_in > _FF_TC_MAX_IN:
+        return ("fma",) + ff_split(M, n, d_ff, d_out, sms)
+    return ("tc",) + ff_tc_split(M, n, d_ff, d_out, sms, out=_FF_TC_Q_OUT)
+
+
 def _check_payload(name: str, q: torch.Tensor, s: torch.Tensor) -> None:
     """A payload of int8 or fp8 (never a dequantized or cast weight) and
     its fp32 (n, rows) scales, both contiguous on the payload's device."""
@@ -566,10 +618,11 @@ def _check_mm_q(name, x1, x2, w1, w2, s1, s2):
 def dyad_mm_blocks_q(x1, x2, w1, w2, s1, s2):
     """:func:`dyad_mm_blocks` over quantized weights (each wrapper of this
     section raises for a payload that is not int8 or fp8, on either
-    device).  x1, x2: (M, n, d_in)
-    input views (any strides; the IT/DT ``x2`` is the stride-n view), fp32
-    or bf16; w1, w2: (n, d_out, d_in) int8 or fp8 payloads; s1, s2: (n,
-    d_out) fp32 scales.  Returns (M, n, d_out) in x's dtype."""
+    device).  x1, x2: (M, n, d_in) input views (any strides; the IT/DT
+    ``x2`` is the stride-n view), fp32 or bf16; w1, w2: (n, d_out, d_in)
+    int8 or fp8 payloads; s1, s2: (n, d_out) fp32 scales.  Returns (M, n,
+    d_out) in x's dtype.  :func:`mm_q_plan` picks the kernel: the tensor
+    cores for bf16 x (but for some decode rows), FMA for fp32."""
     for q, s in ((w1, s1), (w2, s2)):
         _check_payload("dyad_mm_blocks_q", q, s)
     if x1.device.type == "cpu":
@@ -577,12 +630,20 @@ def dyad_mm_blocks_q(x1, x2, w1, w2, s1, s2):
     _check_mm_q("dyad_mm_blocks_q", x1, x2, w1, w2, s1, s2)
     M, n, d_in = x1.shape
     d_out = w1.shape[1]
-    out = torch.empty(M, n, d_out, dtype=x1.dtype, device=x1.device)
+    dev = x1.device
+    out = torch.empty(M, n, d_out, dtype=x1.dtype, device=dev)
+    kernel, split, krows = mm_q_plan(M, n, d_in, d_out, sm_count(dev),
+                                     x1.dtype)
+    # the tensor-core route adds both components' scaled partials in a
+    # second pass
+    part = (torch.empty(split, 2, n, M, d_out, dtype=torch.float32,
+                        device=dev) if kernel == "tc" else None)
     err = build.entry("dyad_mm_q")(
         build.ptr(x1), build.ptr(x2), build.ptr(w1), build.ptr(w2),
-        build.ptr(s1), build.ptr(s2), build.ptr(out), M, n, d_in, d_out,
-        *x1.stride(), *x2.stride(), *out.stride(), _DTYPES[x1.dtype],
-        _PAYLOADS[w1.dtype], build.stream(x1.device))
+        build.ptr(s1), build.ptr(s2), build.ptr(out), build.ptr(part), M, n,
+        d_in, d_out, split, krows, *x1.stride(), *x2.stride(),
+        *out.stride(), _DTYPES[x1.dtype], _PAYLOADS[w1.dtype],
+        int(kernel == "tc"), build.stream(dev))
     build.check(err, "dyad_mm_blocks_q")
     dyad_mm_blocks_q.launches += 1
     return out
@@ -603,13 +664,19 @@ def dyad_mm_blocks_two_q(x1, x2, w1, w2, s1, s2):
     _check_mm_q("dyad_mm_blocks_two_q", x1, x2, w1, w2, s1, s2)
     M, n, d_in = x1.shape
     d_out = w1.shape[1]
-    z1 = torch.empty(M, n, d_out, dtype=x1.dtype, device=x1.device)
+    dev = x1.device
+    z1 = torch.empty(M, n, d_out, dtype=x1.dtype, device=dev)
     z2 = _permuted_out(M, n, d_out, x1)
+    kernel, split, krows = mm_q_plan(M, n, d_in, d_out, sm_count(dev),
+                                     x1.dtype)
+    part = (torch.empty(split, 2, n, M, d_out, dtype=torch.float32,
+                        device=dev) if split > 1 else None)
     err = build.entry("dyad_mm_two_q")(
         build.ptr(x1), build.ptr(x2), build.ptr(w1), build.ptr(w2),
-        build.ptr(s1), build.ptr(s2), build.ptr(z1), build.ptr(z2), M, n,
-        d_in, d_out, *x1.stride(), *x2.stride(), *z1.stride(), *z2.stride(),
-        _DTYPES[x1.dtype], _PAYLOADS[w1.dtype], build.stream(x1.device))
+        build.ptr(s1), build.ptr(s2), build.ptr(z1), build.ptr(z2),
+        build.ptr(part), M, n, d_in, d_out, split, krows, *x1.stride(),
+        *x2.stride(), *z1.stride(), *z2.stride(), _DTYPES[x1.dtype],
+        _PAYLOADS[w1.dtype], int(kernel == "tc"), build.stream(dev))
     build.check(err, "dyad_mm_blocks_two_q")
     dyad_mm_blocks_two_q.launches += 1
     return z1, z2
@@ -683,7 +750,8 @@ def dyad_ff_fused_q(x1, x2, wu1, wu2, wd1, wd2, su1, su2, sd1, sd2, *,
     dev = x1.device
     z1 = torch.empty(M, n, d_out, dtype=x1.dtype, device=dev)
     z2 = _permuted_out(M, n, d_out, x1)
-    split, span = ff_split(M, n, d_ff, d_out, sm_count(dev))
+    kernel, split, span = ff_q_plan(M, n, d_in, d_ff, d_out, sm_count(dev),
+                                    x1.dtype)
     part = (torch.empty(split, 2, M, n, d_out, dtype=torch.float32,
                         device=dev) if split > 1 else None)
     err = build.entry("dyad_ff_q")(
@@ -693,7 +761,8 @@ def dyad_ff_fused_q(x1, x2, wu1, wu2, wd1, wd2, su1, su2, sd1, sd2, *,
         build.ptr(sd1), build.ptr(sd2), build.ptr(z1), build.ptr(z2),
         build.ptr(part), M, n, d_in, d_ff, d_out, split, span, *x1.stride(),
         *x2.stride(), *z1.stride(), *z2.stride(), _ACT_CODES[act],
-        _DTYPES[x1.dtype], _PAYLOADS[wu1.dtype], build.stream(dev))
+        _DTYPES[x1.dtype], _PAYLOADS[wu1.dtype], int(kernel == "tc"),
+        build.stream(dev))
     build.check(err, "dyad_ff_fused_q")
     dyad_ff_fused_q.launches += 1
     return z1, z2

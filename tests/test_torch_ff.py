@@ -172,6 +172,60 @@ def test_ff_plan_picks_the_kernel(M, dtype, want):
         assert rows * math.ceil(d_ff / (span - 16)) > sms
 
 
+@pytest.mark.parametrize("M,dtype,d_in,want", [
+    (1, "bfloat16", 256, "tc"), (8, "bfloat16", 256, "tc"),
+    (128, "bfloat16", 256, "tc"), (200, "bfloat16", 256, "tc"),
+    (1024, "bfloat16", 256, "tc"), (4096, "bfloat16", 256, "tc"),
+    (8, "float32", 256, "fma"), (1024, "float32", 256, "fma"),
+    (8, "bfloat16", 512, "fma")])
+def test_ff_q_plan_picks_the_kernel(M, dtype, d_in, want):
+    """The quantized megakernel: bf16 x takes the tensor-core kernel's
+    payload instantiation at every row count (d_in up to 256), its blocks
+    owning 128 outputs, so the serving rows up to 128 (decode steps and
+    prefill chunks) keep one range per 64-column hidden tile and past them
+    the ranges keep one wave; fp32 x (and a d_in past the resident x
+    tiles) takes the FMA kernel with ff_split's ranges."""
+    n, d_ff, d_out, sms = 4, 768, 256, 132
+    kernel, split, span = dyad_mm.ff_q_plan(M, n, d_in, d_ff, d_out, sms,
+                                            TDT[dtype])
+    assert kernel == want
+    assert span % 16 == 0 and (split - 1) * span < d_ff <= split * span
+    if want == "fma":
+        assert (split, span) == dyad_mm.ff_split(M, n, d_ff, d_out, sms)
+    elif M <= 128:
+        assert (split, span) == (d_ff // 64, 64)
+    else:
+        assert split == 1 or n * math.ceil(M / 64) * 2 * split <= sms
+
+
+@pytest.mark.parametrize("M,n,d_in,d_out,dtype,want", [
+    (128, 4, 768, 256, "bfloat16", "tc"), (8, 4, 768, 256, "bfloat16", "tc"),
+    (128, 4, 256, 768, "bfloat16", "tc"), (8, 4, 256, 768, "bfloat16", "fma"),
+    (1024, 4, 256, 768, "bfloat16", "tc"), (77, 3, 129, 67, "bfloat16", "tc"),
+    (5, 2, 70, 131, "bfloat16", "tc"), (8, 4, 192, 768, "float32", "fma"),
+    (1024, 4, 768, 192, "float32", "fma")])
+def test_mm_q_plan_picks_the_kernel(M, n, d_in, d_out, dtype, want):
+    """The quantized GEMMs: bf16 x takes the tensor cores, its k split
+    into ranges of whole 64-deep stages covering d_in, as many as keep its
+    128 x 128 tiles per (component, block) within one wave of an H100's 132
+    SMs (Qwen3's split-route down at M 128: 16 tiles, 6 ranges of 128);
+    but decode rows (M <= 8) whose FMA decode kernel has two waves of
+    blocks (8 outputs a block: Qwen3's up and gate, 384) stay on it; fp32
+    x takes the FMA kernels, unsplit."""
+    sms = 132
+    kernel, split, krows = dyad_mm.mm_q_plan(M, n, d_in, d_out, sms,
+                                             TDT[dtype])
+    assert kernel == want
+    if want == "fma":
+        assert split == 1 and krows >= d_in
+        return
+    tiles = 2 * n * math.ceil(M / 128) * math.ceil(d_out / 128)
+    assert krows % 64 == 0 and (split - 1) * krows < d_in <= split * krows
+    assert split == 1 or tiles * split <= sms
+    if (M, d_in, d_out) == (128, 768, 256):
+        assert (split, krows) == (6, 128)
+
+
 def test_ff_plan_keeps_the_route_and_its_edges(monkeypatch):
     """The plan picks among the megakernels only: the ``ff`` demotion rung
     (``force_ff_route``) still sends the forward to the split route, and

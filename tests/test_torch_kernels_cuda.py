@@ -1112,9 +1112,11 @@ def test_cpu_quant_tensors_take_the_plain_versions():
 
 # (M, n, d_in_b, d_out_b): OPT-125m's up and down at decode and prefill
 # rows, Qwen3-0.6B's up, then ragged edges (odd rows, dims off the tile
-# and off a multiple of 4)
+# and off a multiple of 4), then Qwen3's split-route down at decode and
+# prefill-chunk rows and its up at prefill-chunk rows
 Q_MM_SHAPES = [(8, 4, 192, 768), (1024, 4, 768, 192), (8, 4, 256, 768),
-               (77, 3, 129, 67), (5, 2, 70, 131)]
+               (77, 3, 129, 67), (5, 2, 70, 131), (8, 4, 768, 256),
+               (128, 4, 768, 256), (128, 4, 256, 768)]
 
 
 @pytest.mark.gpu
@@ -1123,6 +1125,12 @@ Q_MM_SHAPES = [(8, 4, 192, 768), (1024, 4, 768, 192), (8, 4, 256, 768),
 @pytest.mark.parametrize("M,n,d_in,d_out", Q_MM_SHAPES)
 def test_dyad_mm_q_kernels_match_plain(cuda, M, n, d_in, d_out, qdtype,
                                        dtype):
+    # bf16 takes the tensor cores but at decode rows whose FMA decode
+    # kernel fills two waves (Qwen3's and OPT's up at M 8); fp32 takes FMA
+    sms = dyad_mm.sm_count(cuda)
+    kernel = dyad_mm.mm_q_plan(M, n, d_in, d_out, sms, dtype)[0]
+    fma = dtype == torch.float32 or (M <= 8 and n * -(-d_out // 8) >= 2 * sms)
+    assert kernel == ("fma" if fma else "tc")
     for view in ("it", "ot"):
         args = _mm_q_case(cuda, M, n, d_in, d_out, dtype, qdtype, view)
         before = [w.launches for w in Q_WRAPPERS]
@@ -1136,6 +1144,67 @@ def test_dyad_mm_q_kernels_match_plain(cuda, M, n, d_in, d_out, qdtype,
         p1, p2 = dyad_mm.dyad_mm_blocks_two_q_plain(*args)
         _close(z1, p1, dtype)
         _close(z2, p2, dtype)
+        # the split partials add in a fixed order: the same bits again
+        assert torch.equal(dyad_mm.dyad_mm_blocks_q(*args), out)
+        again = dyad_mm.dyad_mm_blocks_two_q(*args)
+        assert torch.equal(again[0], z1) and torch.equal(again[1], z2)
+
+
+def _exact_payload(shape, qdtype, device, salt=0):
+    """A payload of ``shape`` (n, rows, k) covering every int8 value (each
+    row the 256 values along k) or every finite e4m3 value (each row one
+    binade, exponent e = (row + block + salt) % 16, every mantissa and
+    sign along k; e 15's NaN code replaced by 448's), and e."""
+    n, rows, k = shape
+    g = torch.arange(n, device=device)[:, None, None]
+    r = torch.arange(rows, device=device)[None, :, None]
+    kk = torch.arange(k, device=device)[None, None, :]
+    if qdtype == "int8":
+        q = ((kk + 7 * r + 13 * g + salt) % 256 - 128).to(torch.int8)
+        return q, None
+    e = (r + g + salt) % 16
+    m = kk % 8
+    m = torch.where((e == 15) & (m == 7), torch.full_like(m, 6), m)
+    byte = ((kk // 8) % 2) << 7 | (e << 3) | m
+    return byte.to(torch.uint8).view(torch.float8_e4m3fn), e[..., 0]
+
+
+def _pow2_scales(n, rows, c, device):
+    """Scales 2^0 .. 2^-3, by (row + block + c) % 4."""
+    o = torch.arange(rows, device=device)[None, :]
+    g = torch.arange(n, device=device)[:, None]
+    return torch.exp2(-((o + g + c) % 4).float()).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", PAYLOADS)
+@pytest.mark.parametrize("M,n,d_in,d_out", [(8, 4, 768, 256),
+                                            (128, 4, 768, 256),
+                                            (128, 4, 256, 768)])
+def test_dyad_mm_q_bf16_exact_payloads_match_bitwise(cuda, M, n, d_in,
+                                                     d_out, qdtype):
+    """Payloads covering every int8 or finite e4m3 value, power-of-two
+    scales and x in [-2, 2]: each component's sum stays below 2^24 of its
+    row's quantum (int8 768 x 2 x 128; fp8 one binade a row, 768 x 2 x 16)
+    and the scales within 8x, so the tensor-core route (its k split and
+    second pass included) gives the plain version's bits."""
+    gen = torch.Generator(device=cuda).manual_seed(M + d_in)
+    x = _randint(gen, M, n * d_in, device=cuda)
+    x1 = x.reshape(M, n, d_in)
+    q1 = _exact_payload((n, d_out, d_in), qdtype, cuda)[0]
+    q2 = (_exact_payload((n, d_out, d_in), qdtype, cuda, 5)[0]
+          if qdtype == "int8" else q1.view(torch.uint8).flip(-1)
+          .contiguous().view(torch.float8_e4m3fn))
+    s1, s2 = (_pow2_scales(n, d_out, c, cuda) for c in (0, 1))
+    assert dyad_mm.mm_q_plan(M, n, d_in, d_out, dyad_mm.sm_count(cuda),
+                             torch.bfloat16)[0] == "tc"
+    for x2 in (x.reshape(M, d_in, n).transpose(1, 2), x1):
+        args = (x1, x2, q1, q2, s1, s2)
+        assert torch.equal(dyad_mm.dyad_mm_blocks_q(*args),
+                           dyad_mm.dyad_mm_blocks_q_plain(*args))
+        got = dyad_mm.dyad_mm_blocks_two_q(*args)
+        want = dyad_mm.dyad_mm_blocks_two_q_plain(*args)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.gpu
@@ -1155,6 +1224,11 @@ def test_dyad_ff_fused_q_kernel_matches_plain(cuda, M, n, d_in, d_ff, d_out,
             if act == "swiglu" else {})
     args = (x1, x2, ups[0][0], ups[1][0], downs[0][0], downs[1][0],
             ups[0][1], ups[1][1], downs[0][1], downs[1][1])
+    # bf16 up to d_in_b 256 takes the tensor-core kernel, the rest FMA
+    kernel = dyad_mm.ff_q_plan(M, n, d_in, d_ff, d_out,
+                               dyad_mm.sm_count(cuda), dtype)[0]
+    assert kernel == ("tc" if dtype == torch.bfloat16 and d_in <= 256
+                      else "fma")
     before = dyad_mm.dyad_ff_fused_q.launches
     z1, z2 = dyad_mm.dyad_ff_fused_q(*args, act=act, **gate)
     torch.cuda.synchronize()
@@ -1166,6 +1240,132 @@ def test_dyad_ff_fused_q_kernel_matches_plain(cuda, M, n, d_in, d_ff, d_out,
     # the hidden split adds its partials in a fixed order: same bits again
     again = dyad_mm.dyad_ff_fused_q(*args, act=act, **gate)
     assert torch.equal(again[0], z1) and torch.equal(again[1], z2)
+
+
+def _ff_q_exact_case(cuda, M, qdtype):
+    """Qwen3's ff widths with relu: each row of x one +-1, placed so that
+    one component at most feeds each block's up sum; payloads covering
+    every int8 or finite e4m3 value; up scales that make each hidden value
+    a multiple of 2^-7 (int8) or 1/16 (fp8) below 1, exact in bf16; down
+    sums below 768 x 128 (int8) or 768 x 2^8 (fp8) of their quantum."""
+    n, d_in, d_ff, d_out = 4, 256, 768, 256
+    m = torch.arange(M, device=cuda)
+    b = m % n
+    k = (m * 37 + 1) % d_in
+    k = torch.where(k % n == b, (k + 1) % d_in, k)
+    x = torch.zeros(M, n * d_in, device=cuda)
+    x[m, b * d_in + k] = torch.where((m // 3) % 2 == 0, 1.0, -1.0)
+    x = x.to(torch.bfloat16)
+    ups, su = [], []
+    for c in range(2):
+        q, e = _exact_payload((n, d_ff, d_in), qdtype, cuda, 3 * c)
+        ups.append(q)
+        su.append(torch.full((n, d_ff), 2.0 ** -7, device=cuda)
+                  if e is None else
+                  torch.exp2(torch.where(e > 0, 6 - e, 5).float()))
+    downs = [_exact_payload((n, d_out, d_ff), qdtype, cuda, c)[0]
+             for c in range(2)]
+    return (x.reshape(M, n, d_in), x.reshape(M, d_in, n).transpose(1, 2),
+            ups[0], ups[1], downs[0], downs[1], su[0], su[1],
+            _pow2_scales(n, d_out, 0, cuda), _pow2_scales(n, d_out, 1, cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", PAYLOADS)
+@pytest.mark.parametrize("M", [128, 1024])
+def test_dyad_ff_fused_q_bf16_exact_payloads_match_bitwise(cuda, M, qdtype):
+    """The tensor-core megakernel over payloads covering every int8 or
+    finite e4m3 value (split into the serving rows' 12 ranges at M 128,
+    unsplit at 1024), on sums that are exact: the plain version's bits."""
+    assert dyad_mm.ff_q_plan(M, 4, 256, 768, 256, dyad_mm.sm_count(cuda),
+                             torch.bfloat16)[0] == "tc"
+    args = _ff_q_exact_case(cuda, M, qdtype)
+    before = dyad_mm.dyad_ff_fused_q.launches
+    got = dyad_mm.dyad_ff_fused_q(*args, act="relu")
+    torch.cuda.synchronize()
+    assert dyad_mm.dyad_ff_fused_q.launches == before + 1
+    want = dyad_mm.dyad_ff_fused_q_plain(*args, act="relu")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _ff_q_case(cuda, x1, x2, qdtype, act, seed):
+    """dyad_ff_fused_q's weights at Qwen3's widths for views x1, x2."""
+    n, d_in, d_ff, d_out = 4, 256, 768, 256
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    ups = [_qweight(gen, (n, d_ff, d_in), qdtype, cuda, 4.0)
+           for _ in range(4 if act == "swiglu" else 2)]
+    downs = [_qweight(gen, (n, d_out, d_ff), qdtype, cuda) for _ in range(2)]
+    gate = (dict(wg1=ups[2][0], wg2=ups[3][0], sg1=ups[2][1], sg2=ups[3][1])
+            if act == "swiglu" else {})
+    return (x1, x2, ups[0][0], ups[1][0], downs[0][0], downs[1][0],
+            ups[0][1], ups[1][1], downs[0][1], downs[1][1]), gate
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", PAYLOADS)
+def test_dyad_ff_fused_q_bf16_rows_keep_their_bits_at_every_serving_M(
+        cuda, qdtype):
+    """At Qwen3's quantized serving rows (up to 128: decode steps, prefill
+    chunks) the tensor-core kernel splits the hidden into the same
+    one-tile ranges, so a row's result has the same bits among 8, 64 or
+    128 rows."""
+    n, d_in = 4, 256
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = _randn(gen, 128, n * d_in, device=cuda, dtype=torch.bfloat16)
+    outs = []
+    for M in (8, 64, 128):
+        assert dyad_mm.ff_q_plan(M, n, d_in, 768, 256, dyad_mm.sm_count(cuda),
+                                 torch.bfloat16) == ("tc", 12, 64)
+        xm = x[:M]
+        args, gate = _ff_q_case(cuda, xm.reshape(M, n, d_in),
+                                xm.reshape(M, d_in, n).transpose(1, 2),
+                                qdtype, "swiglu", 3)
+        z1, z2 = dyad_mm.dyad_ff_fused_q(*args, act="swiglu", **gate)
+        outs.append((z1[:8], z2[:8]))
+    torch.cuda.synchronize()
+    for z1, z2 in outs[1:]:
+        assert torch.equal(z1, outs[0][0]) and torch.equal(z2, outs[0][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad,off", [(16, 0), (3, 0), (8, 1)])
+def test_dyad_ff_fused_q_bf16_reads_strided_views(cuda, pad, off):
+    """x1 and x2 as views into a wider buffer (rows of n * d_in + pad from
+    column off: copied and gathered in 16-byte runs, or element by
+    element), at Qwen3's widths on the tensor-core kernel, int8."""
+    M, n, d_in = 128, 4, 256
+    gen = torch.Generator(device=cuda).manual_seed(pad + off)
+    rows = _randn(gen, M, n * d_in + pad, device=cuda, dtype=torch.bfloat16)
+    x = rows[:, off:off + n * d_in]
+    x1 = x.as_strided((M, n, d_in), (x.stride(0), d_in, 1))
+    x2 = x.as_strided((M, n, d_in), (x.stride(0), 1, n))
+    args, gate = _ff_q_case(cuda, x1, x2, "int8", "swiglu", pad)
+    z1, z2 = dyad_mm.dyad_ff_fused_q(*args, act="swiglu", **gate)
+    p1, p2 = dyad_mm.dyad_ff_fused_q_plain(*args, act="swiglu", **gate)
+    _close(z1, p1, torch.bfloat16)
+    _close(z2, p2, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad,off", [(16, 0), (3, 0)])
+def test_dyad_mm_q_bf16_reads_strided_views(cuda, pad, off):
+    """The tensor-core quantized GEMM on x views into a wider buffer, at
+    Qwen3's split-route down (M 128), fp8."""
+    M, n, d_in, d_out = 128, 4, 768, 256
+    gen = torch.Generator(device=cuda).manual_seed(pad)
+    rows = _randn(gen, M, n * d_in + pad, device=cuda, dtype=torch.bfloat16)
+    x = rows[:, off:off + n * d_in]
+    x1 = x.as_strided((M, n, d_in), (x.stride(0), d_in, 1))
+    x2 = x.as_strided((M, n, d_in), (x.stride(0), 1, n))
+    (q1, s1), (q2, s2) = (_qweight(gen, (n, d_out, d_in), "fp8", cuda)
+                          for _ in range(2))
+    args = (x1, x2, q1, q2, s1, s2)
+    _close(dyad_mm.dyad_mm_blocks_q(*args),
+           dyad_mm.dyad_mm_blocks_q_plain(*args), torch.bfloat16)
+    got = dyad_mm.dyad_mm_blocks_two_q(*args)
+    want = dyad_mm.dyad_mm_blocks_two_q_plain(*args)
+    _close(got[0], want[0], torch.bfloat16)
+    _close(got[1], want[1], torch.bfloat16)
 
 
 @pytest.mark.gpu

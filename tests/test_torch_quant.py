@@ -144,6 +144,29 @@ def test_sidecars_equal_jax_bit_for_bit(qdtype):
         np.testing.assert_array_equal(back[k], v.astype(np.float32))
 
 
+@pytest.mark.parametrize("qdtype", QDTYPES)
+def test_every_payload_value_is_a_bf16_value(qdtype):
+    """The premise of the quantized kernels' bf16 tensor-core routes: each
+    of the 256 int8 values and of the 254 finite float8_e4m3fn values
+    converts to bf16 exactly (its fp32 value, as the reference's
+    ``w.astype(x.dtype)`` gives it) and back to the same payload bits, so
+    a bf16 product with the converted payload is the reference's."""
+    bits = torch.arange(256, dtype=torch.int16).to(torch.uint8)
+    q = bits.view(torch.int8 if qdtype == "int8" else torch.float8_e4m3fn)
+    f = q.float()
+    finite = torch.isfinite(f)
+    assert int(finite.sum()) == (256 if qdtype == "int8" else 254)
+    b = q[finite].to(torch.bfloat16)
+    assert torch.equal(b.float(), f[finite])
+    assert torch.equal(b.to(q.dtype).view(torch.uint8), bits[finite])
+    jq = jax.lax.bitcast_convert_type(
+        jnp.asarray(bits[finite].numpy()),
+        jnp.int8 if qdtype == "int8" else jnp.float8_e4m3fn)
+    np.testing.assert_array_equal(
+        np.asarray(jq.astype(jnp.bfloat16).astype(jnp.float32)),
+        f[finite].numpy())
+
+
 def test_codec_contract_and_guards():
     w = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (3, 17, 29)).astype(np.float32))

@@ -21,8 +21,11 @@ exit and no result line):
    (``flash_fwd_tc_kernel``), the flash backward, the ff megakernel
    (``dyad_ff_tc_kernel``, gated and not, over bf16, int8 and fp8
    weights) and the quantized GEMM (``dyad_mm_q_tc_kernel``, int8 and
-   fp8; no spill and no serialised wgmma allowed); and the HGMMA count of
-   each of those ff and quantized instantiations (none may lack it);
+   fp8; no spill and no serialised wgmma allowed); the paged decode
+   kernel's registers and spills at HD 128 with the shared memory of a
+   block and the blocks an SM at its pool dtype's span (no spill in any
+   instantiation allowed); and the HGMMA count of each of those ff and
+   quantized instantiations (none may lack it);
 3. each kernel against its plain PyTorch version on the card, fp32 and
    bf16, at the OPT-125m and Qwen3-0.6B serving and training shapes and
    the edge cases (``dyad_mm_blocks`` also off the tensor-core tiles, n 2,
@@ -32,7 +35,9 @@ exit and no result line):
    bitwise; ``dyad_mm_blocks`` and ``dyad_mm_dgrad_two`` on integer-valued
    bf16 inputs, whose fp32 sums are exact, bitwise against the plain
    version; the paged decode kernels also over bf16 and int8 pools, at
-   head dims 16, 32, 80 and 128, and with a poisoned scratch page; the
+   head dims 16, 32, 80 and 128, with a poisoned scratch page, at the
+   edges of the key splits, each slot of a batch of 8 alone bitwise equal
+   to its batch row and the batch repeated bitwise; the
    quantized-weight kernels over int8 and fp8 payloads, bf16 x on the
    tensor cores also repeated bitwise, on the FMA kernels through the C
    entries at Qwen3's shapes (the route phase 4 times beside), and on
@@ -70,7 +75,9 @@ exit and no result line):
    ``dyad_ff_fused`` at Qwen3's training, prefill, prefill-chunk and
    decode rows (``@prefill``, ``@prefill_chunk``, ``@decode``), each
    beside the split route, a torch.bmm chain and the FMA kernel through
-   the C entry (``fma_ms``, the parent's route);
+   the C entry (``fma_ms``, the parent's route); the paged decode over
+   each pool dtype at contexts 64 and 512 with the splits a slot takes
+   (``time_pools``);
 5. the OPT serving path: OPT-125m at full width with ``dyad_it_4_kernel``,
    random weights from ``--seed``, ``Engine.generate`` at batch 8, prompt
    128, 32 new tokens, with the kernels' launch counters read around it;
@@ -114,7 +121,9 @@ exit and no result line):
    prefill_chunk=128, prefix_cache=True)``, 32 greedy requests (a shared
    64-token prefix and a 32-224-token tail each, 16-64 new tokens; the
    ff weights x 4 so that greedy tokens vary) with the launch counters
-   checked exactly, then a profile of a window of its engine steps; the
+   checked exactly, then a profile of a window of its engine steps (taken
+   again while its paged decode launches fall short of the counted calls,
+   failing after three); the
    same trace on dense rings (``REPRO_PAGED_KV=off``), with int8 pools,
    and with a pool cut so that preemption fires, each against the paged
    run by the bf16 tie rule; at 2 layers in fp32, a cut pool's greedy
@@ -184,6 +193,13 @@ TRAIN_PARITY = {"B": 2, "S": 256, "layers": 2}
 # the CPU side the slow one, so the batch is smaller (bf16 smaller still)
 QWEN_PARITY = {"B": 2, "S": 128, "S_bf16": 64, "layers": 2}
 QWEN_FF = "dyad_it_4_kernel_ffused"
+# idle seconds between the profiler's start and a serving window's first
+# launch, and between its last kernel and the profiler's stop: the
+# profiler drops kernel records it finds out of its time range, fewer with
+# this margin; and the profiles a window may take before one holds every
+# counted launch
+PROFILE_MARGIN_S = 0.25
+PROFILE_TRIES = 3
 # the continuous path's traffic: each prompt a shared prefix and a tail of
 # a length drawn from ``tail``, each request up to ``max_new`` tokens
 CONT = {"slots": 8, "max_len": 512, "page_size": 16, "chunk": 128,
@@ -624,20 +640,35 @@ def _kernel_key(mangled: str, kernels):
     return f"{base}<{','.join(targs) or '?'}>"
 
 
-def _ptxas(text: str, kernels) -> dict:
+def _paged_key(mangled: str, kernels=None):
+    """``paged<q,pool,HD,GM>`` (``,pad`` for a padded HD) of a mangled
+    instantiation of the paged decode kernel, or None."""
+    m = re.search(r"flash_decode_paged_kernelI(f|13__nv_bfloat16)(.+?)"
+                  r"Lb[01]ELi(\d+)ELi(\d+)ELb([01])E", mangled)
+    if m is None:
+        return None
+    names = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
+    # a pool type other than float and int8 is bf16 (a repeated bf16 is
+    # mangled as a substitution)
+    return "paged<{},{},{},{}{}>".format(
+        names[m.group(1)], names.get(m.group(2), "bf16"), m.group(3),
+        m.group(4), ",pad" if m.group(5) == "1" else "")
+
+
+def _ptxas(text: str, kernels, key=_kernel_key) -> dict:
     """Registers, spill bytes and wgmma serialisation warnings of each
     entry function of nvcc's ``-Xptxas -v`` output whose name holds one of
-    ``kernels``, by ``_kernel_key``."""
+    ``kernels``, by ``key`` (``_kernel_key``)."""
     out = {}
     for chunk in text.split("Compiling entry function '")[1:]:
         mangled = chunk.split("'", 1)[0]
-        key = _kernel_key(mangled, kernels)
-        if key is None:
+        key_ = key(mangled, kernels)
+        if key_ is None:
             continue
         regs = re.search(r"Used (\d+) registers", chunk)
         st = re.search(r"(\d+) bytes spill stores", chunk)
         ld = re.search(r"(\d+) bytes spill loads", chunk)
-        out[key] = {
+        out[key_] = {
             "regs": int(regs.group(1)) if regs else -1,
             "spill_stores": int(st.group(1)) if st else -1,
             "spill_loads": int(ld.group(1)) if ld else -1,
@@ -673,6 +704,46 @@ def _launches_by_name(per_kernel: dict, want: dict, key: str,
                                  for name, v in mine.items()},
                                 separators=(",", ":"))}, ok=ok)
     return ok
+
+
+def _paged_occupancy(torch, build, flash_attn) -> bool:
+    """Phase 2 for the paged decode: ptxas's registers and spills of each
+    HD 128 instantiation, with the shared memory of a block and the blocks
+    an SM holds at the span its pool dtype takes (the runtime's occupancy
+    query); a spill in any instantiation fails."""
+    import ctypes
+
+    ptx = _ptxas((build.BUILD_DIR / "flash_decode_paged.log").read_text(),
+                 ("flash_decode_paged_kernel",), key=_paged_key)
+    occupancy = build.entry("flash_decode_paged_occupancy")
+    fields, bad = {}, [
+        f"{k}(regs:{r['regs']},spill:{r['spill_stores']}/{r['spill_loads']})"
+        for k, r in ptx.items() if r["spill_stores"] or r["spill_loads"]]
+    pools = (("f32", torch.float32), ("bf16", torch.bfloat16),
+             ("int8", torch.int8))
+    for qn, qcode in (("f32", 0), ("bf16", 1)):
+        for pn, pool in pools:
+            for gm in (1, 2, 4, 8):
+                key = f"paged<{qn},{pn},128,{gm}>"
+                r = ptx.get(key)
+                if r is None:
+                    bad.append(f"{key} no report")
+                    continue
+                span = flash_attn.PAGED_SPAN[pool]
+                out = (ctypes.c_int * 2)()
+                err = occupancy(qcode, ("f32", "bf16", "int8").index(pn),
+                                128, gm, span, out)
+                if err:
+                    bad.append(f"{key} occupancy error {err}")
+                fields[key] = (f"regs:{r['regs']},spill_stores:"
+                               f"{r['spill_stores']},spill_loads:"
+                               f"{r['spill_loads']},span:{span},"
+                               f"smem:{out[0]},blocks_sm:{out[1]}")
+    log("ptxas", source="flash_decode_paged", instantiations=len(ptx),
+        **fields, ok=not bad)
+    if bad:
+        log("ptxas", failed=",".join(bad))
+    return not bad
 
 
 def _qwen3_kernel_split(per_kernel: dict, n_layers: int) -> bool:
@@ -1013,8 +1084,9 @@ def _time_paged(torch, randn, record, time_ms):
                f"B{B}_ctx{ctx}_K{K}_G{G}_h{h}_P{P}",
                FP32_FLOPS if pool_dt == torch.float32 else BF16_FLOPS,
                "bfloat16 q, " + str(pool_dt)[6:] + " pools")
-    # the kernel alone over each pool dtype at a short and the full context:
-    # equal times over 4x fewer bytes mean it waits on latency, not bytes
+    # the kernel alone over each pool dtype at a short and the full context,
+    # with the splits a slot takes there (of the grid's): a kernel that
+    # waits on latency takes the same time over 4x fewer bytes
     for n in (64, ctx):
         c = dict(c, idx=[n - 1] * B)
         times = {}
@@ -1023,9 +1095,13 @@ def _time_paged(torch, randn, record, time_ms):
                                                    torch.bfloat16, pool_dt)
             ms = time_ms(lambda: flash_attn.flash_decode_paged(
                 q, pk, pv, bt, idx, **sc))
-            times[str(pool_dt)[6:]] = f"{ms:.4f}"
+            span = flash_attn.PAGED_SPAN[pool_dt]
+            times[str(pool_dt)[6:]] = (
+                f"{ms:.4f}", -(-n // span),
+                flash_attn.paged_splits(NB, P, None, span))
         log("time_pools", kernel="flash_decode_paged", context=n,
-            **{f"ms_{k}": v for k, v in times.items()})
+            **{f"ms_{k}": v[0] for k, v in times.items()},
+            **{f"splits_{k}": f"{v[1]}/{v[2]}" for k, v in times.items()})
 
 
 def _qweight(randn, shape, qdtype, scale=1.0):
@@ -1278,16 +1354,18 @@ def _ff_args(randn, M, n, d_in, d_ff, d_out, act, dtype, wdtype):
     return (x1, x2, ups[0], ups[1], downs[0], downs[1], *gates)
 
 
-def _paged_inputs(torch, randn, c, q_dtype, pool_dtype):
+def _paged_inputs(torch, randn, c, q_dtype, pool_dtype, generator=None):
     """q (B, 1, K, G, h), pools of 1 + B * NB + 2 pages (two spare: the
     block tables are a random permutation, not the identity layout), the
-    tables, idx, and for int8 pools the quantized pools and their scales."""
+    tables, idx, and for int8 pools the quantized pools and their scales;
+    drawn from ``generator`` (default: ``randn``'s)."""
     from repro_torch import quant
 
     B, K, G, h, P, NB = (c[k] for k in ("B", "K", "G", "h", "P", "NB"))
     NP = 1 + B * NB + 2
-    q = randn(B, 1, K, G, h, dtype=q_dtype)
-    pk, pv = randn(NP, P, K, h), randn(NP, P, K, h)
+    q = randn(B, 1, K, G, h, dtype=q_dtype, generator=generator)
+    pk = randn(NP, P, K, h, generator=generator)
+    pv = randn(NP, P, K, h, generator=generator)
     perm = torch.randperm(NP - 1, generator=torch.Generator().manual_seed(
         NP))[:B * NB] + 1
     bt = perm.reshape(B, NB).to(torch.int32).to(q.device)
@@ -1379,6 +1457,8 @@ def main() -> int:
         if spilled:
             log("ptxas", failed=",".join(spilled))
             return 1
+    if not _paged_occupancy(torch, build, flash_attn):
+        return 1
     per_fn = {}
     for source, kernel in (("dyad_ff", "dyad_ff_tc_kernel"),
                            ("dyad_mm_q", "dyad_mm_q_tc_kernel")):
@@ -1403,6 +1483,7 @@ def main() -> int:
     aside = torch.Generator(device=dev).manual_seed(args.seed + 1)
     aside_fwd = torch.Generator(device=dev).manual_seed(args.seed + 2)
     aside_ff = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    aside_paged = torch.Generator(device=dev).manual_seed(args.seed + 4)
 
     failures = []
 
@@ -1474,6 +1555,17 @@ def main() -> int:
                     l_real=None, window=None),
         "h80_window": dict(B=3, K=2, G=2, h=80, P=16, NB=4,
                            idx=[63, 10, 33], l_real=None, window=20),
+        # the split edges of each span phase 4 times (64, 128 or 256
+        # keys) at Qwen3's shape: idx at a split's last key and the next
+        # split's first, a slot in one split beside one in every split (the
+        # last key of NB * P); a window that empties a slot's leading
+        # splits; drawn from aside_paged
+        "split_edges": dict(B=8, K=8, G=2, h=128, P=16, NB=32,
+                            idx=[0, 63, 64, 127, 128, 255, 256, 511],
+                            l_real=None, window=None, aside=True),
+        "window_leading_splits": dict(B=3, K=8, G=2, h=128, P=16, NB=32,
+                                      idx=[300, 511, 100], l_real=None,
+                                      window=40, aside=True),
     }
     # Qwen3-0.6B's ff: d 1024, d_ff 3072, n 4; blocks d_in 256, d_ff 768,
     # d_out 256
@@ -1773,8 +1865,9 @@ def main() -> int:
                     else "flash_decode_paged")
             exact = dt == torch.float32 and pool_dt != torch.bfloat16
             for label, c in paged_cases.items():
-                q, pk, pv, bt, idx, sc = _paged_inputs(torch, randn, c, dt,
-                                                       pool_dt)
+                q, pk, pv, bt, idx, sc = _paged_inputs(
+                    torch, randn, c, dt, pool_dt,
+                    aside_paged if c.get("aside") else None)
                 kw = dict(l_real=c["l_real"], window=c["window"], **sc)
                 err = check(f"{name}/{label}/pool_{pn}",
                             flash_attn.flash_decode_paged(q, pk, pv, bt, idx,
@@ -1801,6 +1894,21 @@ def main() -> int:
                 poisoned_pages=len(dead), ok=same)
             if not same:
                 failures.append(f"{name}/poisoned_scratch/pool_{pn}")
+            # each slot of the split edges alone gives its bits in the batch
+            # of 8, and a second call the same bits (the counters reset)
+            q, pk, pv, bt, idx, sc = _paged_inputs(
+                torch, randn, paged_cases["split_edges"], dt, pool_dt,
+                aside_paged)
+            batch = flash_attn.flash_decode_paged(q, pk, pv, bt, idx, **sc)
+            alone = all(torch.equal(flash_attn.flash_decode_paged(
+                q[i:i + 1], pk, pv, bt[i:i + 1], idx[i:i + 1], **sc),
+                batch[i:i + 1]) for i in range(q.shape[0]))
+            again = torch.equal(
+                flash_attn.flash_decode_paged(q, pk, pv, bt, idx, **sc), batch)
+            log("check", case=f"{name}/alone_vs_batch/pool_{pn}", dtype=dn,
+                alone_bitwise=alone, repeat_bitwise=again, ok=alone and again)
+            if not (alone and again):
+                failures.append(f"{name}/alone_vs_batch/pool_{pn}")
 
         for label, (M, n, d_in, d_out) in two_cases.items():
             x = randn(M, n * d_in, dtype=dt)
@@ -2024,22 +2132,7 @@ def main() -> int:
     del flush, sout
 
     # -- 5. the OPT serving path ---------------------------------------------
-    wrappers = {"dyad_mm_blocks": dyad_mm.dyad_mm_blocks,
-                "flash_prefill": flash_attn.flash_prefill,
-                "flash_decode": flash_attn.flash_decode,
-                "dyad_mm_dgrad_two": dyad_mm.dyad_mm_dgrad_two,
-                "dyad_mm_wgrad": dyad_mm.dyad_mm_wgrad,
-                "flash_prefill_grads": flash_attn.flash_prefill_grads,
-                "dyad_mm_blocks_two": dyad_mm.dyad_mm_blocks_two,
-                "dyad_mm_dgrad": dyad_mm.dyad_mm_dgrad,
-                "dyad_ff_fused": dyad_mm.dyad_ff_fused,
-                "flash_decode_paged": flash_attn.flash_decode_paged,
-                "flash_decode_paged_int8":
-                    flash_attn.flash_decode_paged_int8,
-                "dyad_mm_blocks_q": dyad_mm.dyad_mm_blocks_q,
-                "dyad_mm_blocks_two_q": dyad_mm.dyad_mm_blocks_two_q,
-                "dyad_ff_fused_q": dyad_mm.dyad_ff_fused_q}
-    run = _Run(torch, dev, args.seed, wrappers)
+    run = _Run(torch, dev, args.seed, _wrappers(dyad_mm, flash_attn))
 
     steps = new - 1
     serve_launches = run.serve("opt125m", "dyad_it_4_kernel", B, S, new,
@@ -2210,6 +2303,24 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _wrappers(dyad_mm, flash_attn) -> dict:
+    """Every kernel wrapper with a launch counter, by kernel name."""
+    return {"dyad_mm_blocks": dyad_mm.dyad_mm_blocks,
+            "flash_prefill": flash_attn.flash_prefill,
+            "flash_decode": flash_attn.flash_decode,
+            "dyad_mm_dgrad_two": dyad_mm.dyad_mm_dgrad_two,
+            "dyad_mm_wgrad": dyad_mm.dyad_mm_wgrad,
+            "flash_prefill_grads": flash_attn.flash_prefill_grads,
+            "dyad_mm_blocks_two": dyad_mm.dyad_mm_blocks_two,
+            "dyad_mm_dgrad": dyad_mm.dyad_mm_dgrad,
+            "dyad_ff_fused": dyad_mm.dyad_ff_fused,
+            "flash_decode_paged": flash_attn.flash_decode_paged,
+            "flash_decode_paged_int8": flash_attn.flash_decode_paged_int8,
+            "dyad_mm_blocks_q": dyad_mm.dyad_mm_blocks_q,
+            "dyad_mm_blocks_two_q": dyad_mm.dyad_mm_blocks_two_q,
+            "dyad_ff_fused_q": dyad_mm.dyad_ff_fused_q}
 
 
 class _Run:
@@ -2540,6 +2651,73 @@ class _Run:
         return ok
 
     # -- 12. the continuous engine -------------------------------------------
+    def _cont_setup(self):
+        """(cfg, params, prompts, max_new, engine kwargs) of the
+        continuous path: Qwen3-0.6B, random weights from the seed, the ff
+        weights x 4, CONT's trace and engine."""
+        from repro_torch import configs
+        from repro_torch.models import model
+
+        cfg = configs.get("qwen3_0_6b", linear=configs.linear_cfg(QWEN_FF))
+        params = _scale_ff(model.init_params(
+            cfg, self.torch.Generator(device=self.dev).manual_seed(
+                self.seed), self.dev), CONT["ff_scale"])
+        prompts, max_new = _trace(cfg.vocab_size, self.seed, CONT)
+        kw = dict(n_slots=CONT["slots"], max_len=CONT["max_len"],
+                  page_size=CONT["page_size"], prefill_chunk=CONT["chunk"],
+                  prefix_cache=True)
+        return cfg, params, prompts, max_new, kw
+
+    def _profiled(self, phase, cfg, params, prompts, max_new, kw, route,
+                  ff=None, whole=None):
+        """A warm-up, the trace with its launch counts checked, then a
+        profiled rerun over CONT's window of engine steps.  The whole run
+        launches some 700,000 kernels, which the profiler takes minutes to
+        record and sort: it traces the window, device activity only,
+        against the same window's wall time in the unprofiled run (the
+        engine schedules both runs alike).  The profiler drops a few kernel
+        records in some windows, as out of its time range, whatever its
+        buffer size (fewer with PROFILE_MARGIN_S idle at each end of the
+        window); so a profile counts only if its paged decode launches,
+        and those of each kernel name of ``whole`` ({name: wrapper}), equal
+        the window's counted calls.  It is taken again up to PROFILE_TRIES
+        times, and the phase fails if none is whole.  Returns (run,
+        profiled run, {kernel: (ms, launches)}), None on a failure."""
+        from torch.profiler import ProfilerActivity, profile
+
+        # the first calls at each shape pay one-time costs
+        self._serve_trace(cfg, params, prompts[:2], [4, 4], **kw)
+        window = CONT["profile_steps"]
+        run = self._serve_trace(cfg, params, prompts, max_new, window=window,
+                                **kw)
+        if not self._check_trace(phase, cfg, run, route, ff=ff):
+            return None
+        whole = {"flash_decode_paged_kernel": {
+            "paged": "flash_decode_paged",
+            "int8": "flash_decode_paged_int8"}[route], **(whole or {})}
+        for attempt in range(1, PROFILE_TRIES + 1):
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            traced = self._serve_trace(cfg, params, prompts, max_new,
+                                       window=window, prof=prof, **kw)
+            per_kernel = _log_profile(prof, run["window_s"] * 1e3,
+                                      phase + "_profile")
+            seen = {k: sum(n for name, (_, n) in per_kernel.items()
+                           if re.search(rf"\b{k}\b", name)) for k in whole}
+            counted = {k: traced["window_launches"][w]
+                       for k, w in whole.items()}
+            paged_ms = sum(ms for name, (ms, _) in per_kernel.items()
+                           if "flash_decode_paged_kernel" in name)
+            log(phase + "_profile", steps=f"{window[0]}-{window[1] - 1}",
+                of_steps=run["engine_steps"], attempt=attempt,
+                paged_decode_ms=f"{paged_ms:.3f}",
+                **{f"{k}_launches": f"{seen[k]}/{counted[k]}"
+                   for k in whole}, whole=seen == counted)
+            if seen == counted:
+                return run, traced, per_kernel
+        log(phase + "_profile", failed=f"each of {PROFILE_TRIES} profiles "
+            "dropped launch records")
+        return None
+
     def continuous(self):
         """The continuous-batching path at full width and depth: the paged
         run with exact launch counts and its metrics, a profiled run, then
@@ -2547,37 +2725,12 @@ class _Run:
         each held against the paged run, and int8 pools at 2 layers on the
         card against the CPU port.  Returns the launch counts of the paged,
         int8 and dense runs, None on a failure."""
-        from torch.profiler import ProfilerActivity, profile
-
-        from repro_torch import configs
-        from repro_torch.models import model
-
-        torch, dev = self.torch, self.dev
-        cfg = configs.get("qwen3_0_6b", linear=configs.linear_cfg(QWEN_FF))
-        params = _scale_ff(model.init_params(
-            cfg, torch.Generator(device=dev).manual_seed(self.seed), dev),
-            CONT["ff_scale"])
-        prompts, max_new = _trace(cfg.vocab_size, self.seed, CONT)
-        kw = dict(n_slots=CONT["slots"], max_len=CONT["max_len"],
-                  page_size=CONT["page_size"], prefill_chunk=CONT["chunk"],
-                  prefix_cache=True)
-        # warm-up: the first calls at each shape pay one-time costs
-        self._serve_trace(cfg, params, prompts[:2], [4, 4], **kw)
-        window = CONT["profile_steps"]
-        paged = self._serve_trace(cfg, params, prompts, max_new,
-                                  window=window, **kw)
-        if not self._check_trace("continuous", cfg, paged, "paged"):
+        cfg, params, prompts, max_new, kw = self._cont_setup()
+        got = self._profiled("continuous", cfg, params, prompts, max_new, kw,
+                             "paged")
+        if got is None:
             return None
-        # the whole run launches some 700,000 kernels, which the profiler
-        # takes minutes to record and sort: it traces a window of engine
-        # steps, device activity only, against the same window's wall time
-        # in the unprofiled run (the engine schedules both runs alike)
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        self._serve_trace(cfg, params, prompts, max_new, window=window,
-                          prof=prof, **kw)
-        _log_profile(prof, paged["window_s"] * 1e3, "continuous_profile")
-        log("continuous_profile", steps=f"{window[0]}-{window[1] - 1}",
-            of_steps=paged["engine_steps"])
+        paged = got[0]
 
         dense = self._serve_trace(cfg, params, prompts, max_new,
                                   env={"REPRO_PAGED_KV": "off"}, **kw)
@@ -2604,7 +2757,7 @@ class _Run:
         if not ok or preempted == 0:
             return None
         del params
-        torch.cuda.empty_cache()
+        self.torch.cuda.empty_cache()
         if not (self.continuous_exact() and self.continuous_parity()):
             return None
         return {"paged": paged["launches"], "int8": int8["launches"],
@@ -2692,8 +2845,6 @@ class _Run:
     def quant_continuous(self):
         """Phase 13 (b)-(e).  Returns the launch counts of the full-depth
         run and of the split run, None on a failure."""
-        from torch.profiler import ProfilerActivity, profile
-
         torch = self.torch
         q_fused = {"dyad_ff_fused_q": 1}
         q_split = {"dyad_mm_blocks_q": 2, "dyad_mm_blocks_two_q": 1}
@@ -2704,20 +2855,12 @@ class _Run:
         kw = dict(n_slots=CONT["slots"], max_len=CONT["max_len"],
                   page_size=CONT["page_size"], prefill_chunk=CONT["chunk"],
                   prefix_cache=True)
-        self._serve_trace(cfg, params, prompts[:2], [4, 4], **kw)  # warm-up
-        window = CONT["profile_steps"]
-        full = self._serve_trace(cfg, params, prompts, max_new,
-                                 window=window, **kw)
-        if not self._check_trace("quant_continuous", cfg, full, "int8",
-                                 ff=q_fused):
+        got = self._profiled("quant_continuous", cfg, params, prompts,
+                             max_new, kw, "int8", ff=q_fused,
+                             whole={"dyad_ff_tc_kernel": "dyad_ff_fused_q"})
+        if got is None:
             return None
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        traced = self._serve_trace(cfg, params, prompts, max_new,
-                                   window=window, prof=prof, **kw)
-        per_kernel = _log_profile(prof, full["window_s"] * 1e3,
-                                  "quant_continuous_profile")
-        log("quant_continuous_profile", steps=f"{window[0]}-{window[1] - 1}",
-            of_steps=full["engine_steps"])
+        full, traced, per_kernel = got
         # the window's quantized ff calls on the tensor-core megakernel's
         # payload instantiation: no FMA megakernel, no weight cast
         calls = traced["window_launches"]["dyad_ff_fused_q"]
@@ -2865,9 +3008,12 @@ class _Run:
                         torch.cuda.synchronize()
                     bounds[n_steps] = time.perf_counter()
                     at[n_steps] = self.counts()
-                    if prof is not None:
-                        (prof.start if n_steps == window[0]
-                         else prof.stop)()
+                    if prof is not None and n_steps == window[0]:
+                        prof.start()
+                        time.sleep(PROFILE_MARGIN_S)
+                    elif prof is not None:
+                        time.sleep(PROFILE_MARGIN_S)
+                        prof.stop()
                 eng.step()
                 n_steps += 1
             res = eng.run()                   # drained: collects the tokens

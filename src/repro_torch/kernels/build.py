@@ -56,8 +56,11 @@ ENTRIES = {
     "dyad_ff": ("dyad_ff", "repro_dyad_ff_fused",
                 [_P] * 12 + [_I] * 7 + [_LL] * 12 + [_I] * 4 + [_P]),
     "flash_decode_paged": ("flash_decode_paged", "repro_flash_decode_paged",
-                           [_P] * 8 + [_I] * 7 + [_LL] * 3
+                           [_P] * 10 + [_I] * 8 + [_LL] * 4
                            + [_I, _F, _I, _I, _P]),
+    "flash_decode_paged_occupancy": (
+        "flash_decode_paged", "repro_flash_decode_paged_occupancy",
+        [_I] * 5 + [_P]),
     "dyad_mm_q": ("dyad_mm_q", "repro_dyad_mm_blocks_q",
                   [_P] * 8 + [_I] * 6 + [_LL] * 9 + [_I] * 3 + [_P]),
     "dyad_mm_two_q": ("dyad_mm_q", "repro_dyad_mm_blocks_two_q",

@@ -19,40 +19,52 @@
 // converted to fp32 in registers and never expanded in device memory.
 //
 // Scores take the promoted type of q and the pool: both are converted to
-// fp32 as they are loaded, which is the promoted product for fp32/bf16
+// fp32 as they are used, which is the promoted product for fp32/bf16
 // (int8 -> fp32 is exact too), so neither operand is cast in memory.
 //
 // Bound on the H100: the bytes of the live K/V rows (and their scales),
-// read once; the arithmetic is 4*h FLOPs per key and query head.  Design,
-// from the ring decode kernel (flash_decode.cu): one block per (b, kv
-// head) with the G query heads of the GQA group in it, 4 warps that take
-// every fourth 32-key tile, so four tiles are in flight per block.  The
-// block reads idx once and its block-table row once into shared memory; each
-// key row is addressed on its own through the table, so a tile may span
-// pages and any page size works.  Rows past idx (or l_real) are never
-// read, so a poisoned scratch page cannot reach the output, and tiles
-// past idx are skipped.  A warp loads 8 rows at a time into registers as
-// vectors (a whole 128-element int8 row is one 4-byte load per lane) and
-// converts and stores them to shared memory only once all 8 are issued (a
-// conversion placed after each load made bf16 and int8 pools wait on
-// memory once per row: 1.8x the fp32 pools' time); lane c scores key c
-// for the G query heads, the warp keeps its online softmax (m, l, acc)
-// in registers and broadcasts p with shuffles for P.V; the four warps'
-// states merge at the end.  With B * K blocks (64 at 8 slots of Qwen3)
-// the card's 132 SMs are not filled: splitting the key axis over blocks
-// is later work.
+// read once; the arithmetic is 4*h FLOPs per key and query head, far below
+// the FMA units' rate, so bytes and memory latency bound the kernel.
+// Design (flash-decoding): the grid runs over (split, KV head, slot); a
+// split is a fixed span of keys, a whole number (1-8) of 32-key tiles, one
+// tile a warp.  A block loads its threads' block-table entries beside idx,
+// then q into shared memory while those land.  Each warp then copies its
+// tile's live rows as raw pool bytes (fp32, bf16 or int8) into padded
+// shared rows with the copy engine, one bulk copy a row issued by the row's
+// lane and completing on the tile's mbarrier, K then V, so every block has
+// its bytes in flight before it waits on any.  Over fp32 pools a warp holds
+// one buffer and copies V into it once K is scored, so that a 128-key block
+// takes 67 KB and three fit an SM; bf16 and int8 pools keep K and V apart.
+// Lane c scores key c for the G query heads (16-byte vectors along its row,
+// converted at use; the 16-byte pad puts neighbouring rows 4 banks apart,
+// so the vectors do not conflict), then P.V over the live rows with p
+// broadcast by shuffles, each lane holding h / 32 contiguous dims.  The
+// warps' states merge in shared memory.  A slot whose live keys lie in one
+// split writes o from that block; else each block writes its partial (m,
+// l, acc[G][h]) to a workspace, fences, and counts itself on the (slot, KV
+// head) counter; the last to arrive merges every partial of the slot in
+// split order, writes o and resets the counter to 0.  Rows past idx (or
+// l_real) and, with a window, rows before it are never read, so a poisoned
+// scratch page cannot reach the output, and a block whose span holds no
+// live key exits before it reads a row.  What bounds it now: each block's
+// chain of dependent latencies (idx and the table, the copies, scoring,
+// P.V, the merge), about as long as its bytes take to arrive.
 //
-// Any head dim h <= 128 runs, as in the ring decode kernel: the kernel is
-// instantiated at HD 32, 64 and 128 and takes the smallest HD >= h; q, K
-// and V hold zeros in the lanes past h (masked on load, so they add
-// nothing to a score or to P.V) and only the h real lanes are stored.
-// h = 64 and 128 take the unpadded instantiations, whose loads are those
-// of the kernel before padding (the masked load, in the same code, made
-// h 128 measurably slower).  The padded ones (PAD) load a lane's DPL = HD / 32 elements
-// as one vector where all lie below h and h is a multiple of DPL, and
-// otherwise (the lane that holds the edge, or an h off a multiple of DPL,
-// whose rows are not vector aligned) element by element, still before the
-// chunk's first conversion.
+// A slot's splits and the span are functions of its own idx, the window,
+// l_real and NB * P only, and every merge runs in a fixed order, so a row's
+// bits do not depend on the other slots of the batch, on the batch size or
+// on which block finishes last: the same inputs give the same bits.  The
+// entry works out the grid's splits itself and refuses a workspace too
+// short for them.  The counters make concurrent launches on one device
+// unsafe; the port launches on one stream.
+//
+// Any head dim h <= 128 runs: the kernel is instantiated at HD 32, 64 and
+// 128 and takes the smallest HD >= h; q, K and V hold zeros in the lanes
+// past h (so they add nothing to a score or to P.V) and only the h real
+// lanes are stored.  h = 64 and 128 take the unpadded instantiations, whose
+// rows are bulk copies; the padded ones (PAD) copy a tile element by
+// element through registers, zeros past h, since a row of h elements need
+// not be a whole number of 16-byte chunks.
 #include <type_traits>
 
 #include "common.cuh"
@@ -60,10 +72,9 @@
 namespace repro {
 namespace {
 
-constexpr int kKeys = 32;
-constexpr int kWarps = 4;
-constexpr int kChunk = 8;   // cache rows loaded per round trip
-constexpr int kI8 = 2;      // pool dtype code of an int8 pool
+constexpr int kKeys = 32;       // keys of a tile, one tile a warp
+constexpr int kMaxWarps = 8;    // a split: 1 to 8 tiles
+constexpr int kI8 = 2;          // pool dtype code of an int8 pool
 
 template <int BYTES>
 struct Vec;
@@ -88,34 +99,12 @@ struct Vec<1> {
   using type = unsigned char;
 };
 
-// N consecutive elements of type T as one vector, loaded raw and converted
-// to fp32 apart, so that a chunk's loads are all issued before the first
-// conversion waits on one.  int8 payloads convert without the int-to-float
-// unit (a quarter of the FMA rate): each byte, biased to x + 128, becomes
-// the low byte of the float 2^23 + x + 128, from which one subtraction
-// leaves x exactly.
+// N consecutive elements of type T as one raw vector, converted to fp32
+// at use.  int8 payloads convert without the int-to-float unit (a quarter
+// of the FMA rate): each byte, biased to x + 128, becomes the low byte of
+// the float 2^23 + x + 128, from which one subtraction leaves x exactly.
 template <typename T, int N>
 using RawVec = typename Vec<N * sizeof(T)>::type;
-
-template <typename T, int N>
-__device__ __forceinline__ RawVec<T, N> load_raw(const T* p) {
-  return __ldg(reinterpret_cast<const RawVec<T, N>*>(p));
-}
-
-// elements d0 .. d0 + N - 1 of a cache row of h elements: one vector load
-// where all N exist and the row is vector aligned (vec), else one load per
-// element below h; the lanes past h stay zero bits, which convert to 0
-template <typename T, int N>
-__device__ __forceinline__ RawVec<T, N> load_row(const T* row, int d0, int h,
-                                                 bool vec) {
-  if (vec && d0 + N <= h) return load_raw<T, N>(row + d0);
-  RawVec<T, N> raw{};
-  T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    if (d0 + i < h) e[i] = row[d0 + i];
-  return raw;
-}
 
 template <typename T, int N>
 __device__ __forceinline__ void convert(const RawVec<T, N>& raw,
@@ -133,6 +122,116 @@ __device__ __forceinline__ void convert(const RawVec<T, N>& raw,
   }
 }
 
+// the 16 bytes of a pool row as 16 / sizeof(T) floats
+template <typename T>
+__device__ __forceinline__ void convert16(const uint4& raw,
+                                          float (&out)[16 / sizeof(T)]) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    const unsigned int w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float f[4];
+      convert<int8_t, 4>(w[k], f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) out[4 * k + i] = f[i];
+    }
+  } else {
+    convert<T, 16 / sizeof(T)>(raw, out);
+  }
+}
+
+__device__ __forceinline__ unsigned int smem_u32(const void* p) {
+  return static_cast<unsigned int>(__cvta_generic_to_shared(p));
+}
+
+// the mbarrier of a tile: one arrival (the warp's lane 0, with the bytes
+// the tile's copies bring), then each bulk copy completes its bytes
+__device__ __forceinline__ void bar_init(unsigned int bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(1));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_expect(unsigned int bar,
+                                           unsigned int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bar_wait(unsigned int bar) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT;\n}\n" ::"r"(bar),
+      "r"(0)
+      : "memory");
+}
+// one contiguous run of bytes (a multiple of 16, both ends 16-byte
+// aligned) from device memory to shared memory by the copy engine
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned int bytes,
+                                          unsigned int bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// a warp's K or V tile in shared memory: 32 rows of HD raw elements, each
+// row padded by 16 bytes
+template <typename T, int HD>
+struct Tile {
+  static constexpr int kRowBytes = HD * static_cast<int>(sizeof(T));
+  static constexpr int kStride = kRowBytes + 16;
+  static constexpr int kBytes = kKeys * kStride;
+  // buffers a warp holds: K and V apart, or over fp32 pools one, V loaded
+  // into it once K is scored, so that 128-key blocks fit 3 an SM
+  static constexpr int kBufs = sizeof(T) == 4 ? 1 : 2;
+};
+
+// stage one tile: tile row r holds pool row `row` of lane r (-1: nothing
+// read; such a row is masked, and P.V skips it).  Unpadded: lane r's row
+// as one bulk copy on the tile's mbarrier `bar`.  PAD: element by element
+// through registers, zeros past h and in the rows not read.
+template <typename T, int HD, bool PAD>
+__device__ __forceinline__ void stage(const T* pool, unsigned char* tile,
+                                      unsigned int bar, int row, int lane,
+                                      int h, unsigned int live_rows) {
+  using L = Tile<T, HD>;
+  if constexpr (PAD) {
+    using U = RawVec<T, 1>;
+    const U* src = reinterpret_cast<const U*>(pool);
+    // element e of the tile: row e / HD, the same for the whole warp
+    for (int e = lane; e < kKeys * HD; e += 32) {
+      const int r = e / HD, d = e % HD;
+      const int rr = __shfl_sync(0xffffffffu, row, r);
+      U v = 0;
+      if (rr >= 0 && d < h) v = src[(long long)rr * h + d];
+      reinterpret_cast<U*>(tile + r * L::kStride)[d] = v;
+    }
+  } else {
+    if (lane == 0) bar_expect(bar, live_rows * L::kRowBytes);
+    if (row >= 0)
+      bulk_copy(tile + lane * L::kStride,
+                reinterpret_cast<const unsigned char*>(pool) +
+                    (long long)row * L::kRowBytes,
+                L::kRowBytes, bar);
+  }
+}
+
+// fold a partial softmax state (ms, ls, os) into the running (m, l, o);
+// an empty partial (ms = kNegInf, ls = 0, os = 0) adds nothing, and one
+// partial into the empty state leaves its l and o bits
+__device__ __forceinline__ void fold(float& m, float& l, float& o, float ms,
+                                     float ls, float os) {
+  const float mn = fmaxf(m, ms);
+  const float a = expf(m - mn), c = expf(ms - mn);
+  l = l * a + ls * c;
+  o = o * a + os * c;
+  m = mn;
+}
+
 struct PagedArgs {
   const void* q;
   const void* pk;
@@ -142,50 +241,98 @@ struct PagedArgs {
   const int* bt;
   const int* idx;
   void* o;
-  int B, K, G, h, P, NB, l_real;
+  float* ws;       // partials [B][K][splits][G][h + 2]: acc, then m, l
+  int* counters;   // [B * K], zero between launches
+  int B, K, G, h, P, NB, l_real, span;
   long long q_sb, q_sk, q_sg;
   int window;
   float scale;
 };
 
+// splits of the grid: the span's tiles over min(NB * P, l_real) keys
+__host__ __device__ __forceinline__ int n_splits(const PagedArgs& a) {
+  const int cap = a.NB * a.P < a.l_real ? a.NB * a.P : a.l_real;
+  const int n = (cap + a.span - 1) / a.span;
+  return n > 1 ? n : 1;
+}
+
 template <typename TQ, typename TKV, bool QUANT, int HD, int GM, bool PAD>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kMaxWarps * 32)
 flash_decode_paged_kernel(PagedArgs a) {
-  constexpr int DPL = HD / 32;   // head-dim elements per lane
-  extern __shared__ float smem[];
-  float* qs = smem;                                  // [GM][HD]
-  int* bts = reinterpret_cast<int*>(qs + GM * HD);   // [NB]
-  float* ws = qs + GM * HD + a.NB;                   // per warp: K
-  // [kKeys][HD + 1], then V [kKeys][HD]
-  constexpr int kWarpFloats = kKeys * (2 * HD + 1);
+  using L = Tile<TKV, HD>;
+  constexpr int DPL = HD / 32;   // head-dim elements per lane in P.V
+  constexpr int E = 16 / static_cast<int>(sizeof(TKV));   // per 16 bytes
+  constexpr int kBufs = L::kBufs;
+  static_assert(kBufs * L::kBytes >= sizeof(float) * GM * (HD + 2),
+                "a warp's merge state fits its tiles");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
+  __shared__ __align__(8) unsigned long long bars[2 * kMaxWarps];  // K, V
+  float* qs = reinterpret_cast<float*>(smem);          // [GM][HD]
+  unsigned char* tiles = smem + sizeof(float) * GM * HD;   // per warp: K, V
 
   const TQ* q = static_cast<const TQ*>(a.q);
-  const TKV* pk = static_cast<const TKV*>(a.pk);
-  const TKV* pv = static_cast<const TKV*>(a.pv);
   TQ* o = static_cast<TQ*>(a.o);
-
-  const int b = blockIdx.y, kh = blockIdx.x;
+  const int s = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int idx = a.idx[b];
-  const int P = a.P, K = a.K;
-  // the last logical position this slot may attend
-  int jmax = idx;
-  if (a.l_real - 1 < jmax) jmax = a.l_real - 1;
-  if (a.NB * P - 1 < jmax) jmax = a.NB * P - 1;
-
-  for (int e = tid; e < GM * HD; e += kWarps * 32) {
-    const int g = e / HD, d = e % HD;
-    float val = 0.f;
-    if (g < a.G && d < a.h)
-      val = to_f32(q[b * a.q_sb + kh * a.q_sk + g * a.q_sg + d]);
-    qs[e] = val;
+  const int nw = blockDim.x / 32;
+  const int j = s * a.span + tid;   // this thread's key
+  const int cap = min(a.NB * a.P, a.l_real);
+  // the warp's K and V tile mbarriers, ready before its copies are issued
+  if (!PAD && lane == 0) {
+    bar_init(smem_u32(bars + 2 * warp));
+    bar_init(smem_u32(bars + 2 * warp + 1));
   }
-  for (int e = tid; e < a.NB; e += kWarps * 32) bts[e] = a.bt[b * a.NB + e];
-  __syncthreads();
+  __syncwarp();
+  // the block-table entry of this thread's key and idx, then q into shared
+  // memory, four loads a thread in flight, while those land
+  const int page = j < cap ? __ldg(a.bt + (long long)b * a.NB + j / a.P) : 0;
+  const int idx = __ldg(a.idx + b);
+  for (int e0 = tid; e0 < GM * HD; e0 += 4 * blockDim.x) {
+    float qv[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = e0 + k * blockDim.x, g = e / HD, d = e % HD;
+      qv[k] = e < GM * HD && g < a.G && d < a.h
+                  ? to_f32(q[b * a.q_sb + kh * a.q_sk + g * a.q_sg + d])
+                  : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (e0 + k * blockDim.x < GM * HD) qs[e0 + k * blockDim.x] = qv[k];
+  }
+  // the live keys [jlo, jmax] and the splits that hold them; a row with no
+  // live key takes split 0 alone, which writes its zeros
+  const int jmax = min(idx, cap - 1);
+  const int jlo = a.window >= 0 ? max(idx - a.window + 1, 0) : 0;
+  int s_lo = jlo / a.span, s_hi = jmax / a.span;
+  if (jmax < jlo) s_lo = s_hi = 0;
+  if (s < s_lo || s > s_hi) return;
+  const int n_live = s_hi - s_lo + 1;
+  const bool live = j >= jlo && j <= jmax;
+  const int row = live ? (page * a.P + j % a.P) * a.K + kh : -1;
 
-  float* kw = ws + warp * kWarpFloats;
-  float* vw = kw + kKeys * (HD + 1);
-  const bool vec = a.h % DPL == 0;   // every row's vectors aligned (PAD)
+  unsigned char* kt = tiles + warp * kBufs * L::kBytes;
+  unsigned char* vt = kt + (kBufs - 1) * L::kBytes;
+  const unsigned int kbar = smem_u32(bars + 2 * warp), vbar = kbar + 8;
+  // the tile's live keys, a run [c_lo, c_hi] of its lanes
+  const unsigned int mask = __ballot_sync(0xffffffffu, live);
+  const int c_lo = __ffs(mask) - 1, c_hi = 31 - __clz(mask);
+  if (mask) {
+    // K, then V (two buffers), both in flight before any wait
+    stage<TKV, HD, PAD>(static_cast<const TKV*>(a.pk), kt, kbar, row, lane,
+                        a.h, __popc(mask));
+    if (kBufs == 2)
+      stage<TKV, HD, PAD>(static_cast<const TKV*>(a.pv), vt, vbar, row,
+                          lane, a.h, __popc(mask));
+  }
+  // int8 pools: this lane's key scales, issued behind the copies
+  float s_k = 1.f, s_v = 1.f;
+  if (QUANT && live) {
+    s_k = __ldg(a.sk + row);
+    s_v = __ldg(a.sv + row);
+  }
+  __syncthreads();
 
   float m[GM], l[GM], acc[GM][DPL];
 #pragma unroll
@@ -193,102 +340,78 @@ flash_decode_paged_kernel(PagedArgs a) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) acc[g][j] = 0.f;
+    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
   }
-
-  for (int t = warp; t * kKeys <= jmax; t += kWarps) {
-    const int j0 = t * kKeys;
-    const int j = j0 + lane;
-    // int8 pools: lane c's key scales from the same (page, row, kh),
-    // issued before the tile's rows so that the loads overlap
-    float s_k = 1.f, s_v = 1.f;
-    if (QUANT && j <= jmax) {
-      const long long srow = ((long long)bts[j / P] * P + j % P) * K + kh;
-      s_k = __ldg(a.sk + srow);
-      s_v = __ldg(a.sv + srow);
-    }
-    __syncwarp();
-    // stage in chunks of kChunk rows: every load of a chunk is issued
-    // before the first conversion or shared-memory store (rows past jmax
-    // stay zero bits, which convert to 0)
+  if (mask) {
+    if (!PAD) bar_wait(kbar);
+    // lane c scores key c while V is in flight
+    float dot[GM];
 #pragma unroll
-    for (int c0 = 0; c0 < kKeys; c0 += kChunk) {
-      RawVec<TKV, DPL> kraw[kChunk], vraw[kChunk];
+    for (int g = 0; g < GM; ++g) dot[g] = 0.f;
+    const unsigned char* kr = kt + lane * L::kStride;
+#pragma unroll 4
+    for (int c = 0; c < L::kRowBytes / 16; ++c) {
+      float kf[E];
+      convert16<TKV>(*reinterpret_cast<const uint4*>(kr + 16 * c), kf);
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const int j = j0 + c0 + c;
-        kraw[c] = vraw[c] = RawVec<TKV, DPL>{};
-        if (j <= jmax) {
-          const long long row =
-              ((long long)bts[j / P] * P + j % P) * K + kh;
-          if constexpr (PAD) {
-            kraw[c] =
-                load_row<TKV, DPL>(pk + row * a.h, lane * DPL, a.h, vec);
-            vraw[c] =
-                load_row<TKV, DPL>(pv + row * a.h, lane * DPL, a.h, vec);
-          } else {
-            kraw[c] = load_raw<TKV, DPL>(pk + row * HD + lane * DPL);
-            vraw[c] = load_raw<TKV, DPL>(pv + row * HD + lane * DPL);
-          }
-        }
-      }
+      for (int g = 0; g < GM; ++g) {
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        float kr[DPL], vr[DPL];
-        convert<TKV, DPL>(kraw[c], kr);
-        convert<TKV, DPL>(vraw[c], vr);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          kw[(c0 + c) * (HD + 1) + lane * DPL + i] = kr[i];
-          vw[(c0 + c) * HD + lane * DPL + i] = vr[i];
+        for (int e4 = 0; e4 < E; e4 += 4) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qs + g * HD + c * E + e4);
+          dot[g] = fmaf(qv.x, kf[e4], dot[g]);
+          dot[g] = fmaf(qv.y, kf[e4 + 1], dot[g]);
+          dot[g] = fmaf(qv.z, kf[e4 + 2], dot[g]);
+          dot[g] = fmaf(qv.w, kf[e4 + 3], dot[g]);
         }
       }
     }
-    bool valid = j <= jmax;
-    if (a.window >= 0) valid = valid && idx - j < a.window;
-    __syncwarp();
-
     float p[GM];
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < HD; ++d)
-        dot = fmaf(qs[g * HD + d], kw[lane * (HD + 1) + d], dot);
-      if (QUANT) dot *= s_k;
-      const float sc = valid ? dot * a.scale : kNegInf;
-      const float m_new = fmaxf(m[g], warp_max(sc));
-      const float alpha = expf(m[g] - m_new);
-      p[g] = valid ? expf(sc - m_new) : 0.f;
-      l[g] = l[g] * alpha + warp_sum(p[g]);
-      m[g] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < DPL; ++jj) acc[g][jj] *= alpha;
+      const float d = QUANT ? dot[g] * s_k : dot[g];
+      const float sc = live ? d * a.scale : kNegInf;
+      m[g] = warp_max(sc);
+      p[g] = live ? expf(sc - m[g]) : 0.f;
+      l[g] = warp_sum(p[g]);
       if (QUANT) p[g] *= s_v;
     }
+    if (kBufs == 1) {
+      // V into K's buffer, once every lane has read its K row
+      __syncwarp();
+      if (!PAD) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      stage<TKV, HD, PAD>(static_cast<const TKV*>(a.pv), vt, vbar, row,
+                          lane, a.h, __popc(mask));
+      __syncwarp();
+    }
+    if (!PAD) bar_wait(vbar);
 #pragma unroll 8
-    for (int c = 0; c < kKeys; ++c) {
+    for (int c = c_lo; c <= c_hi; ++c) {
+      float vf[DPL];
+      convert<TKV, DPL>(*reinterpret_cast<const RawVec<TKV, DPL>*>(
+                            vt + c * L::kStride + lane * DPL * sizeof(TKV)),
+                        vf);
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         const float pc = __shfl_sync(0xffffffffu, p[g], c);
 #pragma unroll
-        for (int jj = 0; jj < DPL; ++jj)
-          acc[g][jj] = fmaf(pc, vw[c * HD + lane + 32 * jj], acc[g][jj]);
+        for (int i = 0; i < DPL; ++i) acc[g][i] = fmaf(pc, vf[i], acc[g][i]);
       }
     }
   }
 
-  // merge the four warps' partial softmax states; the tiles are done, so
-  // their shared memory holds the partials: [warp][GM][HD] acc, then m, l
+  // merge the warps' states in warp order; the tiles are done, so their
+  // shared memory holds the states: m [nw][GM], l [nw][GM], acc
+  // [nw][GM][HD]
   __syncthreads();
-  float* pacc = ws;
-  float* pm = pacc + kWarps * GM * HD;
-  float* pl = pm + kWarps * GM;
+  float* pm = reinterpret_cast<float*>(tiles);
+  float* pl = pm + nw * GM;
+  float* pacc = pl + nw * GM;
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
 #pragma unroll
-    for (int jj = 0; jj < DPL; ++jj)
-      pacc[(warp * GM + g) * HD + lane + 32 * jj] = acc[g][jj];
+    for (int i = 0; i < DPL; ++i)
+      pacc[(warp * GM + g) * HD + lane * DPL + i] = acc[g][i];
     if (lane == 0) {
       pm[warp * GM + g] = m[g];
       pl[warp * GM + g] = l[g];
@@ -296,67 +419,130 @@ flash_decode_paged_kernel(PagedArgs a) {
   }
   __syncthreads();
   const int h = PAD ? a.h : HD;
-  for (int e = tid; e < a.G * h; e += kWarps * 32) {
+  const long long bk = (long long)b * a.K + kh;
+  const long long part0 = bk * gridDim.x * a.G;   // this slot's partials
+  for (int e = tid; e < a.G * h; e += blockDim.x) {
     const int g = e / h, d = e % h;
-    float mx = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, pm[w * GM + g]);
-    float lsum = 0.f, osum = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(pm[w * GM + g] - mx);
-      lsum += pl[w * GM + g] * f;
-      osum += pacc[(w * GM + g) * HD + d] * f;
+    float mx = kNegInf, ls = 0.f, os = 0.f;
+    for (int w = 0; w < nw; ++w)
+      fold(mx, ls, os, pm[w * GM + g], pl[w * GM + g],
+           pacc[(w * GM + g) * HD + d]);
+    if (n_live == 1) {
+      o[(bk * a.G + g) * h + d] = from_f32<TQ>(os / fmaxf(ls, kTiny));
+    } else {
+      float* part = a.ws + (part0 + (long long)s * a.G + g) * (h + 2);
+      part[d] = os;
+      if (d == 0) {
+        part[h] = mx;
+        part[h + 1] = ls;
+      }
     }
-    o[(((long long)b * K + kh) * a.G + g) * h + d] =
-        from_f32<TQ>(osum / fmaxf(lsum, kTiny));
   }
+  if (n_live == 1) return;
+
+  // the last block of the slot's splits to arrive merges them in order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(a.counters + bk, 1) == n_live - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  constexpr int kR = 8;   // partials loaded before the first fold waits
+  for (int e = tid; e < a.G * h; e += blockDim.x) {
+    const int g = e / h, d = e % h;
+    float mx = kNegInf, ls = 0.f, os = 0.f;
+    for (int t0 = s_lo; t0 <= s_hi; t0 += kR) {
+      float pm_[kR], pl_[kR], po_[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        // past s_hi: the empty partial, which folds in as nothing
+        pm_[r] = kNegInf;
+        pl_[r] = po_[r] = 0.f;
+        if (t0 + r <= s_hi) {
+          const float* part =
+              a.ws + (part0 + (long long)(t0 + r) * a.G + g) * (h + 2);
+          pm_[r] = __ldcg(part + h);
+          pl_[r] = __ldcg(part + h + 1);
+          po_[r] = __ldcg(part + d);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kR; ++r) fold(mx, ls, os, pm_[r], pl_[r], po_[r]);
+    }
+    o[(bk * a.G + g) * h + d] = from_f32<TQ>(os / fmaxf(ls, kTiny));
+  }
+  if (tid == 0) a.counters[bk] = 0;
 }
 
+// launch (occ null), or report the dynamic shared memory of a block and
+// the blocks an SM holds (occ[0], occ[1])
 template <typename TQ, typename TKV, bool QUANT, int HD, int GM, bool PAD>
-cudaError_t launch(const PagedArgs& a, cudaStream_t stream) {
-  const size_t tiles = kWarps * kKeys * (2 * HD + 1);
-  const size_t merge = kWarps * GM * (HD + 2);
-  const size_t bytes =
-      sizeof(float) * (GM * HD + a.NB + (tiles > merge ? tiles : merge));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_paged_kernel<TQ, TKV, QUANT, HD, GM, PAD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid(a.K, a.B);
-  flash_decode_paged_kernel<TQ, TKV, QUANT, HD, GM, PAD>
-      <<<grid, kWarps * 32, bytes, stream>>>(a);
+cudaError_t launch(const PagedArgs& a, cudaStream_t stream, int* occ) {
+  auto kernel = flash_decode_paged_kernel<TQ, TKV, QUANT, HD, GM, PAD>;
+  const int nw = a.span / kKeys;
+  using L = Tile<TKV, HD>;
+  const int bytes =
+      static_cast<int>(sizeof(float) * GM * HD + L::kBufs * nw * L::kBytes);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  if (occ != nullptr) {
+    occ[0] = bytes;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ + 1, kernel,
+                                                         nw * 32, bytes);
+  }
+  dim3 grid(n_splits(a), a.K, a.B);
+  kernel<<<grid, nw * 32, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename TQ, typename TKV, bool QUANT, int HD, bool PAD>
-cudaError_t launch_g(const PagedArgs& a, cudaStream_t stream) {
-  if (a.G <= 1) return launch<TQ, TKV, QUANT, HD, 1, PAD>(a, stream);
-  if (a.G <= 2) return launch<TQ, TKV, QUANT, HD, 2, PAD>(a, stream);
-  if (a.G <= 4) return launch<TQ, TKV, QUANT, HD, 4, PAD>(a, stream);
-  if (a.G <= 8) return launch<TQ, TKV, QUANT, HD, 8, PAD>(a, stream);
+cudaError_t launch_g(const PagedArgs& a, cudaStream_t s, int* occ) {
+  if (a.G <= 1) return launch<TQ, TKV, QUANT, HD, 1, PAD>(a, s, occ);
+  if (a.G <= 2) return launch<TQ, TKV, QUANT, HD, 2, PAD>(a, s, occ);
+  if (a.G <= 4) return launch<TQ, TKV, QUANT, HD, 4, PAD>(a, s, occ);
+  if (a.G <= 8) return launch<TQ, TKV, QUANT, HD, 8, PAD>(a, s, occ);
   return cudaErrorInvalidValue;
 }
 
 // the smallest instantiated head dim that holds h, unpadded at 64 and 128
 template <typename TQ, typename TKV, bool QUANT>
-cudaError_t launch_hd(const PagedArgs& a, cudaStream_t stream) {
-  if (a.h == 64) return launch_g<TQ, TKV, QUANT, 64, false>(a, stream);
-  if (a.h == 128) return launch_g<TQ, TKV, QUANT, 128, false>(a, stream);
+cudaError_t launch_hd(const PagedArgs& a, cudaStream_t s, int* occ) {
+  if (a.h == 64) return launch_g<TQ, TKV, QUANT, 64, false>(a, s, occ);
+  if (a.h == 128) return launch_g<TQ, TKV, QUANT, 128, false>(a, s, occ);
   if (a.h < 1) return cudaErrorInvalidValue;
-  if (a.h <= 32) return launch_g<TQ, TKV, QUANT, 32, true>(a, stream);
-  if (a.h <= 64) return launch_g<TQ, TKV, QUANT, 64, true>(a, stream);
-  if (a.h <= 128) return launch_g<TQ, TKV, QUANT, 128, true>(a, stream);
+  if (a.h <= 32) return launch_g<TQ, TKV, QUANT, 32, true>(a, s, occ);
+  if (a.h <= 64) return launch_g<TQ, TKV, QUANT, 64, true>(a, s, occ);
+  if (a.h <= 128) return launch_g<TQ, TKV, QUANT, 128, true>(a, s, occ);
   return cudaErrorInvalidValue;
 }
 
 template <typename TQ>
-cudaError_t launch_kv(const PagedArgs& a, int kv_dtype, cudaStream_t s) {
+cudaError_t launch_kv(const PagedArgs& a, int kv_dtype, cudaStream_t s,
+                      int* occ) {
   switch (kv_dtype) {
     case kF32:
-      return launch_hd<TQ, float, false>(a, s);
+      return launch_hd<TQ, float, false>(a, s, occ);
     case kBF16:
-      return launch_hd<TQ, __nv_bfloat16, false>(a, s);
+      return launch_hd<TQ, __nv_bfloat16, false>(a, s, occ);
     case kI8:
-      return launch_hd<TQ, int8_t, true>(a, s);
+      return launch_hd<TQ, int8_t, true>(a, s, occ);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch(const PagedArgs& a, int q_dtype, int kv_dtype,
+                     cudaStream_t s, int* occ) {
+  if (a.span < kKeys || a.span > kMaxWarps * kKeys || a.span % kKeys)
+    return cudaErrorInvalidValue;
+  switch (q_dtype) {
+    case kF32:
+      return launch_kv<float>(a, kv_dtype, s, occ);
+    case kBF16:
+      return launch_kv<__nv_bfloat16>(a, kv_dtype, s, occ);
     default:
       return cudaErrorInvalidValue;
   }
@@ -367,23 +553,35 @@ cudaError_t launch_kv(const PagedArgs& a, int kv_dtype, cudaStream_t s) {
 
 extern "C" int repro_flash_decode_paged(
     const void* q, const void* pk, const void* pv, const float* sk,
-    const float* sv, const int* bt, const int* idx, void* o, int B, int K,
-    int G, int h, int P, int NB, int l_real, long long q_sb, long long q_sk,
+    const float* sv, const int* bt, const int* idx, void* o, float* ws,
+    int* counters, int B, int K, int G, int h, int P, int NB, int l_real,
+    int span, long long ws_len, long long q_sb, long long q_sk,
     long long q_sg, int window, float scale, int q_dtype, int kv_dtype,
     void* stream) {
   if (B == 0 || K == 0) return cudaSuccess;
   if ((kv_dtype == repro::kI8) != (sk != nullptr && sv != nullptr))
     return cudaErrorInvalidValue;
-  repro::PagedArgs a{q,  pk, pv, sk,     sv,   bt,   idx,  o,      B,
-                     K,  G,  h,  P,      NB,   l_real, q_sb, q_sk, q_sg,
-                     window, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (q_dtype) {
-    case repro::kF32:
-      return repro::launch_kv<float>(a, kv_dtype, s);
-    case repro::kBF16:
-      return repro::launch_kv<__nv_bfloat16>(a, kv_dtype, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  repro::PagedArgs a{q,  pk, pv, sk,     sv,   bt,   idx,  o,    ws,
+                     counters, B, K, G, h, P, NB, l_real, span, q_sb,
+                     q_sk, q_sg, window, scale};
+  // the grid's splits must fit the caller's workspace of ws_len floats
+  if (span >= 1 && repro::n_splits(a) > 1 &&
+      (ws == nullptr || counters == nullptr ||
+       ws_len < (long long)B * K * repro::n_splits(a) * G * (h + 2)))
+    return cudaErrorInvalidValue;
+  return repro::dispatch(a, q_dtype, kv_dtype,
+                         static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// the dynamic shared memory of a block (out[0], bytes) and the blocks an
+// SM holds (out[1]) of the instantiation that a launch with these
+// arguments takes
+extern "C" int repro_flash_decode_paged_occupancy(int q_dtype, int kv_dtype,
+                                                  int h, int G, int span,
+                                                  int* out) {
+  repro::PagedArgs a{};
+  a.h = h;
+  a.G = G;
+  a.span = span;
+  return repro::dispatch(a, q_dtype, kv_dtype, nullptr, out);
 }

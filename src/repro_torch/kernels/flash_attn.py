@@ -22,7 +22,10 @@
   ``block_table[b, j // P]`` at row ``j % P``.  Its int8-pool variant,
   :func:`flash_decode_paged_int8` (the same source, ported from
   ``_decode_paged_kernel_q``), reads int8 pools with per-row fp32 scales;
-  ``flash_decode_paged`` routes there when it is given the scales.
+  ``flash_decode_paged`` routes there when it is given the scales.  Both
+  split each slot's keys over blocks of :data:`PAGED_SPAN` keys and merge
+  the partial softmax states in the same launch, in a fixed order, so a
+  row's bits do not depend on the rest of the batch.
 
 All keep the TPU kernels' masking contract: masked scores are -1e30,
 masked probabilities are zeroed, the denominator is ``max(l, 1e-30)``, so
@@ -378,6 +381,32 @@ def flash_decode_paged_plain(q, pages_k, pages_v, block_table, idx, *,
 
 
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# keys of one block of the paged decode kernel (a split), by pool dtype: a
+# whole number of 32-key tiles, one a warp, at most 8 (spans 64/128/256
+# timed once at Qwen3's decode shape on an H100, PERF.md)
+PAGED_SPAN = {torch.float32: 128, torch.bfloat16: 128, torch.int8: 256}
+_paged_counters: dict = {}
+
+
+def paged_splits(NB: int, P: int, l_real: Optional[int], span: int) -> int:
+    """Blocks along the key axis of a paged decode launch: the span's
+    splits of ``min(NB * P, l_real)`` keys, at least one.  A slot takes
+    those of them that hold its live keys, so its split depends on its own
+    write index alone."""
+    cap = NB * P if l_real is None else min(NB * P, int(l_real))
+    return max(1, -(-cap // span))
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """The paged decode's (slot, KV head) counters on ``device``: zeroed
+    once and left at zero by every launch (the block that merges a slot's
+    splits resets its counter), so launches on one device must not
+    overlap; the port launches on one stream."""
+    c = _paged_counters.get(device)
+    if c is None or c.numel() < n:
+        c = _paged_counters[device] = torch.zeros(
+            max(n, 1024), dtype=torch.int32, device=device)
+    return c
 
 
 def flash_decode_paged(q, pages_k, pages_v, block_table, idx, *,
@@ -392,7 +421,11 @@ def flash_decode_paged(q, pages_k, pages_v, block_table, idx, *,
     ``NB * P`` overshoots it.  ``scales_k``/``scales_v`` (together) mark
     int8 pools with (NP, P, K) fp32 per-row scales and route to
     :func:`flash_decode_paged_int8`.  Returns o in q's rank and dtype.  The
-    pools are read in place, never cast."""
+    pools are read in place, never cast.  On the card each slot's keys are
+    split over blocks of :data:`PAGED_SPAN` keys, every block's copies in
+    flight at once, and the last block of a slot merges its partials in
+    split order: bytes and memory latency bound the kernel, and a row's bits
+    depend on its own inputs alone, not on the batch."""
     if q.device.type == "cpu":
         return flash_decode_paged_plain(
             q, pages_k, pages_v, block_table, idx, l_real=l_real,
@@ -432,7 +465,8 @@ flash_decode_paged_int8.launches = 0
 
 def _paged_launch(q, pages_k, pages_v, scales_k, scales_v, block_table, idx,
                   l_real, window):
-    """Check the operands and launch ``csrc/flash_decode_paged.cu``."""
+    """Check the operands and launch ``csrc/flash_decode_paged.cu``, with
+    :data:`PAGED_SPAN` keys of the pool dtype a block."""
     squeeze = q.dim() == 5
     q4 = q[:, 0] if squeeze else q
     _check_paged(q4, pages_k, pages_v, block_table, idx, scales_k, scales_v)
@@ -465,16 +499,27 @@ def _paged_launch(q, pages_k, pages_v, scales_k, scales_v, block_table, idx,
             or any(t.data_ptr() % 16 for t in pools)):
         raise ValueError("flash_decode_paged: the pools must be contiguous "
                          "and 16-byte aligned, q's head dim contiguous")
+    if pages_k.shape[0] * P * K >= 2 ** 31:
+        raise NotImplementedError("flash_decode_paged: 2^31 pool rows or "
+                                  "more")
+    span = PAGED_SPAN[pages_k.dtype]
+    splits = paged_splits(NB, P, l_real, span)
     bt = block_table.to(torch.int32).contiguous()
     iv = _int_arg(idx, B, q.device)[0]
     if iv is None:
         iv = torch.full((B,), int(idx), dtype=torch.int32, device=q.device)
     out = torch.empty(B, K, G, h, dtype=q4.dtype, device=q.device)
+    # every partial a merge reads is written in the same launch; the C entry
+    # refuses a grid whose splits do not fit
+    ws = (torch.empty(B * K * splits * G * (h + 2), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
     err = build.entry("flash_decode_paged")(
         build.ptr(q4), build.ptr(pages_k), build.ptr(pages_v),
         build.ptr(scales_k), build.ptr(scales_v), build.ptr(bt),
-        build.ptr(iv), build.ptr(out), B, K, G, h, P, NB,
-        NB * P if l_real is None else int(l_real), *q4.stride()[:3],
+        build.ptr(iv), build.ptr(out), build.ptr(ws),
+        build.ptr(_counters(q.device, B * K)), B, K, G, h, P, NB,
+        NB * P if l_real is None else int(l_real), span,
+        0 if ws is None else ws.numel(), *q4.stride()[:3],
         -1 if window is None else int(window), 1.0 / math.sqrt(h),
         _DTYPES[q4.dtype], _POOL_DTYPES[pages_k.dtype],
         build.stream(q.device))

@@ -1010,6 +1010,97 @@ def test_flash_decode_paged_scratch_poison_is_isolated(cuda, pool_dtype):
     assert bool(torch.isfinite(got.float()).all())
 
 
+def _split_case(case, span):
+    """(NB, idxs, l_real, window) of a split-edge case at 16-row pages:
+    NB * P = 4 spans + 16 keys, so the last split is a partial one."""
+    NB = span // 4 + 1
+    last = NB * 16 - 1
+    return NB, {
+        # a split's last key, the next split's first, the last key of NB * P
+        "edges": ([span - 1, span, last, 2 * span - 1, 2 * span, 0], None,
+                  None),
+        # the window empties the leading splits of each slot
+        "window_leading": ([last, 3 * span + 5, 2 * span], None, span + 7),
+        # one slot in a single split beside one in every split
+        "one_and_every": ([5, last], None, None),
+        # l_real cuts the last split short of NB * P
+        "l_real": ([last, span, 3 * span + 6], 3 * span + 7, None),
+    }[case]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16,
+                                        torch.int8])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["edges", "window_leading",
+                                  "one_and_every", "l_real"])
+def test_flash_decode_paged_split_edges_match_plain(cuda, case, q_dtype,
+                                                    pool_dtype):
+    """The kernel splits each slot's keys into blocks of PAGED_SPAN keys
+    and merges them in the launch: every edge of that split matches the
+    plain version at the tolerances above."""
+    span = flash_attn.PAGED_SPAN[pool_dtype]
+    NB, (idxs, l_real, window) = _split_case(case, span)
+    q, pk, pv, bt, idx, scales = _paged_inputs(
+        cuda, 13, len(idxs), 8, 2, 128, 16, NB, idxs, q_dtype, pool_dtype)
+    kw = dict(l_real=l_real, window=window, **scales)
+    got = flash_attn.flash_decode_paged(q, pk, pv, bt, idx, **kw)
+    torch.cuda.synchronize()
+    want = flash_attn.flash_decode_paged_plain(q, pk, pv, bt, idx, **kw)
+    exact = q_dtype == torch.float32 and pool_dtype != torch.bfloat16
+    _close(got, want, torch.float32 if exact else torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16,
+                                        torch.int8])
+def test_flash_decode_paged_slot_bits_do_not_depend_on_the_batch(
+        cuda, pool_dtype):
+    """Each slot of a batch of 8 (one split to every split of a 512-key
+    table) gives the same bits alone as in the batch."""
+    span = flash_attn.PAGED_SPAN[pool_dtype]
+    idxs = [0, span - 1, span, 2 * span + 3, 200, 300, 480, 511]
+    q, pk, pv, bt, idx, scales = _paged_inputs(
+        cuda, 11, 8, 8, 2, 128, 16, 32, idxs, torch.bfloat16, pool_dtype)
+    batch = flash_attn.flash_decode_paged(q, pk, pv, bt, idx, **scales)
+    for i in range(len(idxs)):
+        alone = flash_attn.flash_decode_paged(
+            q[i:i + 1], pk, pv, bt[i:i + 1], idx[i:i + 1], **scales)
+        assert torch.equal(alone, batch[i:i + 1]), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16,
+                                        torch.int8])
+def test_flash_decode_paged_repeats_bitwise(cuda, pool_dtype):
+    """Two calls give the same bits, also with another launch between
+    them: the block that merges a slot's splits resets its counter."""
+    idxs = [511, 130, 64, 300]
+    q, pk, pv, bt, idx, scales = _paged_inputs(
+        cuda, 17, 4, 8, 2, 128, 16, 32, idxs, torch.bfloat16, pool_dtype)
+    first = flash_attn.flash_decode_paged(q, pk, pv, bt, idx, **scales)
+    flash_attn.flash_decode_paged(q, pk, pv, bt, idx.flip(0), window=100,
+                                  **scales)
+    again = flash_attn.flash_decode_paged(q, pk, pv, bt, idx, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert int(flash_attn._paged_counters[q.device].abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_flash_decode_paged_entry_refuses_a_short_workspace(cuda,
+                                                            monkeypatch):
+    """The C entry works out the grid's splits itself and refuses a
+    workspace sized for fewer (cudaErrorInvalidValue, 1) instead of
+    writing past it."""
+    q, pk, pv, bt, idx, _ = _paged_inputs(
+        cuda, 5, 2, 8, 2, 128, 16, 32, [511, 300], torch.bfloat16,
+        torch.float32)
+    monkeypatch.setattr(flash_attn, "paged_splits", lambda *a: 2)
+    with pytest.raises(RuntimeError, match="cudaError_t 1$"):
+        flash_attn.flash_decode_paged(q, pk, pv, bt, idx)
+
+
 @pytest.mark.gpu
 def test_flash_decode_paged_wrapper_raises(cuda):
     q, pk, pv, bt, idx, scales = _paged_inputs(

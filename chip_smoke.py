@@ -21,11 +21,11 @@ exit and no result line):
    (``flash_fwd_tc_kernel``), the flash backward, the ff megakernel
    (``dyad_ff_tc_kernel``, gated and not, over bf16, int8 and fp8
    weights) and the quantized GEMM (``dyad_mm_q_tc_kernel``, int8 and
-   fp8; no spill and no serialised wgmma allowed); the paged decode
-   kernel's registers and spills at HD 128 with the shared memory of a
-   block and the blocks an SM at its pool dtype's span (no spill in any
-   instantiation allowed); and the HGMMA count of each of those ff and
-   quantized instantiations (none may lack it);
+   fp8; no spill and no serialised wgmma allowed); the split-key decode
+   kernels' registers and spills at HD 128, paged and ring, with the
+   shared memory of a block and the blocks an SM at the span of its cache
+   dtype (no spill in any instantiation allowed); and the HGMMA count of
+   each of those ff and quantized instantiations (none may lack it);
 3. each kernel against its plain PyTorch version on the card, fp32 and
    bf16, at the OPT-125m and Qwen3-0.6B serving and training shapes and
    the edge cases (``dyad_mm_blocks`` also off the tensor-core tiles, n 2,
@@ -37,7 +37,14 @@ exit and no result line):
    version; the paged decode kernels also over bf16 and int8 pools, at
    head dims 16, 32, 80 and 128, with a poisoned scratch page, at the
    edges of the key splits, each slot of a batch of 8 alone bitwise equal
-   to its batch row and the batch repeated bitwise; the
+   to its batch row and the batch repeated bitwise; the ring decode also
+   with q and cache dtypes apart, at h 16 and 80, and at Qwen3's and
+   OPT's KV heads at the edges of its splits (wrapped rings, windows
+   across the wrap point, a dead run inside a tile, idx 0) for every pair
+   of q and cache dtypes, each slot alone bitwise equal to its batch row,
+   a repeat bitwise with another shape launched between, NaN in every dead
+   ring slot moving no bit, and one call at each engine's arguments
+   launching one kernel with no cast beside it; the
    quantized-weight kernels over int8 and fp8 payloads, bf16 x on the
    tensor cores also repeated bitwise, on the FMA kernels through the C
    entries at Qwen3's shapes (the route phase 4 times beside), and on
@@ -77,12 +84,15 @@ exit and no result line):
    beside the split route, a torch.bmm chain and the FMA kernel through
    the C entry (``fma_ms``, the parent's route); the paged decode over
    each pool dtype at contexts 64 and 512 with the splits a slot takes
-   (``time_pools``);
+   (``time_pools``); the ring decode at Qwen3's batch step
+   (``@qwen3_batch``) and dense-ring step (``@ring512``), bf16 q over an
+   fp32 cache;
 5. the OPT serving path: OPT-125m at full width with ``dyad_it_4_kernel``,
    random weights from ``--seed``, ``Engine.generate`` at batch 8, prompt
    128, 32 new tokens, with the kernels' launch counters read around it;
    5b. a ``torch.profiler`` trace of one more generate: device-busy share
-   and the kernels that take the most device time;
+   and the kernels that take the most device time, its decode launches
+   by kernel name (the ring kernel once a layer and step);
 6. that serving path on the card against the same port on the CPU;
 7. the OPT training path: OPT-125m at full width, fp32, through the train
    launcher's ``build_trainer`` (``make_train_step`` and ``Trainer``), B 8
@@ -103,7 +113,8 @@ exit and no result line):
 9. the Qwen3-0.6B serving path at full width with the ff megakernel
    (``dyad_it_4_kernel_ffused``, bf16 compute, fp32 cache): generate at
    batch 8, prompt 128, 32 new, launch counters checked exactly, and a
-   profile of one more generate;
+   profile of one more generate, its decode launches by kernel name as in
+   5b;
 10. the Qwen3-0.6B training path (full config, remat, bf16) at B 8 x
    S 512 as in phase 7, with the DENSE run and a profiled step of each,
    the DYAD one's flash launches by kernel name the tensor-core forward
@@ -124,7 +135,8 @@ exit and no result line):
    checked exactly, then a profile of a window of its engine steps (taken
    again while its paged decode launches fall short of the counted calls,
    failing after three); the
-   same trace on dense rings (``REPRO_PAGED_KV=off``), with int8 pools,
+   same trace on dense rings (``REPRO_PAGED_KV=off``, its window profiled
+   the same way, the ring kernel's launches by name), with int8 pools,
    and with a pool cut so that preemption fires, each against the paged
    run by the bf16 tie rule; at 2 layers in fp32, a cut pool's greedy
    tokens equal to the unpressured run's exactly and dense rings against
@@ -706,44 +718,78 @@ def _launches_by_name(per_kernel: dict, want: dict, key: str,
     return ok
 
 
-def _paged_occupancy(torch, build, flash_attn) -> bool:
-    """Phase 2 for the paged decode: ptxas's registers and spills of each
-    HD 128 instantiation, with the shared memory of a block and the blocks
-    an SM holds at the span its pool dtype takes (the runtime's occupancy
-    query); a spill in any instantiation fails."""
+def _ring_decode_split(steps: int, phase: str):
+    """A ``profile_check`` for a profiled generate: its decode launches by
+    kernel name, the split-key ring kernel once per layer and decode step
+    and the paged kernel never (a cast around a call would show in the
+    profile's ``copy_kernel_launches``)."""
+    def check(per_kernel: dict, n_layers: int) -> bool:
+        return _launches_by_name(
+            per_kernel, {"flash_decode_ring_kernel": n_layers * steps,
+                         "flash_decode_paged_kernel": 0}, "decode", phase)
+    return check
+
+
+def _ring_key(mangled: str, kernels=None):
+    """``ring<q,cache,HD,GM>`` (``,pad`` for a padded HD) of a mangled
+    instantiation of the ring decode kernel, or None."""
+    m = re.search(r"flash_decode_ring_kernelI(f|13__nv_bfloat16)(f|.+?)"
+                  r"Li(\d+)ELi(\d+)ELb([01])E", mangled)
+    if m is None:
+        return None
+    names = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    # a cache type other than float is bf16 (a repeated bf16 is mangled as
+    # a substitution)
+    return "ring<{},{},{},{}{}>".format(
+        names[m.group(1)], names.get(m.group(2), "bf16"), m.group(3),
+        m.group(4), ",pad" if m.group(5) == "1" else "")
+
+
+def _decode_occupancy(torch, build, flash_attn) -> bool:
+    """Phase 2 for the split-key decode kernels, paged and ring: ptxas's
+    registers and spills of each HD 128 instantiation, with the shared
+    memory of a block and the blocks an SM holds at the span its cache
+    dtype takes (the runtime's occupancy query); one line a source, and a
+    spill in any instantiation fails."""
     import ctypes
 
-    ptx = _ptxas((build.BUILD_DIR / "flash_decode_paged.log").read_text(),
-                 ("flash_decode_paged_kernel",), key=_paged_key)
-    occupancy = build.entry("flash_decode_paged_occupancy")
-    fields, bad = {}, [
-        f"{k}(regs:{r['regs']},spill:{r['spill_stores']}/{r['spill_loads']})"
-        for k, r in ptx.items() if r["spill_stores"] or r["spill_loads"]]
-    pools = (("f32", torch.float32), ("bf16", torch.bfloat16),
-             ("int8", torch.int8))
-    for qn, qcode in (("f32", 0), ("bf16", 1)):
-        for pn, pool in pools:
-            for gm in (1, 2, 4, 8):
-                key = f"paged<{qn},{pn},128,{gm}>"
-                r = ptx.get(key)
-                if r is None:
-                    bad.append(f"{key} no report")
-                    continue
-                span = flash_attn.PAGED_SPAN[pool]
-                out = (ctypes.c_int * 2)()
-                err = occupancy(qcode, ("f32", "bf16", "int8").index(pn),
-                                128, gm, span, out)
-                if err:
-                    bad.append(f"{key} occupancy error {err}")
-                fields[key] = (f"regs:{r['regs']},spill_stores:"
-                               f"{r['spill_stores']},spill_loads:"
-                               f"{r['spill_loads']},span:{span},"
-                               f"smem:{out[0]},blocks_sm:{out[1]}")
-    log("ptxas", source="flash_decode_paged", instantiations=len(ptx),
-        **fields, ok=not bad)
-    if bad:
-        log("ptxas", failed=",".join(bad))
-    return not bad
+    f32, bf16 = ("f32", torch.float32), ("bf16", torch.bfloat16)
+    ok = True
+    for kind, source, key, caches, span_of in (
+            ("paged", "flash_decode_paged", _paged_key,
+             (f32, bf16, ("int8", torch.int8)), flash_attn.PAGED_SPAN.get),
+            ("ring", "flash_decode", _ring_key, (f32, bf16),
+             lambda _: flash_attn.RING_SPAN)):
+        ptx = _ptxas((build.BUILD_DIR / f"{source}.log").read_text(),
+                     (f"flash_decode_{kind}_kernel",), key=key)
+        occupancy = build.entry(f"{source}_occupancy")
+        fields, bad = {}, [
+            f"{k}(regs:{r['regs']},spill:{r['spill_stores']}/"
+            f"{r['spill_loads']})"
+            for k, r in ptx.items() if r["spill_stores"] or r["spill_loads"]]
+        for qn, qcode in (("f32", 0), ("bf16", 1)):
+            for code, (cn, cache) in enumerate(caches):
+                for gm in (1, 2, 4, 8):
+                    k = f"{kind}<{qn},{cn},128,{gm}>"
+                    r = ptx.get(k)
+                    if r is None:
+                        bad.append(f"{k} no report")
+                        continue
+                    span = span_of(cache)
+                    out = (ctypes.c_int * 2)()
+                    err = occupancy(qcode, code, 128, gm, span, out)
+                    if err:
+                        bad.append(f"{k} occupancy error {err}")
+                    fields[k] = (f"regs:{r['regs']},spill_stores:"
+                                 f"{r['spill_stores']},spill_loads:"
+                                 f"{r['spill_loads']},span:{span},"
+                                 f"smem:{out[0]},blocks_sm:{out[1]}")
+        log("ptxas", source=source, instantiations=len(ptx), **fields,
+            ok=not bad)
+        if bad:
+            log("ptxas", failed=",".join(bad))
+            ok = False
+    return ok
 
 
 def _qwen3_kernel_split(per_kernel: dict, n_layers: int) -> bool:
@@ -1029,6 +1075,205 @@ def _check_exact_quant(torch, gen, dyad_mm, failures):
                   dyad_mm.dyad_ff_fused_q(*args, act="relu"),
                   dyad_mm.dyad_ff_fused_q_plain(*args, act="relu"),
                   kernel=plan[0], split=plan[1])
+
+
+def _ring_cases(span: int) -> dict:
+    """The ring decode's split-edge cases, {label: (L, idxs, window)}, at
+    splits of ``span`` ring slots: L = 4 spans + 16 slots (the last split a
+    partial one) but where named."""
+    L = 4 * span + 16
+    return {
+        # unwrapped: a split's last slot, the next split's first, the last
+        # slot, the first step
+        "edges": (L, [span - 1, span, 2 * span - 1, 2 * span, L - 1, 0],
+                  None),
+        # wrapped rings, idx past one and two laps
+        "wrapped": (L, [L, L + span - 1, L + span, 2 * L + 3, 3 * L - 1],
+                    None),
+        # the window's slots cross the wrap point, or empty the ring's
+        # leading splits
+        "window_wrap": (L, [L + 5, 2 * L + span, L + 3 * span + 5, L + 40],
+                        span + 7),
+        # a window of all but 10 slots: a dead run inside a tile
+        "window_gap": (L, [L + 70, 2 * L + 8, 3 * L - 20], L - 10),
+        "l_not_multiple": (3 * span + 7, [3 * span + 6, 3 * span + 9,
+                                          7 * span + 20, 40], None),
+        # one slot in one split beside one in every split
+        "one_and_every": (L, [5, L - 1, 3 * L], None),
+        "idx0": (L, [0, 0, 1], None),
+    }
+
+
+def _one_call_kernels(torch, fn) -> dict:
+    """{device kernel name: launches} of one call of ``fn`` (warmed up
+    first), profiled with PROFILE_MARGIN_S idle at each end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if str(getattr(ev, "device_type", "")).endswith("CUDA")
+            and (getattr(ev, "self_device_time_total", 0) or 0) > 0}
+
+
+def _check_ring_decode(torch, gen, flash_attn, failures, max_err):
+    """Phase 3 for the ring decode, at Qwen3's KV heads (K 8, G 2, h 128)
+    and OPT's (K 12, G 1, h 64), inputs drawn from ``gen``: the split-edge
+    cases for every pair of q and cache dtypes against the plain version,
+    one line a pair; then, over bf16 q and an fp32 cache (Qwen3's serving
+    pair) and fp32 over fp32 (OPT's), each slot of 8 alone bitwise equal to
+    its batch row, a repeat call bitwise with a launch of another batch and
+    ring length between, and NaN in every dead ring slot moving no bit; and
+    one call at each engine's arguments launching one kernel, the ring
+    kernel, with no cast beside it."""
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    decode, plain = flash_attn.flash_decode, flash_attn.flash_decode_plain
+
+    def inputs(B, L, K, G, h, q_dt, cache_dt):
+        def randn(*shape, dt):
+            return torch.randn(*shape, generator=gen, device=dev).to(dt)
+        return (randn(B, 1, K, G, h, dt=q_dt), randn(B, L, K, h, dt=cache_dt),
+                randn(B, L, K, h, dt=cache_dt))
+
+    def ivec(idxs):
+        return torch.tensor(idxs, dtype=torch.int32, device=dev)
+
+    shapes = {"qwen3": (8, 2, 128), "opt": (12, 1, 64)}
+    for shape, (K, G, h) in shapes.items():
+        for q_dt in (f32, bf16):
+            for c_dt in (f32, bf16):
+                exact = q_dt == c_dt == f32
+                tol = TOL["float32" if exact else "bfloat16"]
+                cases = _ring_cases(flash_attn.RING_SPAN)
+                worst, bad = 0.0, []
+                for case, (L, idxs, window) in cases.items():
+                    q, k, v = inputs(len(idxs), L, K, G, h, q_dt, c_dt)
+                    idx = ivec(idxs)
+                    ok, err, bound = _close(
+                        decode(q, k, v, idx, window=window),
+                        plain(q, k, v, idx, window=window), tol)
+                    worst = max(worst, err)
+                    if not ok:
+                        bad.append(case)
+                label = (f"flash_decode/split_edges/{shape}/q_"
+                         f"{str(q_dt)[6:]}_cache_{str(c_dt)[6:]}")
+                log("check", case=label, cases=len(cases),
+                    max_abs_err=f"{worst:.3e}",
+                    tol=f"{tol:.0e} x max(|plain|, 1)", ok=not bad)
+                if bad:
+                    failures.append(f"{label}:{'+'.join(bad)}")
+                if exact:
+                    max_err["flash_decode"] = max(max_err["flash_decode"],
+                                                  worst)
+
+    span = flash_attn.RING_SPAN
+    for shape, q_dt in (("qwen3", bf16), ("opt", f32)):
+        K, G, h = shapes[shape]
+        q, k, v = inputs(8, 512, K, G, h, q_dt, f32)
+        idx = ivec([0, span - 1, span, 2 * span + 3, 300, 511, 600, 1500])
+        alone = True
+        for window in (None, 200):
+            batch = decode(q, k, v, idx, window=window)
+            alone = alone and all(torch.equal(decode(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], idx[i:i + 1],
+                window=window), batch[i:i + 1]) for i in range(8))
+        first = decode(q, k, v, idx)
+        decode(*inputs(3, 160, K, G, h, q_dt, f32), 143, window=100)
+        again = torch.equal(decode(q, k, v, idx), first)
+        # NaN in the slots past idx, outside windows across the wrap point,
+        # and in dead runs inside a tile (window 502 of 512)
+        poisoned = True
+        idx = ivec([582, 1000, 520, 70, 0, 143, 511, 37])
+        j = torch.arange(512, device=dev)
+        iv = idx.long()[:, None]
+        pos = iv - torch.remainder(iv - j, 512)
+        for window in (None, 150, 502):
+            clean = decode(q, k, v, idx, window=window)
+            dead = pos < 0
+            if window is not None:
+                dead |= iv - pos >= window
+            kp, vp = k.clone(), v.clone()
+            kp[dead] = float("nan")
+            vp[dead] = float("nan")
+            got = decode(q, kp, vp, idx, window=window)
+            poisoned = (poisoned and torch.equal(got, clean)
+                        and bool(torch.isfinite(got.float()).all()))
+        zero = int(flash_attn._paged_counters[q.device].abs().sum()) == 0
+        ok = alone and again and poisoned and zero
+        log("check", case=f"flash_decode/bits/{shape}",
+            dtype=f"q_{str(q_dt)[6:]}_cache_float32", alone_bitwise=alone,
+            repeat_bitwise=again, poisoned_dead_rows_bitwise=poisoned,
+            counters_zero=zero, ok=ok)
+        if not ok:
+            failures.append(f"flash_decode/bits/{shape}")
+
+    # one call, one kernel: the batch engine's call (scalar idx) and the
+    # continuous engine's over dense rings (an int32 (B,) idx), bf16 q over
+    # an fp32 cache at Qwen3's shape
+    q, k, v = inputs(8, 160, 8, 2, 128, bf16, f32)
+    for label, idx in (("scalar_idx", 143), ("vector_idx", ivec([143] * 8))):
+        kernels = _one_call_kernels(torch, lambda: decode(q, k, v, idx))
+        ok = (list(kernels.values()) == [1] and
+              "flash_decode_ring_kernel" in next(iter(kernels)))
+        log("check", case=f"flash_decode/one_launch/{label}",
+            kernels=json.dumps({n[:60]: c for n, c in kernels.items()}),
+            ok=ok)
+        if not ok:
+            failures.append(f"flash_decode/one_launch/{label}")
+
+
+def _ring_mask(torch, idx, B: int, L: int, device):
+    """(B, 1, 1, L) live ring slots at write index ``idx`` (no window)."""
+    iv = torch.as_tensor(idx, device=device).long().reshape(-1).expand(B)
+    j = torch.arange(L, device=device)
+    return (iv[:, None] - torch.remainder(iv[:, None] - j, L)
+            >= 0)[:, None, None, :]
+
+
+def _time_ring(torch, randn, record, time_ms):
+    """Phase 4 for the ring decode at Qwen3's two serving shapes, bf16 q
+    (the bf16 compute) over an fp32 cache (the engines' cache dtype), K 8,
+    G 2, h 128: the batch engine's decode step mid-generation (8 rows of
+    160 slots, prompt 128 + 32 new, idx 143) and the continuous engine's
+    over dense rings (8 slots of 512, idx 511 as its int32 (B,) vector).
+    Yardstick: F.scaled_dot_product_attention over the cache, the G query
+    heads of each KV head as its query rows, with the ring's live mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn
+
+    dev = torch.device("cuda")
+    K, G, h = 8, 2, 128
+    for name, B, L, idx in (
+            ("flash_decode@qwen3_batch", 8, 160, 143),
+            ("flash_decode@ring512", 8, 512,
+             torch.full((8,), 511, dtype=torch.int32, device=dev))):
+        q = randn(B, 1, K, G, h, dtype=torch.bfloat16)
+        kc, vc = randn(B, L, K, h), randn(B, L, K, h)
+        amask = _ring_mask(torch, idx, B, L, dev)
+        live = int(amask.sum())                 # live rows of the batch
+        q4 = q[:, 0]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q4.float(), kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=amask)
+
+        # each live K/V row read once; q and o in bf16
+        nbytes = 2 * live * K * h * 4 + 2 * 2 * B * K * G * h
+        record(name,
+               time_ms(lambda: flash_attn.flash_decode(q, kc, vc, idx)),
+               time_ms(lambda: flash_attn.flash_decode_plain(q, kc, vc,
+                                                              idx)),
+               time_ms(library), nbytes, 4.0 * h * G * K * live,
+               f"B{B}_L{L}_K{K}_G{G}_h{h}_idx{int(amask[0].sum()) - 1}",
+               FP32_FLOPS, "bfloat16 q, float32 cache")
 
 
 def _time_paged(torch, randn, record, time_ms):
@@ -1457,7 +1702,7 @@ def main() -> int:
         if spilled:
             log("ptxas", failed=",".join(spilled))
             return 1
-    if not _paged_occupancy(torch, build, flash_attn):
+    if not _decode_occupancy(torch, build, flash_attn):
         return 1
     per_fn = {}
     for source, kernel in (("dyad_ff", "dyad_ff_tc_kernel"),
@@ -1484,6 +1729,7 @@ def main() -> int:
     aside_fwd = torch.Generator(device=dev).manual_seed(args.seed + 2)
     aside_ff = torch.Generator(device=dev).manual_seed(args.seed + 3)
     aside_paged = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    aside_ring = torch.Generator(device=dev).manual_seed(args.seed + 5)
 
     failures = []
 
@@ -1711,11 +1957,26 @@ def main() -> int:
                                    idx=torch.tensor([70, 150, 64, 200],
                                                     device=dev), window=48),
             "qwen3": dict(B=8, L=160, K=8, G=2, h=128, idx=143, window=None),
+            # the dense-ring continuous shape (512 slots a ring) past the
+            # wrap, under a window; the head dims padded to the kernel's 32
+            # and 128: the smoke configs' 16, and 80; drawn from aside_ring
+            "qwen3_ring512_wrapped_window": dict(
+                B=8, L=512, K=8, G=2, h=128,
+                idx=torch.tensor([0, 127, 128, 511, 512, 700, 1030, 2000],
+                                 device=dev), window=300, aside=True),
+            "h16": dict(B=2, L=40, K=2, G=2, h=16,
+                        idx=torch.tensor([0, 50], device=dev), window=None,
+                        aside=True),
+            "h80_window": dict(B=3, L=200, K=2, G=2, h=80,
+                               idx=torch.tensor([199, 10, 300], device=dev),
+                               window=20, aside=True),
         }
         for label, c in decode_cases.items():
-            q = randn(c["B"], 1, c["K"], c["G"], c["h"], dtype=dt)
-            kk = randn(c["B"], c["L"], c["K"], c["h"], dtype=dt)
-            vv = randn(c["B"], c["L"], c["K"], c["h"], dtype=dt)
+            g = aside_ring if c.get("aside") else None
+            q = randn(c["B"], 1, c["K"], c["G"], c["h"], dtype=dt,
+                      generator=g)
+            kk = randn(c["B"], c["L"], c["K"], c["h"], dtype=dt, generator=g)
+            vv = randn(c["B"], c["L"], c["K"], c["h"], dtype=dt, generator=g)
             err = check(f"flash_decode/{label}",
                         flash_attn.flash_decode(q, kk, vv, c["idx"],
                                                 window=c["window"]),
@@ -1851,6 +2112,14 @@ def main() -> int:
             check("flash_decode/bf16_q_fp32_cache",
                   flash_attn.flash_decode(q, kk, vv, 143),
                   flash_attn.flash_decode_plain(q, kk, vv, 143), dn)
+            # and fp32 queries over a bf16 cache, each in its own dtype in
+            # the kernel (drawn from aside_ring)
+            qf = randn(8, 1, 8, 2, 128, generator=aside_ring)
+            kb = randn(8, 160, 8, 128, dtype=dt, generator=aside_ring)
+            vb = randn(8, 160, 8, 128, dtype=dt, generator=aside_ring)
+            check("flash_decode/fp32_q_bf16_cache",
+                  flash_attn.flash_decode(qf, kb, vb, 143),
+                  flash_attn.flash_decode_plain(qf, kb, vb, 143), dn)
             q = randn(8, 128, 8, 2, 128, dtype=dt)
             check("flash_prefill/bf16_q_fp32_cache",
                   flash_attn.flash_prefill(q, kk, vv)[0],
@@ -1970,6 +2239,7 @@ def main() -> int:
             if not same:
                 failures.append(f"dyad_ff_fused/{label}/bitwise_repeat")
         _check_quant_kernels(torch, randn, check, failures, dt, max_err)
+    _check_ring_decode(torch, aside_ring, flash_attn, failures, max_err)
     torch.cuda.synchronize()
     if failures:
         log("check", failed=",".join(failures))
@@ -2126,6 +2396,7 @@ def main() -> int:
            # recomputed scores, dp, dq, dk, dv: five 2h products per pair
            10.0 * h * pairs, f"B{Bt}_S{St}_K{K}_h{h}_causal")
     _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases)
+    _time_ring(torch, randn, record, time_ms)
     _time_paged(torch, randn, record, time_ms)
     _time_quant(torch, randn, record, time_ms)
     _time_qwen3_attn(torch, randn, record, time_ms)
@@ -2138,7 +2409,9 @@ def main() -> int:
     serve_launches = run.serve("opt125m", "dyad_it_4_kernel", B, S, new,
                                {"dyad_mm_blocks": 2 * (1 + steps),
                                 "flash_prefill": 1, "flash_decode": steps},
-                               "main", "profile")
+                               "main", "profile",
+                               profile_check=_ring_decode_split(steps,
+                                                                "profile"))
     if serve_launches is None:
         return 1
 
@@ -2176,7 +2449,9 @@ def main() -> int:
     qserve = run.serve("qwen3_0_6b", QWEN_FF, B, S, new,
                        {"dyad_ff_fused": 1 + steps, "flash_prefill": 1,
                         "flash_decode": steps}, "qwen3_main",
-                       "qwen3_profile")
+                       "qwen3_profile",
+                       profile_check=_ring_decode_split(steps,
+                                                        "qwen3_profile"))
     if qserve is None:
         return 1
 
@@ -2246,14 +2521,17 @@ def main() -> int:
     # OT train step for dyad_mm_blocks_two, the continuous engine's paged
     # run (fp32 pools) and its int8 run for the paged decode kernels, the
     # quantized OPT generate, the quantized Qwen3 continuous run and its
-    # split route for the quantized kernels; every path's counts were
-    # checked exactly where it ran
+    # split route for the quantized kernels; the ring decode's Qwen3 shapes
+    # from the Qwen3 generate and the dense-ring continuous run; every
+    # path's counts were checked exactly where it ran
     ot_train = variant_launches["dyad_ot_4_kernel"]
     main_path = {"dyad_mm_dgrad_two": train_launches,
                  "dyad_mm_wgrad": train_launches,
                  "flash_prefill_grads": train_launches,
                  "dyad_ff_fused": qtrain, "dyad_mm_dgrad": qtrain,
                  "dyad_mm_blocks_two": ot_train,
+                 "flash_decode@qwen3_batch": qserve,
+                 "flash_decode@ring512": cont["dense"],
                  "flash_decode_paged": cont["paged"],
                  "flash_decode_paged_int8": cont["int8"],
                  "dyad_mm_blocks_q": qopt,
@@ -2267,9 +2545,10 @@ def main() -> int:
     for name, tm in timing.items():
         base, _, at = name.partition("@")
         src, replaces = files[base]
-        path = (train_launches if at == "train" else qtrain
-                if at.startswith("qwen3") else
-                main_path.get(name) or main_path.get(base, serve_launches))
+        path = main_path.get(name) or (
+            train_launches if at == "train" else qtrain
+            if at.startswith("qwen3") else
+            main_path.get(base, serve_launches))
         _, by = _bound_ms(tm["bytes"], tm["flops"], tm["rate"])
         entry = {
             "name": name, "route": "cuda", "source": csrc + src,
@@ -2345,11 +2624,15 @@ class _Run:
         return want
 
     def serve(self, arch, spec, B, S, new, per_layer, phase, prof_phase,
-              quant=None):
+              quant=None, profile_check=None):
         """Engine.generate at full width, counted; then one profiled
         generate and the card against the CPU port.  ``quant``: the
         weights' sidecars are added (``quant.quantize_params``) before the
-        engine is built.  Returns the launch counts, None on a failure."""
+        engine is built.  ``profile_check(per_kernel, n_layers)`` holds the
+        profile's launches by kernel name to account; a profile that fails
+        it is taken again (the profiler drops a few records in some runs),
+        up to PROFILE_TRIES times.  Returns the launch counts, None on a
+        failure."""
         from torch.profiler import ProfilerActivity, profile
 
         from repro_torch import configs
@@ -2404,11 +2687,22 @@ class _Run:
                 quant_over_fp_decode_s=f"{med['quant'] / med['fp']:.3f}",
                 note="printed, not gated")
             del fp
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            engine.generate(prompts, new)
-        _log_profile(prof, (t["prefill_s"] + t["decode_s"]) * 1e3,
-                     prof_phase)
+        for attempt in range(1, PROFILE_TRIES + 1):
+            # device activity only: the host's some 80,000 op records
+            # would take a minute to sort, and the busy time reads none
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILE_MARGIN_S)
+                engine.generate(prompts, new)
+                time.sleep(PROFILE_MARGIN_S)
+            per_kernel = _log_profile(
+                prof, (t["prefill_s"] + t["decode_s"]) * 1e3, prof_phase)
+            if profile_check is None or profile_check(per_kernel,
+                                                      cfg.n_layers):
+                break
+        else:
+            log(prof_phase, failed=f"each of {PROFILE_TRIES} profiles fell "
+                "short of the counted launches")
+            return None
         if arch == "opt125m" and not self.serve_parity(
                 arch, spec, params=params, prompts=prompts):
             return None
@@ -2678,9 +2972,9 @@ class _Run:
         engine schedules both runs alike).  The profiler drops a few kernel
         records in some windows, as out of its time range, whatever its
         buffer size (fewer with PROFILE_MARGIN_S idle at each end of the
-        window); so a profile counts only if its paged decode launches,
-        and those of each kernel name of ``whole`` ({name: wrapper}), equal
-        the window's counted calls.  It is taken again up to PROFILE_TRIES
+        window); so a profile counts only if its decode kernel's launches
+        (``route``: paged, int8 or dense), and those of each kernel name of
+        ``whole`` ({name: wrapper}), equal the window's counted calls.  It is taken again up to PROFILE_TRIES
         times, and the phase fails if none is whole.  Returns (run,
         profiled run, {kernel: (ms, launches)}), None on a failure."""
         from torch.profiler import ProfilerActivity, profile
@@ -2692,9 +2986,11 @@ class _Run:
                                 **kw)
         if not self._check_trace(phase, cfg, run, route, ff=ff):
             return None
-        whole = {"flash_decode_paged_kernel": {
-            "paged": "flash_decode_paged",
-            "int8": "flash_decode_paged_int8"}[route], **(whole or {})}
+        kernel, wrapper = {
+            "paged": ("flash_decode_paged_kernel", "flash_decode_paged"),
+            "int8": ("flash_decode_paged_kernel", "flash_decode_paged_int8"),
+            "dense": ("flash_decode_ring_kernel", "flash_decode")}[route]
+        whole = {kernel: wrapper, **(whole or {})}
         for attempt in range(1, PROFILE_TRIES + 1):
             prof = profile(activities=[ProfilerActivity.CUDA])
             traced = self._serve_trace(cfg, params, prompts, max_new,
@@ -2705,11 +3001,11 @@ class _Run:
                            if re.search(rf"\b{k}\b", name)) for k in whole}
             counted = {k: traced["window_launches"][w]
                        for k, w in whole.items()}
-            paged_ms = sum(ms for name, (ms, _) in per_kernel.items()
-                           if "flash_decode_paged_kernel" in name)
+            decode_ms = sum(ms for name, (ms, _) in per_kernel.items()
+                            if kernel in name)
             log(phase + "_profile", steps=f"{window[0]}-{window[1] - 1}",
                 of_steps=run["engine_steps"], attempt=attempt,
-                paged_decode_ms=f"{paged_ms:.3f}",
+                **{f"{route}_decode_ms": f"{decode_ms:.3f}"},
                 **{f"{k}_launches": f"{seen[k]}/{counted[k]}"
                    for k in whole}, whole=seen == counted)
             if seen == counted:
@@ -2732,16 +3028,19 @@ class _Run:
             return None
         paged = got[0]
 
-        dense = self._serve_trace(cfg, params, prompts, max_new,
-                                  env={"REPRO_PAGED_KV": "off"}, **kw)
+        got = self._profiled("continuous_dense", cfg, params, prompts,
+                             max_new, dict(kw, env={"REPRO_PAGED_KV": "off"}),
+                             "dense")
+        if got is None:
+            return None
+        dense = got[0]
         qcfg = cfg.replace(kv_quant="int8")
         int8 = self._serve_trace(qcfg, params, prompts, max_new, **kw)
         cut = self._serve_trace(cfg, params, prompts, max_new,
                                 **dict(kw, prefix_cache=False,
                                        n_pages=CONT["cut_pages"]))
         preempted = cut["summary"]["counters"].get("preemptions", 0)
-        ok = (self._check_trace("continuous_dense", cfg, dense, "dense")
-              and self._check_trace("continuous_int8", qcfg, int8, "int8")
+        ok = (self._check_trace("continuous_int8", qcfg, int8, "int8")
               and self._check_trace("continuous_pool_cut", cfg, cut, "paged")
               and self._same_tokens("dense_vs_paged", cfg, params, prompts,
                                     dense["tokens"], paged["tokens"],

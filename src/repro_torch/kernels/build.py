@@ -40,8 +40,10 @@ ENTRIES = {
                       [_P, _P, _P, _P, _P, _P, _I, _P, _I]
                       + [_I] * 6 + [_LL] * 10 + [_I, _I, _F, _I, _P]),
     "flash_decode": ("flash_decode", "repro_flash_decode",
-                     [_P, _P, _P, _P, _P, _I] + [_I] * 5 + [_LL] * 9
-                     + [_I, _F, _I, _P]),
+                     [_P] * 5 + [_I, _P, _P] + [_I] * 6 + [_LL] * 10
+                     + [_I, _F, _I, _I, _I, _P]),
+    "flash_decode_occupancy": ("flash_decode", "repro_flash_decode_occupancy",
+                               [_I] * 5 + [_P]),
     "dyad_dgrad": ("dyad_dgrad", "repro_dyad_mm_dgrad_two",
                    [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_I, _P]),
     "dyad_wgrad": ("dyad_wgrad", "repro_dyad_mm_wgrad",

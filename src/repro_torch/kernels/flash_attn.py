@@ -15,7 +15,9 @@
 * :func:`flash_decode` (``csrc/flash_decode.cu``) ports
   ``repro.kernels.flash_attn.flash_decode``: one query token against the
   ``(B, L, K, h)`` ring cache, slot ``j`` holding position
-  ``idx - ((idx - j) mod L)``.
+  ``idx - ((idx - j) mod L)``; split over blocks of :data:`RING_SPAN`
+  ring slots and merged in the launch, as the paged decode is (the two
+  share ``csrc/flash_decode_split.cuh``).
 * :func:`flash_decode_paged` (``csrc/flash_decode_paged.cu``) ports
   ``repro.kernels.flash_attn.flash_decode_paged``: one query token against
   ``(NP, P, K, h)`` page pools, slot b's position ``j`` in page
@@ -26,6 +28,9 @@
   split each slot's keys over blocks of :data:`PAGED_SPAN` keys and merge
   the partial softmax states in the same launch, in a fixed order, so a
   row's bits do not depend on the rest of the batch.
+
+The decode kernels take q and the cache in their own dtypes (fp32 or bf16
+each) and convert both as they are used, so no cast runs around them.
 
 All keep the TPU kernels' masking contract: masked scores are -1e30,
 masked probabilities are zeroed, the denominator is ``max(l, 1e-30)``, so
@@ -280,37 +285,69 @@ def flash_decode_plain(q, k, v, idx, *, window: Optional[int] = None):
     return out[:, None] if squeeze else out
 
 
+def _check_ring(q4, k, v):
+    B, K, G, h = q4.shape
+    L = k.shape[1]
+    if k.device != q4.device or v.device != q4.device:
+        raise ValueError(f"flash_decode: tensors on {k.device}/{v.device} "
+                         f"and {q4.device}")
+    if q4.dtype not in _DTYPES or k.dtype not in _DTYPES \
+            or v.dtype != k.dtype:
+        raise TypeError(f"flash_decode: q {q4.dtype}, cache {k.dtype}/"
+                        f"{v.dtype}: want fp32 or bf16 q over an fp32 or "
+                        "bf16 cache")
+    if k.shape != (B, L, K, h) or v.shape != k.shape or L < 1:
+        raise ValueError(f"flash_decode: q {tuple(q4.shape)} vs cache "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    if q4.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("flash_decode: the head dim must be contiguous")
+    if h > _MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"flash_decode: head dim {h} > {_MAX_HEAD_DIM}")
+    if G > _MAX_GQA_DECODE:
+        raise NotImplementedError(
+            f"flash_decode: {G} query heads per KV head > {_MAX_GQA_DECODE}")
+
+
 def flash_decode(q, k, v, idx, *, window: Optional[int] = None):
     """One-token decode over the ring cache.  q: (B, 1, K, G, h) or
     (B, K, G, h); k, v: the (B, L, K, h) post-write cache; ``idx``: the
     current token's write index (int, or a (B,) tensor).  Returns o in
-    q's rank."""
+    q's rank and dtype.  q and the cache may differ in dtype (fp32 or bf16
+    each); the cache is read in place through its strides, never cast.  On
+    the card one launch splits each slot's ring over blocks of
+    :data:`RING_SPAN` slots, and the last block of a slot merges its
+    partials in split order, so a row's bits depend on its own inputs
+    alone."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, idx, window=window)
-    q_dtype = q.dtype
-    q, k, v = _promoted(q, k, v)
-    _check_cuda("flash_decode", q, k, v)
     squeeze = q.dim() == 5
     q4 = q[:, 0] if squeeze else q
+    _check_ring(q4, k, v)
     B, K, G, h = q4.shape
     L = k.shape[1]
-    if k.shape != (B, L, K, h) or v.shape != k.shape:
-        raise ValueError(f"flash_decode: q {tuple(q.shape)} vs cache "
-                         f"{tuple(k.shape)} / {tuple(v.shape)}")
-    if G > _MAX_GQA_DECODE:
-        raise NotImplementedError(
-            f"flash_decode: {G} query heads per KV head > {_MAX_GQA_DECODE}")
+    splits = paged_splits(1, L, None, RING_SPAN)
     idx_vec, idx_s = _int_arg(idx, B, q.device)
-    out = torch.empty(B, K, G, h, dtype=q.dtype, device=q.device)
+    out = torch.empty(B, K, G, h, dtype=q4.dtype, device=q.device)
+    # every partial a merge reads is written in the same launch; the C entry
+    # refuses a grid whose splits do not fit
+    ws = (torch.empty(B * K * splits * G * (h + 2), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
+    # rows of h 64 and 128 go by bulk copies where every row starts on 16
+    # bytes, else element by element
+    rows16 = all(t.data_ptr() % 16 == 0
+                 and all(st * t.element_size() % 16 == 0
+                         for st in t.stride()[:3]) for t in (k, v))
     err = build.entry("flash_decode")(
         build.ptr(q4), build.ptr(k), build.ptr(v), build.ptr(out),
-        build.ptr(idx_vec), idx_s, B, L, K, G, h, *q4.stride()[:3],
-        *k.stride()[:3], *v.stride()[:3],
-        -1 if window is None else int(window), 1.0 / math.sqrt(h),
-        _DTYPES[q.dtype], build.stream(q.device))
+        build.ptr(idx_vec), idx_s, build.ptr(ws),
+        build.ptr(_counters(q.device, B * K)), B, L, K, G, h, RING_SPAN,
+        0 if ws is None else ws.numel(), *q4.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], -1 if window is None else int(window),
+        1.0 / math.sqrt(h), _DTYPES[q4.dtype], _DTYPES[k.dtype], int(rows16),
+        build.stream(q.device))
     build.check(err, "flash_decode")
     flash_decode.launches += 1
-    out = out.to(q_dtype)
     return out[:, None] if squeeze else out
 
 
@@ -385,20 +422,25 @@ _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # whole number of 32-key tiles, one a warp, at most 8 (spans 64/128/256
 # timed once at Qwen3's decode shape on an H100, PERF.md)
 PAGED_SPAN = {torch.float32: 128, torch.bfloat16: 128, torch.int8: 256}
+# ring slots of one block of the ring decode kernel, fp32 and bf16 caches
+# alike (spans 64/128/256 timed once at Qwen3's and OPT's decode shapes on
+# an H100, PERF.md: 256 fastest at each, a 160-slot ring in one split)
+RING_SPAN = 256
+# the (slot, KV head) counters of both decode kernels, by device
 _paged_counters: dict = {}
 
 
 def paged_splits(NB: int, P: int, l_real: Optional[int], span: int) -> int:
-    """Blocks along the key axis of a paged decode launch: the span's
-    splits of ``min(NB * P, l_real)`` keys, at least one.  A slot takes
-    those of them that hold its live keys, so its split depends on its own
-    write index alone."""
+    """Blocks along the key axis of a paged decode launch (of a ring
+    decode: NB 1, P L): the span's splits of ``min(NB * P, l_real)`` keys,
+    at least one.  A slot takes those of them that hold its live keys, so
+    its split depends on its own write index alone."""
     cap = NB * P if l_real is None else min(NB * P, int(l_real))
     return max(1, -(-cap // span))
 
 
 def _counters(device, n: int) -> torch.Tensor:
-    """The paged decode's (slot, KV head) counters on ``device``: zeroed
+    """The decode kernels' (slot, KV head) counters on ``device``: zeroed
     once and left at zero by every launch (the block that merges a slot's
     splits resets its counter), so launches on one device must not
     overlap; the port launches on one stream."""

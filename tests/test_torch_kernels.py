@@ -241,6 +241,41 @@ def test_flash_decode_plain_matches_pallas(L, idxs, window, G):
     _close(_np(got), oracle)
 
 
+@pytest.mark.parametrize("q_bf16,cache_bf16", [(True, False),
+                                                (False, True)])
+@pytest.mark.parametrize("L,idxs,window", [
+    (8, [5], None),               # unwrapped
+    (10, [5, 20, 16], 7),         # per-slot idx, wrapped, windowed
+])
+def test_flash_decode_plain_mixed_dtypes_match_pallas(L, idxs, window,
+                                                      q_bf16, cache_bf16):
+    """bf16 q over an fp32 cache (Qwen3's serving path) and fp32 q over a
+    bf16 cache: the reference promotes each tile to the wider dtype, and
+    the output takes q's dtype.  bf16 tolerance: a bf16 operand or
+    output."""
+    B, K, G, h = len(idxs), 2, 2, 16
+    rng = np.random.default_rng(3 * L + sum(idxs))
+    q = rng.standard_normal((B, 1, K, G, h)).astype(np.float32)
+    k = rng.standard_normal((B, L, K, h)).astype(np.float32)
+    v = rng.standard_normal((B, L, K, h)).astype(np.float32)
+    idx_np = np.asarray(idxs, np.int32)
+    t_idx = idxs[0] if B == 1 else torch.from_numpy(idx_np)
+    j_idx = jnp.int32(idxs[0]) if B == 1 else jnp.asarray(idx_np)
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    qj, kj, vj = (jnp.asarray(x) for x in (q, k, v))
+    if q_bf16:
+        qt, qj = qt.to(torch.bfloat16), qj.astype(jnp.bfloat16)
+    if cache_bf16:
+        kt, vt = kt.to(torch.bfloat16), vt.to(torch.bfloat16)
+        kj, vj = kj.astype(jnp.bfloat16), vj.astype(jnp.bfloat16)
+    got = flash_attn.flash_decode(qt, kt, vt, t_idx, window=window)
+    want = jfa.flash_decode(qj, kj, vj, j_idx, window=window, block_k=128,
+                            interpret=True)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    assert np.asarray(want).dtype == np.dtype(qj.dtype)
+    _close_bf16(got.float().numpy(), np.asarray(want, np.float32))
+
+
 def test_attn_route(monkeypatch):
     monkeypatch.delenv("REPRO_KERNEL_ATTN", raising=False)
     assert ops.attn_route(torch.device("cpu")) == "xla"

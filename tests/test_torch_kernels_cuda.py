@@ -316,6 +316,190 @@ def test_flash_decode_kernel_matches_plain(cuda, B, L, K, G, h, idx, window,
            dtype)
 
 
+def _ring_inputs(device, seed, B, L, K, G, h, q_dtype, cache_dtype):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = _randn(gen, B, 1, K, G, h, device=device, dtype=q_dtype)
+    k = _randn(gen, B, L, K, h, device=device, dtype=cache_dtype)
+    v = _randn(gen, B, L, K, h, device=device, dtype=cache_dtype)
+    return q, k, v
+
+
+def _ring_split_case(case, span):
+    """(L, idxs, window) of a split-edge case of the ring decode, whose
+    splits are blocks of ``span`` ring slots: L = 4 spans + 16 slots (the
+    last split a partial one) but where named."""
+    L = 4 * span + 16
+    return {
+        # unwrapped: a split's last slot, the next split's first, the last
+        # slot, the first step
+        "edges": (L, [span - 1, span, 2 * span - 1, 2 * span, L - 1, 0],
+                  None),
+        # wrapped rings, idx past one and two laps
+        "wrapped": (L, [L, L + span - 1, L + span, 2 * L + 3, 3 * L - 1],
+                    None),
+        # the window's run of slots crosses the wrap point (its leading
+        # splits at the ring's end, a gap in a tile), or empties the
+        # ring's leading splits
+        "window_wrap": (L, [L + 5, 2 * L + span, L + 3 * span + 5, L + 40],
+                        span + 7),
+        # a window of all but 10 slots: the dead run sits inside a tile,
+        # live rows on both sides of it
+        "window_gap": (L, [L + 70, 2 * L + 8, 3 * L - 20], L - 10),
+        # L not a multiple of the span
+        "l_not_multiple": (3 * span + 7, [3 * span + 6, 3 * span + 9,
+                                          7 * span + 20, 40], None),
+        # one slot in one split beside one in every split
+        "one_and_every": (L, [5, L - 1, 3 * L], None),
+        # the first step of each slot: one live key
+        "idx0": (L, [0, 0, 1], None),
+    }[case]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["edges", "wrapped", "window_wrap",
+                                  "window_gap", "l_not_multiple",
+                                  "one_and_every", "idx0"])
+def test_flash_decode_split_edges_match_plain(cuda, case, q_dtype,
+                                              cache_dtype):
+    """The kernel splits each slot's ring into blocks of RING_SPAN slots
+    and merges them in the launch: every edge of that split, before and
+    after the wrap and under a window, matches the plain version, for
+    every pair of q and cache dtypes, at Qwen3's KV heads (K 8, G 2, h
+    128)."""
+    span = flash_attn.RING_SPAN
+    L, idxs, window = _ring_split_case(case, span)
+    q, k, v = _ring_inputs(cuda, 19, len(idxs), L, 8, 2, 128, q_dtype,
+                           cache_dtype)
+    idx = torch.tensor(idxs, dtype=torch.int32, device=cuda)
+    before = flash_attn.flash_decode.launches
+    got = flash_attn.flash_decode(q, k, v, idx, window=window)
+    torch.cuda.synchronize()
+    assert flash_attn.flash_decode.launches == before + 1
+    assert got.dtype == q_dtype and got.shape == q.shape
+    want = flash_attn.flash_decode_plain(q, k, v, idx, window=window)
+    exact = q_dtype == cache_dtype == torch.float32
+    _close(got, want, torch.float32 if exact else torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_slot_bits_do_not_depend_on_the_batch(cuda,
+                                                           cache_dtype):
+    """Each slot of a batch of 8 (one split to every split, wrapped or
+    not) gives the same bits alone as in the batch."""
+    span = flash_attn.RING_SPAN
+    L = 512
+    idxs = [0, span - 1, span, 2 * span + 3, 300, 511, 600, 1500]
+    q, k, v = _ring_inputs(cuda, 23, 8, L, 8, 2, 128, torch.bfloat16,
+                           cache_dtype)
+    idx = torch.tensor(idxs, dtype=torch.int32, device=cuda)
+    for window in (None, 200):
+        batch = flash_attn.flash_decode(q, k, v, idx, window=window)
+        for i in range(len(idxs)):
+            alone = flash_attn.flash_decode(q[i:i + 1], k[i:i + 1],
+                                            v[i:i + 1], idx[i:i + 1],
+                                            window=window)
+            assert torch.equal(alone, batch[i:i + 1]), (window, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_repeats_bitwise(cuda, cache_dtype):
+    """Two calls give the same bits, also with a launch of another batch
+    and ring length between them: the block that merges a slot's splits
+    resets its counter."""
+    q, k, v = _ring_inputs(cuda, 29, 4, 512, 8, 2, 128, torch.bfloat16,
+                           cache_dtype)
+    idx = torch.tensor([511, 130, 64, 900], dtype=torch.int32, device=cuda)
+    first = flash_attn.flash_decode(q, k, v, idx)
+    q2, k2, v2 = _ring_inputs(cuda, 31, 3, 160, 8, 2, 128, torch.bfloat16,
+                              cache_dtype)
+    flash_attn.flash_decode(q2, k2, v2, 143, window=100)
+    again = flash_attn.flash_decode(q, k, v, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert int(flash_attn._paged_counters[q.device].abs().sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,idxs,window", [
+    (160, [143, 0, 37, 159], None),          # rows past idx: never written
+    (512, [600, 1000, 520, 70], 150),        # windows across the wrap
+    (512, [582, 1000, 520, 70], 502),        # dead runs inside a tile
+])
+def test_flash_decode_dead_rows_are_never_read(cuda, L, idxs, window,
+                                               cache_dtype):
+    """NaN in every ring slot that holds no live position (past idx, or
+    outside the window, which in a wrapped ring leaves a gap inside a
+    tile) moves no bit of the output against clean dead rows."""
+    q, k, v = _ring_inputs(cuda, 37, len(idxs), L, 8, 2, 128,
+                           torch.bfloat16, cache_dtype)
+    idx = torch.tensor(idxs, dtype=torch.int32, device=cuda)
+    clean = flash_attn.flash_decode(q, k, v, idx, window=window)
+    j = torch.arange(L, device=cuda)
+    iv = idx.long()[:, None]
+    pos = iv - torch.remainder(iv - j, L)
+    dead = pos < 0
+    if window is not None:
+        dead |= iv - pos >= window
+    assert bool(dead.any())
+    k[dead] = float("nan")
+    v[dead] = float("nan")
+    got = flash_attn.flash_decode(q, k, v, idx, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, clean)
+    assert bool(torch.isfinite(got.float()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [128, 80])
+def test_flash_decode_rows_off_16_bytes_match_plain(cuda, h):
+    """A cache whose rows do not start on 16 bytes (a view one element
+    into a wider buffer) goes element by element, and matches the plain
+    version."""
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    B, L, K, G = 3, 200, 4, 2
+    q = _randn(gen, B, 1, K, G, h, device=cuda)
+    k = _randn(gen, B, L, K, h + 1, device=cuda)[..., 1:]
+    v = _randn(gen, B, L, K, h + 1, device=cuda)[..., 1:]
+    idx = torch.tensor([199, 250, 5], dtype=torch.int32, device=cuda)
+    got = flash_attn.flash_decode(q, k, v, idx, window=120)
+    torch.cuda.synchronize()
+    _close(got, flash_attn.flash_decode_plain(q, k, v, idx, window=120),
+           torch.float32)
+
+
+@pytest.mark.gpu
+def test_flash_decode_entry_refuses_a_short_workspace(cuda, monkeypatch):
+    """The C entry works out the grid's splits itself and refuses a
+    workspace sized for fewer (cudaErrorInvalidValue, 1) instead of
+    writing past it."""
+    q, k, v = _ring_inputs(cuda, 43, 2, 512, 8, 2, 128, torch.bfloat16,
+                           torch.float32)
+    monkeypatch.setattr(flash_attn, "paged_splits", lambda *a: 1)
+    with pytest.raises(RuntimeError, match="cudaError_t 1$"):
+        flash_attn.flash_decode(q, k, v, 511)
+
+
+@pytest.mark.gpu
+def test_flash_decode_wrapper_raises(cuda):
+    q, k, v = _ring_inputs(cuda, 47, 2, 64, 2, 2, 64, torch.float32,
+                           torch.float32)
+    with pytest.raises(TypeError):
+        flash_attn.flash_decode(q.half(), k, v, 3)
+    with pytest.raises(TypeError):
+        flash_attn.flash_decode(q, k.to(torch.int8), v.to(torch.int8), 3)
+    with pytest.raises(TypeError):
+        flash_attn.flash_decode(q, k, v.bfloat16(), 3)
+    with pytest.raises(ValueError):
+        flash_attn.flash_decode(q, k.cpu(), v.cpu(), 3)
+    with pytest.raises(ValueError):
+        flash_attn.flash_decode(q, k[:, :0], v[:, :0], 3)
+
+
 @pytest.mark.gpu
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     x = torch.zeros(4, 32, device=cuda, dtype=torch.float16)

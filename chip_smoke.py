@@ -14,8 +14,14 @@ exit and no result line):
    ``dyad_dgrad``, ``dyad_dgrad_fused``, ``dyad_wgrad``), of the ff
    megakernels (``dyad_ff``), of the quantized GEMMs (``dyad_mm_q``) and
    of the flash forward and backward (``flash_prefill``, ``flash_bwd``;
-   ``cuobjdump -sass``): each must hold ``HGMMA`` (wgmma, its bf16 route)
-   and ``FFMA`` (its fp32 route), counts on one line; ptxas's registers,
+   ``cuobjdump -sass``): each must hold ``HGMMA`` (wgmma) and, but for
+   ``flash_prefill`` (both routes on wgmma), ``FFMA`` (an fp32 route on
+   FMA), counts on one line; the split-TF32 instantiations (the fp32 DYAD
+   GEMM of ``dyad_mm``, the fp32 flash forward at HD 64 and 128) and their
+   bf16 twins, each one's HGMMA, FFMA, registers, spills and wgmma
+   serialisation on one line (HGMMA in each, no spill, no FFMA in the fp32
+   GEMM, no more in an fp32 flash forward than in its bf16 twin); ptxas's
+   registers,
    spills and wgmma serialisation of the tensor-core flash kernels, ff
    megakernel and quantized GEMM, one line each for the flash forward
    (``flash_fwd_tc_kernel``), the flash backward, the ff megakernel
@@ -58,7 +64,13 @@ exit and no result line):
    h 128, repeated bitwise at Qwen3's shape, and with k = 0 and v in
    {-1, 0, 1}, whose sums are exact: o bitwise, lse within 1e-6
    relative; every ``flash_prefill`` case's fully-masked rows with the
-   plain version's lse bits; bf16 ``dyad_mm_blocks_two`` on integer
+   plain version's lse bits; the split-TF32 routes (fp32 ``flash_prefill``
+   and fp32 ``dyad_mm_blocks`` past the decode rows) also against their
+   plain versions run in float64 in every case (at most F64_GATE x the
+   plain fp32 version's error), repeated bitwise at OPT's shapes and a
+   strided x, fp32 ``flash_prefill`` on strided views at h 64 and 128, and
+   both on operands +-(1 + 2^-12), within SPLIT_REL of float64 where one
+   TF32 product is off by about 5e-4; bf16 ``dyad_mm_blocks_two`` on integer
    inputs at Qwen3's split-route down shape and ragged shapes, and
    ``dyad_ff_fused`` with relu on integer inputs at Qwen3's widths, M 4096
    and 128, bitwise; the bf16 Qwen3 ``dyad_ff_fused`` cases also on the
@@ -86,7 +98,10 @@ exit and no result line):
    each pool dtype at contexts 64 and 512 with the splits a slot takes
    (``time_pools``); the ring decode at Qwen3's batch step
    (``@qwen3_batch``) and dense-ring step (``@ring512``), bf16 q over an
-   fp32 cache;
+   fp32 cache; ``flash_prefill`` at Qwen3's serving prefill over its fp32
+   cache (``@qwen3_fp32_cache``, bf16 q cast up, against SDPA); the
+   split-TF32 routes' bounds at a third of the TF32 rate, the FMA bound
+   beside (``fma_bound_ms``);
 5. the OPT serving path: OPT-125m at full width with ``dyad_it_4_kernel``,
    random weights from ``--seed``, ``Engine.generate`` at batch 8, prompt
    128, 32 new tokens, with the kernels' launch counters read around it;
@@ -103,13 +118,20 @@ exit and no result line):
    every 100 ms: min/median/max);
    the same with ``--linear dense`` (the paper's comparison, printed, not
    claimed); 7b. a ``torch.profiler`` trace of one DYAD train step and
-   one DENSE step;
+   one DENSE step, the DYAD one's fp32 forward launches by kernel name
+   (the split-TF32 flash forward once a layer, the split-TF32 DYAD GEMM
+   twice, no FMA prefill or tile kernel);
    7c. the same training path with the OT and DT variants
    (``dyad_ot_4_kernel``, ``dyad_dt_4_kernel``) at full depth, their
    launch counters checked exactly;
 8. one train step of OPT-125m and Pythia-160m at full width and 2 layers
    on the card against the CPU port on the same params and batch, and on
-   the card the kernel backward against the forced plain backward;
+   the card the kernel backward against the forced plain backward; where
+   the two devices put a ReLU unit's pre-activation on either side of zero
+   and every such unit is a tie (at most RELU_TIES_MAX a step, each within
+   RELU_TIE of zero on both; ROADMAP C.8), the grads are held instead
+   against the CPU step taken with just those units on the other branch,
+   at the same bound (the units and both errors logged);
 9. the Qwen3-0.6B serving path at full width with the ff megakernel
    (``dyad_it_4_kernel_ffused``, bf16 compute, fp32 cache): generate at
    batch 8, prompt 128, 32 new, launch counters checked exactly, and a
@@ -166,6 +188,7 @@ Imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -177,13 +200,25 @@ import time
 from pathlib import Path
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, the
-# fp32 (non-tensor-core) FLOP/s and the bf16 tensor-core FLOP/s, the peak
-# rate for each input type
+# fp32 (non-tensor-core) FLOP/s and the bf16 and TF32 tensor-core FLOP/s,
+# the peak rate for each input type.  The split-TF32 (3xTF32) fp32 routes
+# run three TF32 products for each fp32 one: their fp32 work is bound at a
+# third of the TF32 rate (and at FP32_FLOPS the FMA kernels were, printed
+# beside as fma_bound_ms)
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
+SPLIT_TF32_FLOPS = TF32_FLOPS / 3
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # x max(|plain|, 1)
+# the split-TF32 kernels against a float64 product (the plain version run
+# in float64): their largest error at most F64_GATE x the plain fp32
+# version's (allow_tf32 off) against the same product; and on operands
+# +-(1 + 2^-12), whose bits below TF32's 10-bit mantissa carry the answer,
+# within SPLIT_REL x max|float64| (one TF32 product is off by about 5e-4)
+F64_GATE = 4.0
+SPLIT_REL = 1e-6
 LOGIT_TOL = 1e-4                             # x max(|cpu logits|, 1)
 # card vs CPU train step, fp32 both: loss relative; each grad leaf against
 # max(|cpu leaf|, 1e-3) (sums over 512 tokens and the 50k vocabulary run
@@ -287,7 +322,7 @@ def _close(got, want, tol: float):
     return err <= tol * scale, err, tol * scale
 
 
-def _timer(torch, flush_buf):
+def timer(torch, flush_buf):
     """Median device time of ``fn`` in ms.  Before each run the L2 is
     flushed (the layer-by-layer caller finds it cold) and the device is
     kept busy for ~0.5 ms, so the host has enqueued all of ``fn`` before
@@ -525,6 +560,38 @@ def _time_qwen3_attn(torch, randn, record, time_ms):
            delta_ms=time_ms(lambda: flash_attn._delta(o, do)))
 
 
+def _time_qwen3_fp32_cache(torch, randn, record, time_ms):
+    """Phase 4 at Qwen3-0.6B's serving prefill over its fp32 cache (B 8, a
+    128-token prompt over the 160-slot cache, K 8 KV heads x G 2, h 128,
+    causal; records ``flash_prefill@qwen3_fp32_cache``): bf16 q, which the
+    wrapper casts up to the cache's fp32 (the split-TF32 route, the casts
+    timed with it).  Yardstick: F.scaled_dot_product_attention on the same
+    q cast to fp32 in the call, over the cache's k and v expanded to the 16
+    query heads before the timing."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn
+
+    B, S, K, G, h = SMOKE["B"], SMOKE["S"], 8, 2, 128
+    L = S + SMOKE["new"]
+    q = randn(B, S, K, G, h, dtype=torch.bfloat16)
+    kc, vc = randn(B, L, K, h), randn(B, L, K, h)
+    qt = q.reshape(B, S, K * G, h).transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1)
+              for t in (kc, vc))
+    pairs = B * K * G * S * (S + 1) // 2
+    # q read, o written (bf16); the k, v rows of the band (fp32)
+    nbytes = 2 * 2 * B * S * K * G * h + 4 * 2 * B * S * K * h
+    record("flash_prefill@qwen3_fp32_cache",
+           time_ms(lambda: flash_attn.flash_prefill(q, kc, vc, 0, 0)),
+           time_ms(lambda: flash_attn.flash_prefill_plain(q, kc, vc, 0, 0)),
+           time_ms(lambda: F.scaled_dot_product_attention(
+               qt.float(), kt, vt, is_causal=True)),
+           nbytes, 4.0 * h * pairs, f"B{B}_S{S}_T{L}_K{K}_G{G}_h{h}_q_bf16",
+           SPLIT_TF32_FLOPS,
+           fma_bound_ms=_bound_ms(nbytes, 4.0 * h * pairs, FP32_FLOPS)[0])
+
+
 def _check_integer_tc(torch, gen, dyad_mm, dyad_cases, bwd_cases, failures):
     """Phase 3: dyad_mm_blocks (IT, OT and DT) and dyad_mm_dgrad_two (IT
     and DT cotangents) on integer-valued bf16 inputs in [-2, 2] at Qwen3's
@@ -632,6 +699,116 @@ def _check_exact_prefill(torch, gen, flash_attn, failures):
                 failures.append(label)
 
 
+def _tf32(torch, t):
+    """t rounded to TF32 as cvt.rna.tf32.f32 rounds it (10-bit mantissa,
+    ties away from zero): the operand of one TF32 product."""
+    i = t.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _gate_f64(label, got, plain, exact, failures) -> float:
+    """Phase 3's float64 gate of a split-TF32 kernel: its largest error
+    against ``exact`` (the plain version in float64) at most F64_GATE x the
+    plain fp32 version's.  Returns the ratio of the two."""
+    err = float((got.double() - exact).abs().max())
+    ref = float((plain.double() - exact).abs().max())
+    ok = err <= F64_GATE * ref
+    ratio = err / ref if ref else (0.0 if err == 0 else math.inf)
+    log("check", case=label + "/float64", dtype="float32",
+        max_abs_err=f"{err:.3e}", plain_fp32_err=f"{ref:.3e}",
+        ratio=f"{ratio:.2f}", gate=F64_GATE, ok=ok)
+    if not ok:
+        failures.append(label + "/float64")
+    return ratio
+
+
+def _repeat_bitwise(torch, label, first, again, failures) -> None:
+    """The same bits again (no atomics in the kernels)."""
+    same = all((a is None and b is None) or bool(torch.equal(a, b))
+               for a, b in zip(first, again))
+    log("check", case=label + "/bitwise_repeat", dtype="float32", ok=same)
+    if not same:
+        failures.append(label + "/bitwise_repeat")
+
+
+def _check_split_precision(torch, gen, dyad_mm, flash_attn, failures):
+    """Phase 3: the split-TF32 kernels on operands +-(1 + 2^-12) with
+    random signs, whose low bits TF32's 10-bit mantissa drops: each
+    kernel within SPLIT_REL x max|float64| of its plain version run in
+    float64.  Beside it (printed, and required to miss by 1e-4 or more, so
+    that the case can tell the routes apart) one TF32 product: the plain
+    version in float64 over operands rounded to TF32.  dyad_mm_blocks at
+    OPT's up and down (M 1024, IT) and a ragged OT; flash_prefill causal at
+    h 64 and 128 and at h 80 with G 2 and a window."""
+    def pm(*shape):
+        sign = torch.randint(0, 2, shape, generator=gen,
+                             device=gen.device) * 2 - 1
+        return sign.float() * (1 + 2.0 ** -12)
+
+    def gate(label, got, exact, one):
+        scale = float(exact.abs().max())
+        rel = float((got.double() - exact).abs().max()) / scale
+        rel_one = float((one - exact).abs().max()) / scale
+        ok = rel <= SPLIT_REL and rel_one >= 1e-4
+        log("check", case=label + "/split_precision", dtype="float32",
+            rel_err=f"{rel:.3e}", one_tf32_rel_err=f"{rel_one:.3e}",
+            tol=SPLIT_REL, ok=ok)
+        if not ok:
+            failures.append(label + "/split_precision")
+
+    plain = dyad_mm.dyad_mm_blocks_plain
+    for label, (M, n, d_in, d_out, var) in (
+            ("up_M1024", (1024, 4, 192, 768, "it")),
+            ("down_M1024", (1024, 4, 768, 192, "it")),
+            ("ragged_ot", (77, 3, 65, 130, "ot"))):
+        x, w1, w2 = pm(M, n * d_in), pm(n, d_out, d_in), pm(n, d_out, d_in)
+        gate(f"dyad_mm_blocks/{label}", dyad_mm.dyad_mm_blocks(x, w1, w2, var),
+             plain(x.double(), w1.double(), w2.double(), var),
+             plain(*(_tf32(torch, t).double() for t in (x, w1, w2)), var))
+    for label, (B, S, K, G, h, window) in (
+            ("h64", (2, 256, 2, 1, 64, None)),
+            ("h128", (2, 256, 2, 2, 128, None)),
+            ("h80_g2_window", (2, 150, 2, 2, 80, 40))):
+        q, k, v = pm(B, S, K, G, h), pm(B, S, K, h), pm(B, S, K, h)
+        kw = dict(causal=True, window=window)
+        gate(f"flash_prefill/{label}",
+             flash_attn.flash_prefill(q, k, v, **kw)[0],
+             flash_attn.flash_prefill_plain(q.double(), k.double(),
+                                            v.double(), **kw)[0],
+             flash_attn.flash_prefill_plain(
+                 *(_tf32(torch, t).double() for t in (q, k, v)), **kw)[0])
+
+
+def _check_prefill_views_fp32(torch, gen, flash_attn, check, failures):
+    """Phase 3: fp32 flash_prefill on strided views (q, k and v views into
+    wider tensors: strides off a multiple of 4 elements, staged element by
+    element; or 16-byte aligned strides of views that are not contiguous,
+    copied by cp.async) at h 64 and 128, against the plain version on the
+    same views and against float64."""
+    B, S, K, G = 2, 90, 2, 2
+    for h in (64, 128):
+        for view in ("unaligned", "aligned"):
+            if view == "unaligned":
+                q = torch.randn(B, S, K, G, h + 3, generator=gen,
+                                device=gen.device)[..., 1:h + 1]
+                k, v = (torch.randn(B, S, K, h + 5, generator=gen,
+                                    device=gen.device)[..., :h]
+                        for _ in range(2))
+            else:
+                q = torch.randn(B, K, G, S, h, generator=gen,
+                                device=gen.device).permute(0, 3, 1, 2, 4)
+                k, v = (torch.randn(B, S, K, 2 * h, generator=gen,
+                                    device=gen.device)[..., h:]
+                        for _ in range(2))
+            label = f"flash_prefill/views_{view}_h{h}"
+            o, lse = flash_attn.flash_prefill(q, k, v, save_lse=True)
+            po, plse = flash_attn.flash_prefill_plain(q, k, v, save_lse=True)
+            check(label, o, po, "float32")
+            check(label + "/lse", lse, plse, "float32")
+            _gate_f64(label, o, po, flash_attn.flash_prefill_plain(
+                q.double(), k.double(), v.double())[0], failures)
+
+
 # the weight types of the tensor-core kernels' template arguments, as
 # mangled
 _MANGLED_TYPES = {"a": "int8", "13__nv_fp8_e4m3": "fp8",
@@ -701,12 +878,76 @@ def _sass_by_function(sass: str, kernel: str) -> dict:
     return out
 
 
+# the split-TF32 instantiations and their bf16 twins: a mangled name's
+# pattern, and its key
+_SPLIT_FNS = {
+    r"dyad_gemm_tc_kernelILb1ELb1EfLb1EfE": "dyad_gemm_tc<f32>",
+    r"dyad_gemm_tc_kernelILb1ELb1E13__nv_bfloat16Lb1E": "dyad_gemm_tc<bf16>",
+    r"flash_fwd_tf32_kernelILi64E": "flash_fwd_tf32<64>",
+    r"flash_fwd_tf32_kernelILi128E": "flash_fwd_tf32<128>",
+    r"flash_fwd_tc_kernelILi64E": "flash_fwd_tc<64>",
+    r"flash_fwd_tc_kernelILi128E": "flash_fwd_tc<128>",
+}
+
+
+def _split_key(mangled: str):
+    return next((key for pat, key in _SPLIT_FNS.items()
+                 if re.search(pat, mangled)), None)
+
+
+def _sass_split(build) -> bool:
+    """Phase 2 for the split-TF32 routes (dyad_mm_blocks past the decode
+    rows, flash_prefill in fp32) and their bf16 twins: each
+    instantiation's HGMMA and FFMA in the SASS and ptxas's registers,
+    spills and wgmma serialisation, one line.  Fails without HGMMA in
+    each, with a spill or a serialised wgmma, with any FFMA in the fp32
+    GEMM (its partial sums are added with FADD), or with more FFMA in an
+    fp32 flash forward than in its bf16 twin (whose FFMA are the
+    softmax's: the products are wgmma in both) and the HD / 2 of the fp32
+    one's alpha O + P V merge, two code paths' worth: HD."""
+    got, ptx = {}, {}
+    for source in ("dyad_mm", "flash_prefill"):
+        for chunk in build.sass(source).split("Function : ")[1:]:
+            key = _split_key(chunk.split(None, 1)[0])
+            if key:
+                got[key] = (len(re.findall(r"\bHGMMA\.", chunk)),
+                            len(re.findall(r"\bFFMA\b", chunk)))
+        ptx.update(_ptxas((build.BUILD_DIR / f"{source}.log").read_text(),
+                          (), key=lambda mangled, _: _split_key(mangled)))
+    bad = [k for k in _SPLIT_FNS.values() if k not in got or k not in ptx]
+    for k, (hgmma, ffma) in got.items():
+        r = ptx.get(k, {})
+        if not hgmma or r.get("spill_stores") or r.get("spill_loads") \
+                or r.get("serialized"):
+            bad.append(k)
+    if got.get("dyad_gemm_tc<f32>", (0, 1))[1]:
+        bad.append("dyad_gemm_tc<f32> FFMA")
+    for hd in (64, 128):
+        if got.get(f"flash_fwd_tf32<{hd}>", (0, 1 << 30))[1] > got.get(
+                f"flash_fwd_tc<{hd}>", (0, 0))[1] + hd:
+            bad.append(f"flash_fwd_tf32<{hd}> FFMA")
+    log("sass_split", **{
+        k: "HGMMA:{},FFMA:{},regs:{},spill_stores:{},spill_loads:{},"
+           "wgmma_serialized:{}".format(
+               *got.get(k, (-1, -1)),
+               *(ptx.get(k, {}).get(f, -1) for f in (
+                   "regs", "spill_stores", "spill_loads", "serialized")))
+        for k in _SPLIT_FNS.values()}, ok=not bad)
+    if bad:
+        log("sass_split", failed=",".join(bad))
+    return not bad
+
+
 def _launches_by_name(per_kernel: dict, want: dict, key: str,
                       phase: str = "qwen3_train_profile") -> bool:
     """The profiled launches of each kernel of ``want`` by name, held to
     its count; one log line (``{key}_launches``, ``{key}_ms``)."""
-    mine = {name: [v for k, v in per_kernel.items()
-                   if re.search(rf"\b{name}\b", k)] for name in want}
+    def hit(name, k):
+        tail = r"\b" if name[-1].isalnum() or name[-1] == "_" else ""
+        return re.search(rf"\b{re.escape(name)}{tail}", k)
+
+    mine = {name: [v for k, v in per_kernel.items() if hit(name, k)]
+            for name in want}
     got = {name: sum(cnt for _, cnt in v) for name, v in mine.items()}
     ok = bool(per_kernel) and got == want
     log(phase, **{
@@ -803,6 +1044,16 @@ def _qwen3_kernel_split(per_kernel: dict, n_layers: int) -> bool:
     ff = {"dyad_ff_tc_kernel": 2 * n_layers, "dyad_ff_kernel": 0}
     return all([_launches_by_name(per_kernel, flash, "flash"),
                 _launches_by_name(per_kernel, ff, "ff")])
+
+
+def _opt_kernel_split(per_kernel: dict, n_layers: int) -> bool:
+    """Phase 7b: the profiled OPT-125m DYAD step's fp32 forward launches
+    by kernel name: the split-TF32 flash forward once a layer and the
+    split-TF32 DYAD GEMM twice (up, down), no FMA prefill or tile kernel."""
+    return _launches_by_name(per_kernel, {
+        "flash_fwd_tf32_kernel": n_layers, "flash_prefill_kernel": 0,
+        "dyad_gemm_tc_kernel<true, true, float, true, float>": 2 * n_layers,
+        "dyad_mm_kernel": 0}, "fwd", "train_profile")
 
 
 def _dgrad_two_entry(z1, z2, w1, w2, dx1, dx2):
@@ -1669,13 +1920,15 @@ def main() -> int:
         dir=build.BUILD_DIR.relative_to(root))
     # the DYAD GEMMs', the ff megakernel's and the flash kernels' bf16
     # routes on the tensor cores (HGMMA is wgmma's SASS), their fp32 routes
-    # on FMA
+    # on FMA but flash_prefill's (split TF32, HGMMA too; dyad_mm's decode
+    # rows keep FMA)
     sass = {name: tuple(len(re.findall(op, build.sass(name)))
                         for op in (r"\bHGMMA\.", r"\bFFMA\b"))
             for name in ("dyad_mm", "dyad_mm_two", "dyad_dgrad",
                          "dyad_dgrad_fused", "dyad_wgrad", "dyad_ff",
                          "dyad_mm_q", "flash_prefill", "flash_bwd")}
-    bad = [name for name, counts in sass.items() if not all(counts)]
+    bad = [name for name, (hgmma, ffma) in sass.items()
+           if not hgmma or not (ffma or name == "flash_prefill")]
     log("sass", **{name: f"HGMMA:{h},FFMA:{f}"
                    for name, (h, f) in sass.items()}, ok=not bad)
     if bad:
@@ -1704,6 +1957,8 @@ def main() -> int:
             return 1
     if not _decode_occupancy(torch, build, flash_attn):
         return 1
+    if not _sass_split(build):
+        return 1
     per_fn = {}
     for source, kernel in (("dyad_ff", "dyad_ff_tc_kernel"),
                            ("dyad_mm_q", "dyad_mm_q_tc_kernel")):
@@ -1730,6 +1985,7 @@ def main() -> int:
     aside_ff = torch.Generator(device=dev).manual_seed(args.seed + 3)
     aside_paged = torch.Generator(device=dev).manual_seed(args.seed + 4)
     aside_ring = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    aside_split = torch.Generator(device=dev).manual_seed(args.seed + 6)
 
     failures = []
 
@@ -1860,6 +2116,9 @@ def main() -> int:
         "aligned_n4_M200": (200, 4, 136, 72),
         "split_M2048": (2048, 1, 64, 65),
     }
+    # fp32 past the decode rows and every fp32 flash_prefill on split TF32:
+    # each case also against float64 (F64_GATE), the largest ratio here
+    f64_ratio = {"dyad_mm_blocks": 0.0, "flash_prefill": 0.0}
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
         for label, (M, n, d_in, d_out, var, *view) in dyad_cases.items():
@@ -1868,12 +2127,25 @@ def main() -> int:
             k = 1.0 / (n * d_in) ** 0.5
             w1 = (randn(n, d_out, d_in) * k).to(dt)
             w2 = (randn(n, d_out, d_in) * k).to(dt)
-            err = check(f"dyad_mm_blocks/{label}",
-                        dyad_mm.dyad_mm_blocks(x, w1, w2, var),
-                        dyad_mm.dyad_mm_blocks_plain(x, w1, w2, var), dn)
+            got = dyad_mm.dyad_mm_blocks(x, w1, w2, var)
+            want = dyad_mm.dyad_mm_blocks_plain(x, w1, w2, var)
+            err = check(f"dyad_mm_blocks/{label}", got, want, dn)
             if dt == torch.float32:
                 max_err["dyad_mm_blocks"] = max(max_err["dyad_mm_blocks"],
                                                 err)
+            if dt == torch.float32 and M > 8:
+                f64_ratio["dyad_mm_blocks"] = max(
+                    f64_ratio["dyad_mm_blocks"], _gate_f64(
+                        f"dyad_mm_blocks/{label}", got, want,
+                        dyad_mm.dyad_mm_blocks_plain(
+                            x.double(), w1.double(), w2.double(), var),
+                        failures))
+            if dt == torch.float32 and label in ("up_M4096",
+                                                 "tc_ldx_pad3_n4_it"):
+                dyad_mm.dyad_mm_blocks(x[:9], w1, w2, var)   # another shape
+                _repeat_bitwise(torch, f"dyad_mm_blocks/{label}", (got,),
+                                (dyad_mm.dyad_mm_blocks(x, w1, w2, var),),
+                                failures)
 
         prefill_cases = {
             # the training attention of one layer: B 8, S = T = 512
@@ -1919,6 +2191,20 @@ def main() -> int:
             po, plse = flash_attn.flash_prefill_plain(q, kk, vv, c["q_off"],
                                                       c["k_off"], **kw)
             err = check(f"flash_prefill/{label}", o, po, dn)
+            if dt == torch.float32:
+                f64_ratio["flash_prefill"] = max(
+                    f64_ratio["flash_prefill"], _gate_f64(
+                        f"flash_prefill/{label}", o, po,
+                        flash_attn.flash_prefill_plain(
+                            q.double(), kk.double(), vv.double(),
+                            c["q_off"], c["k_off"], causal=c["causal"],
+                            window=c["window"])[0], failures))
+            if dt == torch.float32 and label in ("train", "qwen3_main"):
+                flash_attn.flash_prefill(q[:1], kk[:1], vv[:1])  # another
+                _repeat_bitwise(torch, f"flash_prefill/{label}", (o, lse),
+                                flash_attn.flash_prefill(
+                                    q, kk, vv, c["q_off"], c["k_off"], **kw),
+                                failures)
             if dt == torch.bfloat16 and label == "qwen3_train":
                 # no atomics: the same bits again
                 again = flash_attn.flash_prefill(q, kk, vv, c["q_off"],
@@ -2240,6 +2526,11 @@ def main() -> int:
                 failures.append(f"dyad_ff_fused/{label}/bitwise_repeat")
         _check_quant_kernels(torch, randn, check, failures, dt, max_err)
     _check_ring_decode(torch, aside_ring, flash_attn, failures, max_err)
+    _check_prefill_views_fp32(torch, aside_split, flash_attn, check, failures)
+    _check_split_precision(torch, aside_split, dyad_mm, flash_attn, failures)
+    log("check", split_tf32_f64_ratio_max=json.dumps(
+        {k: round(v, 3) for k, v in f64_ratio.items()},
+        separators=(",", ":")), gate=F64_GATE)
     torch.cuda.synchronize()
     if failures:
         log("check", failed=",".join(failures))
@@ -2249,7 +2540,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    time_ms = _timer(torch, flush)
+    time_ms = timer(torch, flush)
     f32 = 4
     timing = {}
 
@@ -2278,7 +2569,9 @@ def main() -> int:
             **{k: f"{v:.4f}" for k, v in extra.items()})
 
     # dyad_mm_blocks: one layer's ff, up + down, at prefill and decode rows
-    # (the kernels line); at the training rows under a name of its own
+    # (the kernels line); at the training rows under a name of its own.
+    # Past the decode rows (split TF32) the bound is at SPLIT_TF32_FLOPS,
+    # the FMA kernel's beside it (fma_bound_ms)
     for label in ("up_M1024", "down_M1024", "up_M8", "down_M8", "up_M4096",
                   "down_M4096"):
         M, n, d_in, d_out, var = dyad_cases[label]
@@ -2291,10 +2584,12 @@ def main() -> int:
         wc = torch.cat([w1, w2], dim=-1).transpose(1, 2).contiguous()
         nbytes = f32 * (M * n * d_in + 2 * n * d_out * d_in + M * n * d_out)
         name = "dyad_mm_blocks" + ("@train" if M == 4096 else "")
+        flops = 4.0 * M * n * d_out * d_in
         record(name, time_ms(lambda: dyad_mm.dyad_mm_blocks(x, w1, w2, var)),
                time_ms(lambda: dyad_mm.dyad_mm_blocks_plain(x, w1, w2, var)),
-               time_ms(lambda: torch.bmm(xc, wc)), nbytes,
-               4.0 * M * n * d_out * d_in, label)
+               time_ms(lambda: torch.bmm(xc, wc)), nbytes, flops, label,
+               SPLIT_TF32_FLOPS if M > 8 else FP32_FLOPS,
+               fma_bound_ms=_bound_ms(nbytes, flops, FP32_FLOPS)[0])
 
     # flash_prefill: one layer's training attention, under a name of its
     # own, with the lse the backward reads
@@ -2304,14 +2599,16 @@ def main() -> int:
     qs, ks, vs = (q[:, :, :, 0].transpose(1, 2), kt.transpose(1, 2),
                   vt.transpose(1, 2))
     pairs = Bt * K * St * (St + 1) // 2
+    nbytes = f32 * (4 * Bt * St * K * h + Bt * K * St)   # q, k, v, o; lse
     record("flash_prefill@train",
            time_ms(lambda: flash_attn.flash_prefill(q, kt, vt, save_lse=True)),
            time_ms(lambda: flash_attn.flash_prefill_plain(q, kt, vt,
                                                           save_lse=True)),
            time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
                                                           is_causal=True)),
-           f32 * (4 * Bt * St * K * h + Bt * K * St),    # q, k, v, o; lse
-           4.0 * h * pairs, f"B{Bt}_S{St}_K{K}_h{h}_causal")
+           nbytes, 4.0 * h * pairs, f"B{Bt}_S{St}_K{K}_h{h}_causal",
+           SPLIT_TF32_FLOPS,
+           fma_bound_ms=_bound_ms(nbytes, 4.0 * h * pairs, FP32_FLOPS)[0])
 
     # flash_prefill: the cache prefill of one layer (q_off = k_off = 0)
     B, S, new, K, h = SMOKE["B"], SMOKE["S"], SMOKE["new"], 12, 64
@@ -2327,7 +2624,10 @@ def main() -> int:
            time_ms(lambda: flash_attn.flash_prefill_plain(q, kc, vc, 0, 0)),
            time_ms(lambda: F.scaled_dot_product_attention(
                qt, kt, vt, is_causal=True)),
-           nbytes, 4.0 * h * pairs, f"B{B}_S{S}_T{L}_K{K}_h{h}")
+           nbytes, 4.0 * h * pairs, f"B{B}_S{S}_T{L}_K{K}_h{h}",
+           SPLIT_TF32_FLOPS,
+           fma_bound_ms=_bound_ms(nbytes, 4.0 * h * pairs, FP32_FLOPS)[0])
+    _time_qwen3_fp32_cache(torch, randn, record, time_ms)
 
     # flash_decode: one decode step of one layer, mid-generation
     idx = S + new // 2 - 1
@@ -2418,7 +2718,8 @@ def main() -> int:
     # -- 7, 7b. the OPT training path ------------------------------------------
     train_launches = run.train("opt125m", "dyad_it_4_kernel", {
         "dyad_mm_blocks": 2, "dyad_mm_dgrad_two": 2, "dyad_mm_wgrad": 2,
-        "flash_prefill": 1, "flash_prefill_grads": 1}, "train")
+        "flash_prefill": 1, "flash_prefill_grads": 1}, "train",
+        profile_check=_opt_kernel_split)
     if train_launches is None:
         return 1
 
@@ -2531,6 +2832,7 @@ def main() -> int:
                  "dyad_ff_fused": qtrain, "dyad_mm_dgrad": qtrain,
                  "dyad_mm_blocks_two": ot_train,
                  "flash_decode@qwen3_batch": qserve,
+                 "flash_prefill@qwen3_fp32_cache": qserve,
                  "flash_decode@ring512": cont["dense"],
                  "flash_decode_paged": cont["paged"],
                  "flash_decode_paged_int8": cont["int8"],
@@ -2573,7 +2875,8 @@ def main() -> int:
             "shape": "+".join(tm["shape"]), "dtype": tm["dtype"]}
         for key in ("split_route_ms", "bmm_chain_ms", "dequant_bmm_ms",
                     "dequant_bmm_chain_ms", "copied_views_ms",
-                    "contiguous_out_ms", "delta_ms", "fma_ms", "tc_ms"):
+                    "contiguous_out_ms", "delta_ms", "fma_ms", "tc_ms",
+                    "fma_bound_ms"):
             if key in tm:
                 entry[key] = tm[key]
         line.append(entry)
@@ -2873,10 +3176,14 @@ class _Run:
 
         pcfg, p_dev, batch = self._step_inputs(arch, spec, B, S, **over)
         p_cpu = _tree_to(p_dev, self.cpu)
+        b_cpu = _tree_to(batch, self.cpu)
+        u_dev, u_cpu = [], []   # the ff ReLU's pre-activations, by call
         self.zero_counts()
-        m_dev, g_dev = loss_and_grads(pcfg, p_dev, batch)
+        with relu_branch(record=u_dev):
+            m_dev, g_dev = loss_and_grads(pcfg, p_dev, batch)
         launches = self.counts()
-        m_cpu, g_cpu = loss_and_grads(pcfg, p_cpu, _tree_to(batch, self.cpu))
+        with relu_branch(record=u_cpu):
+            m_cpu, g_cpu = loss_and_grads(pcfg, p_cpu, b_cpu)
         os.environ["REPRO_KERNEL_BWD"] = "xla"
         try:
             _, g_plain = loss_and_grads(pcfg, p_dev, batch)
@@ -2884,12 +3191,25 @@ class _Run:
             del os.environ["REPRO_KERNEL_BWD"]
         lg, lc = float(m_dev["loss"]), float(m_cpu["loss"])
         loss_err = abs(lg - lc) / abs(lc)
-        cpu_err = _rel_err(g_dev, g_cpu)
-        plain_err = _rel_err(g_dev, g_plain)
+        cpu_err = rel_err(g_dev, g_cpu)
+        plain_err = rel_err(g_dev, g_plain)
         finite = _finite(g_dev)
         loss_tol, grad_tol = tol
-        ok = (loss_err <= loss_tol and cpu_err <= grad_tol
-              and plain_err <= grad_tol and finite)
+        # A ReLU unit whose pre-activation the two devices put on either
+        # side of zero moves its gradient by a whole token's term: where
+        # the only such units are ties (C.8), the CPU step is taken again
+        # with those units, and no other, on the other branch, and its
+        # grads must then agree
+        ties = relu_ties(u_dev, u_cpu)
+        branch_err = None
+        if ties["differences"] and ties["all_ties"]:
+            with relu_branch(masks=ties["masks"]):
+                _, g_branch = loss_and_grads(pcfg, p_cpu, b_cpu)
+            branch_err = rel_err(g_dev, g_branch)
+        grad_ok = cpu_err <= grad_tol or (
+            branch_err is not None and branch_err <= grad_tol)
+        ok = (loss_err <= loss_tol and grad_ok and plain_err <= grad_tol
+              and finite)
         control = {}
         if fp32_control:
             fcfg = configs.get(arch, linear=configs.linear_cfg(spec),
@@ -2899,12 +3219,16 @@ class _Run:
             control = {"control_loss_rel_err_vs_fp32_cpu":
                        f"{abs(lg - lf) / abs(lf):.3e}",
                        "control_grad_rel_err_vs_fp32_cpu":
-                       f"{_rel_err(g_dev, g_f):.3e}"}
+                       f"{rel_err(g_dev, g_f):.3e}"}
         log("train_parity", arch=pcfg.name, linear=spec,
             dtype=pcfg.compute_dtype, layers=pcfg.n_layers, batch=B, seq=S,
             loss_card=f"{lg:.6f}", loss_cpu=f"{lc:.6f}",
             loss_rel_err=f"{loss_err:.3e}",
             grad_rel_err_vs_cpu=f"{cpu_err:.3e}",
+            relu_sign_differences=ties["differences"],
+            relu_ties=ties["units"],
+            grad_rel_err_vs_cpu_on_card_relu_branch=(
+                "n/a" if branch_err is None else f"{branch_err:.3e}"),
             grad_rel_err_kernel_vs_plain_bwd=f"{plain_err:.3e}",
             tol=f"{loss_tol:.0e}/{grad_tol:.0e}", finite=finite,
             launches=json.dumps({k: v for k, v in launches.items() if v},
@@ -2929,7 +3253,7 @@ class _Run:
             del os.environ["REPRO_KERNEL_FF"]
         loss_err = abs(float(m_s["loss"]) - float(m_f["loss"])) / abs(
             float(m_f["loss"]))
-        grad_err = _rel_err(g_s, g_f)
+        grad_err = rel_err(g_s, g_f)
         n = pcfg.n_layers
         # forward (twice under remat): two dyad_mm_blocks and one
         # dyad_mm_blocks_two per layer; the backward's remat adds two more
@@ -3451,7 +3775,71 @@ def _smi_sampler():
     return stop
 
 
-def _rel_err(got, want):
+# A ReLU pre-activation within RELU_TIE x max(|its layer's|, 1) of zero
+# on both devices is a tie (ROADMAP C.8): fp32 sums in another order may
+# put it on either side.  The band is about the fp32 kernels' largest
+# error against a float64 product at OPT's shapes (1.3e-6 to 2.8e-6 in
+# phase 3's gate on an H100) and 3.6x the largest tie seen (2.8e-7); a
+# step may hold at most RELU_TIES_MAX ties (the fp32 OPT steps of phases 8
+# and 11 hold 2 and 1 on an H100): more, or one wider, fails the step
+RELU_TIE = 1e-6
+RELU_TIES_MAX = 2
+
+
+@contextlib.contextmanager
+def relu_branch(record=None, masks=None):
+    """The ff's ReLU (``kernels.ref.ACTS``) with each call's
+    pre-activations appended to ``record``, or each call on the branch of
+    the next of ``masks`` (u * mask, whose gradient is the mask) instead
+    of its own sign."""
+    from repro_torch.kernels import ref
+
+    relu = ref.ACTS["relu"]
+    todo = iter(masks) if masks is not None else None
+
+    def act(u):
+        if record is not None:
+            record.append(u.detach())
+        if todo is None:
+            return relu(u)
+        return u * next(todo).to(u.dtype)
+
+    ref.ACTS["relu"] = act
+    try:
+        yield
+    finally:
+        ref.ACTS["relu"] = relu
+
+
+def relu_ties(u_dev, u_cpu) -> dict:
+    """The ReLU units whose pre-activation the card and the CPU put on
+    either side of zero: their count, whether they are ties (at most
+    RELU_TIES_MAX of them, each within RELU_TIE x max(|layer|, 1) of zero
+    on both devices), the CPU's branches with just those units flipped
+    (``masks``, one a call), and up to four units as call/index:card
+    value/CPU value."""
+    diff, units, masks, all_ties = 0, [], [], True
+    for i, (a, b) in enumerate(zip(u_dev, u_cpu)):
+        a = a.cpu()
+        flip = (a > 0) != (b > 0)
+        masks.append((b > 0) ^ flip)
+        n = int(flip.sum())
+        if not n:
+            continue
+        diff += n
+        bound = RELU_TIE * max(float(b.abs().max()), 1.0)
+        worst = max(float(a[flip].abs().max()), float(b[flip].abs().max()))
+        all_ties = all_ties and worst <= bound
+        for idx in flip.nonzero()[:4 - len(units)].tolist():
+            units.append(f"{i}/{'.'.join(map(str, idx))}:"
+                         f"{float(a[tuple(idx)]):.3e}/"
+                         f"{float(b[tuple(idx)]):.3e}")
+    return {"differences": diff,
+            "all_ties": all_ties and diff <= RELU_TIES_MAX,
+            "masks": masks, "units": ",".join(units) or "none"}
+
+
+def rel_err(got, want):
     """Largest |got - want| of any leaf over max(|want leaf|, 1e-3)."""
     from repro_torch import tree
 

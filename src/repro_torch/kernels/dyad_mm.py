@@ -35,8 +35,12 @@ its decode rows, M > 8), ``dyad_mm_blocks_two``, ``dyad_mm_dgrad_two``,
 :func:`ff_plan`); so do the quantized kernels for bf16 x (the mainloop's
 pieces in ``dyad_mm_q.cu``, the megakernel's payload instantiation,
 picked by :func:`mm_q_plan` and :func:`ff_q_plan`, the payloads converted
-to bf16 in shared memory by ``quant_tc.cuh``); ``dyad_mm_blocks``' decode
-rows and every fp32 operand run on fp32 FMA.
+to bf16 in shared memory by ``quant_tc.cuh``).  With fp32 operands
+``dyad_mm_blocks`` past its decode rows runs on that mainloop too, in
+split TF32: each operand split into tf32 hi and lo, three tf32 products
+a pair (``x_lo w_hi + x_hi w_lo + x_hi w_hi``), each good to about
+2^-21 relative, fp32 sums; its decode rows and every other fp32 operand
+run on fp32 FMA.
 Each wrapper takes its plain version only for a CPU tensor; a CUDA tensor
 launches the kernel or raises.
 """

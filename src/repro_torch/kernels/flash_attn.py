@@ -5,8 +5,10 @@
   q ``(B, S, K, G, h)`` over k, v ``(B, T, K, h)`` with query ``s`` at
   ``q_off + s`` and key ``t`` at ``k_off + t`` (scalars or ``(B,)``
   vectors), causal and/or windowed, optionally returning the fp32
-  log-sum-exp ``(B, K, S*G)``; bf16 on the tensor cores
-  (``csrc/flash_fwd_tc.cuh``), fp32 on FMA.
+  log-sum-exp ``(B, K, S*G)``; both dtypes on the tensor cores
+  (``csrc/flash_fwd_tc.cuh``): bf16 products, and fp32 in split TF32
+  (three tf32 products a pair, each good to about 2^-21 relative, fp32
+  sums).
 * :func:`flash_prefill_grads` (``csrc/flash_bwd.cu``) ports
   ``repro.kernels.flash_attn.flash_prefill_grads``: dq, dk and dv from
   q, k, v, the output, its lse and the output cotangent, with the

@@ -7,7 +7,12 @@ the card with ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_kernels_cuda.py``.  The others check, on the CPU, that a
 CPU tensor takes the plain version and leaves the launch counter alone.
 
-Tolerance: 2e-5 (fp32) and 2e-2 (bf16) times max(|plain|, 1)."""
+Tolerance: 2e-5 (fp32) and 2e-2 (bf16) times max(|plain|, 1).  The fp32
+routes of ``flash_prefill`` and of ``dyad_mm_blocks`` past the decode rows
+run on split TF32 (three tf32 products a pair): they are also held against
+their plain versions run in float64, at most F64_GATE times the plain fp32
+versions' error, and on operands +-(1 + 2^-12), whose low bits one TF32
+product drops, within SPLIT_REL of float64."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,6 +20,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import dyad_mm, flash_attn, ops  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+F64_GATE, SPLIT_REL = 4.0, 1e-6
 
 
 @pytest.fixture
@@ -94,7 +100,9 @@ def test_other_devices_raise():
     (64, 2, 129, 130, "it"), (13, 3, 7, 5, "ot"), (10, 2, 33, 17, "dt"),
     (3, 3, 7, 5, "it"), (5, 2, 129, 130, "dt"), (1, 4, 768, 192, "ot"),
     # Qwen3-0.6B's up (and gate) and down at the training rows
-    (4096, 4, 256, 768, "it"), (4096, 4, 768, 256, "it")])
+    (4096, 4, 256, 768, "it"), (4096, 4, 768, 256, "it"),
+    # OPT-125m's up and down at the training rows (fp32: split TF32)
+    (4096, 4, 192, 768, "it"), (4096, 4, 768, 192, "ot")])
 def test_dyad_mm_kernel_matches_plain(cuda, M, n, d_in, d_out, variant,
                                       dtype):
     gen = torch.Generator(device=cuda).manual_seed(M + d_in)
@@ -120,7 +128,13 @@ TC_EDGE_SHAPES = [
     (200, 4, 136, 72, "it", 0, 0), (129, 4, 72, 136, "ot", 0, 0),
     (130, 2, 129, 130, "ot", 0, 0), (77, 4, 65, 33, "dt", 0, 0),
     (150, 4, 64, 96, "it", 3, 0), (150, 2, 40, 24, "ot", 5, 0),
-    (100, 4, 64, 64, "dt", 8, 1), (140, 3, 24, 200, "it", 1, 0)]
+    (100, 4, 64, 64, "dt", 8, 1), (140, 3, 24, 200, "it", 1, 0),
+    # the fp32 stages (32 deep) and 16-byte runs (4 fp32): d_in a multiple
+    # of 4 off the stage, one element into a second stage, rows padded to a
+    # multiple of 4 elements (fp32 copies, bf16 gathers) and a start 4
+    # elements in (16 bytes in fp32)
+    (129, 4, 36, 129, "it", 0, 0), (40, 2, 33, 64, "ot", 0, 0),
+    (256, 4, 32, 128, "dt", 4, 0), (70, 3, 100, 50, "it", 8, 4)]
 
 
 def _x_view(gen, M, n, d_in, pad, off, device, dtype, draw=None):
@@ -190,6 +204,15 @@ def test_dyad_mm_bf16_integer_inputs_are_exact(cuda, M, n, d_in, d_out,
     (3, 40, 100, 2, 2, 128, True, 48, [60, 10, 0], [0, 5, 20]),
     (2, 33, 33, 3, 2, 16, True, 5, 3, 3),           # h 16: padded to 64
     (2, 100, 100, 2, 4, 64, True, 40, 0, 0),        # G 4, a window
+    # OPT-125m's training attention (fp32: split TF32)
+    (8, 512, 512, 12, 1, 64, True, None, 0, 0),
+    # Qwen3-0.6B's serving prefill (B 8, 128 prompt tokens of a 160-slot
+    # cache): the shape its fp32 cache runs the fp32 route at
+    (8, 128, 160, 8, 2, 128, True, None, 0, 0),
+    # h 96 and 32 padded, odd h (every row off 16 bytes), many key tiles
+    (2, 130, 200, 2, 2, 96, True, None, 70, 0),
+    (2, 65, 130, 2, 1, 17, False, None, 0, 0),
+    (3, 150, 150, 1, 2, 32, True, 100, [0, 7, 50], [0, 0, 10]),
 ])
 def test_flash_prefill_kernel_matches_plain(cuda, B, S, T, K, G, h, causal,
                                             window, q_off, k_off, dtype):
@@ -246,6 +269,119 @@ def test_flash_prefill_bf16_reads_strided_views(cuda, h, view):
     assert flash_attn.flash_prefill.launches == before + 1
     _close(o, po, bf16)
     _close(lse, plse, bf16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [64, 128, 80])
+@pytest.mark.parametrize("view", ["unaligned", "aligned"])
+def test_flash_prefill_fp32_reads_strided_views(cuda, h, view):
+    """The split-TF32 route on q, k and v as views into wider tensors:
+    strides off a multiple of 4 elements (staged element by element) or
+    16-byte aligned strides of views that are not contiguous (copied by
+    cp.async), against the plain version on the same views."""
+    gen = torch.Generator(device=cuda).manual_seed(h + 1)
+    B, S, K, G = 2, 90, 2, 2
+    if view == "unaligned":
+        q = _randn(gen, B, S, K, G, h + 3, device=cuda)[..., 1:h + 1]
+        k, v = (_randn(gen, B, S, K, h + 5, device=cuda)[..., :h]
+                for _ in range(2))
+    else:
+        q = _randn(gen, B, K, G, S, h, device=cuda).permute(0, 3, 1, 2, 4)
+        k, v = (_randn(gen, B, S, K, 2 * h, device=cuda)[..., h:]
+                for _ in range(2))
+    o, lse = flash_attn.flash_prefill(q, k, v, save_lse=True)
+    po, plse = flash_attn.flash_prefill_plain(q, k, v, save_lse=True)
+    torch.cuda.synchronize()
+    _close(o, po, torch.float32)
+    _close(lse, plse, torch.float32)
+
+
+def _tf32_case(kernel, shape, draw):
+    """(kernel call, plain version over given operands) of a split-TF32
+    case: dyad_mm_blocks (M, n, d_in, d_out, variant) or flash_prefill
+    (B, S, K, G, h, window, causal), operands from ``draw``."""
+    if kernel == "dyad_mm_blocks":
+        M, n, d_in, d_out, var = shape
+        ops = (draw(M, n * d_in), draw(n, d_out, d_in), draw(n, d_out, d_in))
+        return (lambda: dyad_mm.dyad_mm_blocks(*ops, var),
+                lambda *t: dyad_mm.dyad_mm_blocks_plain(*t, var), ops)
+    B, S, K, G, h, window, causal = shape
+    ops = (draw(B, S, K, G, h), draw(B, S, K, h), draw(B, S, K, h))
+    kw = dict(causal=causal, window=window)
+    return (lambda: flash_attn.flash_prefill(*ops, **kw)[0],
+            lambda *t: flash_attn.flash_prefill_plain(*t, **kw)[0], ops)
+
+
+SPLIT_CASES = [
+    ("dyad_mm_blocks", (1024, 4, 192, 768, "it")),   # OPT-125m's up
+    ("dyad_mm_blocks", (4096, 4, 768, 192, "it")),   # its down, training
+    ("dyad_mm_blocks", (77, 3, 65, 130, "ot")),
+    ("dyad_mm_blocks", (300, 4, 36, 129, "dt")),
+    ("flash_prefill", (8, 512, 12, 1, 64, None, True)),   # OPT training
+    ("flash_prefill", (2, 256, 2, 2, 128, None, True)),
+    ("flash_prefill", (2, 150, 2, 2, 80, 40, True)),
+    ("flash_prefill", (2, 37, 2, 2, 16, None, False)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,shape", SPLIT_CASES)
+def test_split_tf32_error_against_float64(cuda, kernel, shape):
+    """The split-TF32 routes' largest error against the plain version run
+    in float64 is at most F64_GATE times the plain fp32 version's (with
+    allow_tf32 off) against the same product."""
+    gen = torch.Generator(device=cuda).manual_seed(len(str(shape)))
+    call, plain, ops = _tf32_case(
+        kernel, shape, lambda *s: _randn(gen, *s, device=cuda))
+    exact = plain(*(t.double() for t in ops))
+    err = float((call().double() - exact).abs().max())
+    ref = float((plain(*ops).double() - exact).abs().max())
+    assert err <= F64_GATE * ref, (err, ref)
+
+
+def _tf32(t):
+    """t rounded to TF32 as cvt.rna.tf32.f32 rounds it."""
+    i = t.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,shape", SPLIT_CASES)
+def test_split_tf32_keeps_the_bits_one_tf32_product_drops(cuda, kernel,
+                                                          shape):
+    """On operands +-(1 + 2^-12), whose 2^-12 lies below TF32's 10-bit
+    mantissa, the split routes are within SPLIT_REL of float64, where one
+    TF32 product (operands rounded to TF32) is off by about 5e-4."""
+    gen = torch.Generator(device=cuda).manual_seed(len(str(shape)) + 1)
+
+    def draw(*s):
+        sign = torch.randint(0, 2, s, generator=gen, device=cuda) * 2 - 1
+        return sign.float() * (1 + 2.0 ** -12)
+
+    call, plain, ops = _tf32_case(kernel, shape, draw)
+    exact = plain(*(t.double() for t in ops))
+    scale = float(exact.abs().max())
+    one = plain(*(_tf32(t).double() for t in ops))
+    assert float((one - exact).abs().max()) / scale > 1e-4
+    assert float((call().double() - exact).abs().max()) / scale <= SPLIT_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,shape", SPLIT_CASES)
+def test_split_tf32_gives_the_same_bits_every_run(cuda, kernel, shape):
+    """No atomics in the split routes: five runs, another shape launched
+    between, bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(len(str(shape)) + 2)
+    call, _, _ = _tf32_case(kernel, shape,
+                             lambda *s: _randn(gen, *s, device=cuda))
+    other, _, _ = _tf32_case(kernel, (9, 2, 40, 24, "it") if kernel ==
+                              "dyad_mm_blocks" else (1, 70, 1, 1, 64, None,
+                                                     True),
+                              lambda *s: _randn(gen, *s, device=cuda))
+    first = call()
+    for _ in range(4):
+        other()
+        assert torch.equal(first, call())
 
 
 @pytest.mark.gpu

@@ -15,16 +15,20 @@ exit and no result line):
    megakernels (``dyad_ff``), of the quantized GEMMs (``dyad_mm_q``) and
    of the flash forward and backward (``flash_prefill``, ``flash_bwd``;
    ``cuobjdump -sass``): each must hold ``HGMMA`` (wgmma) and, but for
-   ``flash_prefill`` (both routes on wgmma), ``FFMA`` (an fp32 route on
-   FMA), counts on one line; the split-TF32 instantiations (the fp32 DYAD
-   GEMM of ``dyad_mm``, the fp32 flash forward at HD 64 and 128) and their
-   bf16 twins, each one's HGMMA, FFMA, registers, spills and wgmma
+   ``flash_prefill``, ``flash_bwd`` and ``dyad_dgrad`` (both routes on
+   wgmma), ``FFMA`` (an fp32 route on FMA), counts on one line; the
+   split-TF32 instantiations (the fp32 DYAD GEMM of ``dyad_mm``, the fp32
+   dgrad GEMM of ``dyad_dgrad``, the fp32 flash forward and the fp32
+   flash backward's dk/dv and dq kernels at HD 64 and 128) and their bf16
+   twins, each one's HGMMA, FFMA, registers, spills and wgmma
    serialisation on one line (HGMMA in each, no spill, no FFMA in the fp32
-   GEMM, no more in an fp32 flash forward than in its bf16 twin); ptxas's
+   GEMMs, no more in an fp32 flash forward than in its bf16 twin and HD,
+   none more in an fp32 flash backward kernel than in its twin); ptxas's
    registers,
    spills and wgmma serialisation of the tensor-core flash kernels, ff
    megakernel and quantized GEMM, one line each for the flash forward
-   (``flash_fwd_tc_kernel``), the flash backward, the ff megakernel
+   (``flash_fwd_tc_kernel``), the flash backward (bf16 and split TF32),
+   the fp32 dgrad GEMM, the ff megakernel
    (``dyad_ff_tc_kernel``, gated and not, over bf16, int8 and fp8
    weights) and the quantized GEMM (``dyad_mm_q_tc_kernel``, int8 and
    fp8; no spill and no serialised wgmma allowed); the split-key decode
@@ -64,13 +68,15 @@ exit and no result line):
    h 128, repeated bitwise at Qwen3's shape, and with k = 0 and v in
    {-1, 0, 1}, whose sums are exact: o bitwise, lse within 1e-6
    relative; every ``flash_prefill`` case's fully-masked rows with the
-   plain version's lse bits; the split-TF32 routes (fp32 ``flash_prefill``
-   and fp32 ``dyad_mm_blocks`` past the decode rows) also against their
-   plain versions run in float64 in every case (at most F64_GATE x the
-   plain fp32 version's error), repeated bitwise at OPT's shapes and a
-   strided x, fp32 ``flash_prefill`` on strided views at h 64 and 128, and
-   both on operands +-(1 + 2^-12), within SPLIT_REL of float64 where one
-   TF32 product is off by about 5e-4; bf16 ``dyad_mm_blocks_two`` on integer
+   plain version's lse bits; the split-TF32 routes (fp32 ``flash_prefill``,
+   ``flash_prefill_grads`` and ``dyad_mm_dgrad_two``, and fp32
+   ``dyad_mm_blocks`` past the decode rows) also against their plain
+   versions run in float64 in every case (at most F64_GATE x the plain
+   fp32 version's error), repeated bitwise at OPT's shapes (and a strided
+   x, the DT z2, h 80), fp32 ``flash_prefill`` on strided views at h 64
+   and 128, and all four on operands +-(1 + 2^-12), within SPLIT_REL of
+   float64 where one TF32 product is off by about 5e-4; bf16
+   ``dyad_mm_blocks_two`` on integer
    inputs at Qwen3's split-route down shape and ragged shapes, and
    ``dyad_ff_fused`` with relu on integer inputs at Qwen3's widths, M 4096
    and 128, bitwise; the bf16 Qwen3 ``dyad_ff_fused`` cases also on the
@@ -84,7 +90,9 @@ exit and no result line):
    ``copied_views_ms``, and ``dyad_mm_dgrad_two`` with dx2 written in
    dx1's layout, ``contiguous_out_ms``; ``@qwen3_train``: one layer of
    Qwen3-0.6B's training attention in bf16, against SDPA, the backward
-   with the wrapper's delta alone, ``delta_ms``); for the quantized-weight
+   with the wrapper's delta alone, ``delta_ms``, as at OPT's;
+   ``dyad_mm_dgrad@opt_ot``: fp32 ``dyad_mm_dgrad`` at OPT-125m's OT dx,
+   on FMA); for the quantized-weight
    kernels the yardstick is torch.bmm over weights dequantized before the
    timing, and the same with the dequantization timed too, and beside
    each bf16 one the FMA kernel through the C entry (``fma_ms``, the
@@ -118,9 +126,11 @@ exit and no result line):
    every 100 ms: min/median/max);
    the same with ``--linear dense`` (the paper's comparison, printed, not
    claimed); 7b. a ``torch.profiler`` trace of one DYAD train step and
-   one DENSE step, the DYAD one's fp32 forward launches by kernel name
-   (the split-TF32 flash forward once a layer, the split-TF32 DYAD GEMM
-   twice, no FMA prefill or tile kernel);
+   one DENSE step, the DYAD one's fp32 launches by kernel name (the
+   split-TF32 flash forward once a layer, the split-TF32 DYAD GEMM
+   twice, no FMA prefill or tile kernel; the split-TF32 flash dk/dv and
+   dq kernels once a layer each, the split-TF32 dgrad GEMM twice, no FMA
+   flash backward);
    7c. the same training path with the OT and DT variants
    (``dyad_ot_4_kernel``, ``dyad_dt_4_kernel``) at full depth, their
    launch counters checked exactly;
@@ -219,6 +229,14 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # x max(|plain|, 1)
 # within SPLIT_REL x max|float64| (one TF32 product is off by about 5e-4)
 F64_GATE = 4.0
 SPLIT_REL = 1e-6
+# The gate holds where each output sums enough products that fp32's own
+# error is its sums'.  Over a handful of products fp32's error is a
+# rounding or two, while a 3xTF32 product alone misses by up to about
+# 2^-21 relative (its operands' hi + lo hold them to 2^-22): the 3-term
+# dgrad case "prime" read 5.52x on an H100.  A case whose
+# contraction is shorter than F64_MIN_TERMS is held to its plain version
+# and repeated, not gated
+F64_MIN_TERMS = 16
 LOGIT_TOL = 1e-4                             # x max(|cpu logits|, 1)
 # card vs CPU train step, fp32 both: loss relative; each grad leaf against
 # max(|cpu leaf|, 1e-3) (sums over 512 tokens and the 50k vocabulary run
@@ -402,6 +420,23 @@ def _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases):
            4.0 * M * n * d_out * d_ff, "qwen3_down_dh_M4096", BF16_FLOPS,
            "bfloat16", copied_views_ms=time_ms(
                lambda: dyad_mm.dyad_mm_dgrad(z1, z1, w1, w2)))
+
+    # dyad_mm_dgrad in fp32 (FMA) at OPT-125m's OT dx, one layer's up +
+    # down: the OT cotangent views, z2 the stride-n z2bar
+    for label in ("opt_up_M4096", "opt_down_M4096"):
+        M, n, d_in, d_out = two_cases[label]
+        g = randn(M, n * d_out)
+        z1, z2 = g.reshape(M, n, d_out), g.reshape(M, d_out, n).transpose(
+            1, 2)
+        w1, w2 = randn(n, d_out, d_in), randn(n, d_out, d_in)
+        zc = torch.cat([z1, z2], dim=2).transpose(0, 1).contiguous()
+        wc = torch.cat([w1, w2], dim=1).contiguous()
+        record("dyad_mm_dgrad@opt_ot",
+               time_ms(lambda: dyad_mm.dyad_mm_dgrad(z1, z2, w1, w2)),
+               time_ms(lambda: dyad_mm.dyad_mm_dgrad_plain(z1, z2, w1, w2)),
+               time_ms(lambda: torch.bmm(zc, wc)),
+               4 * (M * n * d_out + 2 * n * d_out * d_in + M * n * d_in),
+               4.0 * M * n * d_out * d_in, label)
 
     # dyad_ff_fused: bf16 x, fp32 params (the main path's inputs); beside
     # the wrapper (ff_plan's kernel), the FMA kernel through the entry
@@ -739,7 +774,11 @@ def _check_split_precision(torch, gen, dyad_mm, flash_attn, failures):
     that the case can tell the routes apart) one TF32 product: the plain
     version in float64 over operands rounded to TF32.  dyad_mm_blocks at
     OPT's up and down (M 1024, IT) and a ragged OT; flash_prefill causal at
-    h 64 and 128 and at h 80 with G 2 and a window."""
+    h 64 and 128 and at h 80 with G 2 and a window; flash_prefill_grads at
+    those shapes (dq, dk and dv each; o and lse, which no product reads,
+    the plain fp32 forward's); dyad_mm_dgrad_two at OPT's up and down dx
+    (M 1024, the IT cotangent view) and a ragged shape with the DT strided
+    z2."""
     def pm(*shape):
         sign = torch.randint(0, 2, shape, generator=gen,
                              device=gen.device) * 2 - 1
@@ -777,6 +816,33 @@ def _check_split_precision(torch, gen, dyad_mm, flash_attn, failures):
                                             v.double(), **kw)[0],
              flash_attn.flash_prefill_plain(
                  *(_tf32(torch, t).double() for t in (q, k, v)), **kw)[0])
+        do = pm(B, S, K, G, h)
+        o, lse = flash_attn.flash_prefill_plain(q, k, v, save_lse=True,
+                                                **kw)
+        got = flash_attn.flash_prefill_grads(q, k, v, o, lse, do, **kw)
+        exact = flash_attn.flash_prefill_grads_plain(
+            q.double(), k.double(), v.double(), o.double(), lse.double(),
+            do.double(), **kw)
+        one = flash_attn.flash_prefill_grads_plain(
+            *(_tf32(torch, t).double() for t in (q, k, v)), o.double(),
+            lse.double(), _tf32(torch, do).double(), **kw)
+        for name, a, e, t in zip(("dq", "dk", "dv"), got, exact, one):
+            gate(f"flash_prefill_grads/{label}/{name}", a, e, t)
+    dplain = dyad_mm.dyad_mm_dgrad_two_plain
+    for label, (M, n, d_in, d_out, zl) in (
+            ("up_M1024", (1024, 4, 192, 768, "it")),
+            ("down_M1024", (1024, 4, 768, 192, "it")),
+            ("ragged_dt", (77, 3, 65, 130, "dt"))):
+        g = pm(M, n * d_out)
+        z1 = g.reshape(M, n, d_out)
+        z2 = z1 if zl == "it" else g.reshape(M, d_out, n).transpose(1, 2)
+        w1, w2 = pm(n, d_out, d_in), pm(n, d_out, d_in)
+        got = dyad_mm.dyad_mm_dgrad_two(z1, z2, w1, w2)
+        exact = dplain(z1.double(), z2.double(), w1.double(), w2.double())
+        one = dplain(*(_tf32(torch, t).double() for t in (z1, z2, w1, w2)))
+        for c in (0, 1):
+            gate(f"dyad_mm_dgrad_two/{label}/dx{c + 1}", got[c], exact[c],
+                 one[c])
 
 
 def _check_prefill_views_fp32(torch, gen, flash_attn, check, failures):
@@ -878,6 +944,8 @@ def _sass_by_function(sass: str, kernel: str) -> dict:
     return out
 
 
+# the sources whose fp32 route runs on split TF32 (no FMA kernel left)
+SPLIT_SOURCES = ("flash_prefill", "flash_bwd", "dyad_dgrad")
 # the split-TF32 instantiations and their bf16 twins: a mangled name's
 # pattern, and its key
 _SPLIT_FNS = {
@@ -887,6 +955,16 @@ _SPLIT_FNS = {
     r"flash_fwd_tf32_kernelILi128E": "flash_fwd_tf32<128>",
     r"flash_fwd_tc_kernelILi64E": "flash_fwd_tc<64>",
     r"flash_fwd_tc_kernelILi128E": "flash_fwd_tc<128>",
+    r"dyad_dgrad_tf32_kernel": "dyad_dgrad_tf32",
+    r"dyad_gemm_tc_kernelILb1ELb0E13__nv_bfloat16Lb0E": "dyad_dgrad_tc<bf16>",
+    r"flash_dkv_tf32_kernelILi64E": "flash_dkv_tf32<64>",
+    r"flash_dkv_tf32_kernelILi128E": "flash_dkv_tf32<128>",
+    r"flash_dq_tf32_kernelILi64E": "flash_dq_tf32<64>",
+    r"flash_dq_tf32_kernelILi128E": "flash_dq_tf32<128>",
+    r"flash_dkv_tc_kernelILi64E": "flash_dkv_tc<64>",
+    r"flash_dkv_tc_kernelILi128E": "flash_dkv_tc<128>",
+    r"flash_dq_tc_kernelILi64E": "flash_dq_tc<64>",
+    r"flash_dq_tc_kernelILi128E": "flash_dq_tc<128>",
 }
 
 
@@ -897,16 +975,19 @@ def _split_key(mangled: str):
 
 def _sass_split(build) -> bool:
     """Phase 2 for the split-TF32 routes (dyad_mm_blocks past the decode
-    rows, flash_prefill in fp32) and their bf16 twins: each
-    instantiation's HGMMA and FFMA in the SASS and ptxas's registers,
-    spills and wgmma serialisation, one line.  Fails without HGMMA in
-    each, with a spill or a serialised wgmma, with any FFMA in the fp32
-    GEMM (its partial sums are added with FADD), or with more FFMA in an
-    fp32 flash forward than in its bf16 twin (whose FFMA are the
-    softmax's: the products are wgmma in both) and the HD / 2 of the fp32
-    one's alpha O + P V merge, two code paths' worth: HD."""
+    rows, dyad_mm_dgrad_two, flash_prefill and flash_prefill_grads in
+    fp32) and their bf16 twins: each instantiation's HGMMA and FFMA in the
+    SASS and ptxas's registers, spills and wgmma serialisation, one line.
+    Fails without HGMMA in each, with a spill or a serialised wgmma, with
+    any FFMA in the fp32 GEMMs (their partial sums are added with FADD),
+    with more FFMA in an fp32 flash forward than in its bf16 twin (whose
+    FFMA are the softmax's: the products are wgmma in both) and the HD / 2
+    of the fp32 one's alpha O + P V merge, two code paths' worth: HD; or
+    with more FFMA in an fp32 flash backward kernel than in its bf16 twin
+    (whose FFMA are the probabilities': the fp32 one adds its partials
+    with FADD)."""
     got, ptx = {}, {}
-    for source in ("dyad_mm", "flash_prefill"):
+    for source in ("dyad_mm", "flash_prefill", "dyad_dgrad", "flash_bwd"):
         for chunk in build.sass(source).split("Function : ")[1:]:
             key = _split_key(chunk.split(None, 1)[0])
             if key:
@@ -920,12 +1001,17 @@ def _sass_split(build) -> bool:
         if not hgmma or r.get("spill_stores") or r.get("spill_loads") \
                 or r.get("serialized"):
             bad.append(k)
-    if got.get("dyad_gemm_tc<f32>", (0, 1))[1]:
-        bad.append("dyad_gemm_tc<f32> FFMA")
+    for k in ("dyad_gemm_tc<f32>", "dyad_dgrad_tf32"):
+        if got.get(k, (0, 1))[1]:
+            bad.append(f"{k} FFMA")
     for hd in (64, 128):
         if got.get(f"flash_fwd_tf32<{hd}>", (0, 1 << 30))[1] > got.get(
                 f"flash_fwd_tc<{hd}>", (0, 0))[1] + hd:
             bad.append(f"flash_fwd_tf32<{hd}> FFMA")
+        for kern in ("dkv", "dq"):
+            if got.get(f"flash_{kern}_tf32<{hd}>", (0, 1 << 30))[1] > \
+                    got.get(f"flash_{kern}_tc<{hd}>", (0, 0))[1]:
+                bad.append(f"flash_{kern}_tf32<{hd}> FFMA")
     log("sass_split", **{
         k: "HGMMA:{},FFMA:{},regs:{},spill_stores:{},spill_loads:{},"
            "wgmma_serialized:{}".format(
@@ -1047,13 +1133,22 @@ def _qwen3_kernel_split(per_kernel: dict, n_layers: int) -> bool:
 
 
 def _opt_kernel_split(per_kernel: dict, n_layers: int) -> bool:
-    """Phase 7b: the profiled OPT-125m DYAD step's fp32 forward launches
-    by kernel name: the split-TF32 flash forward once a layer and the
-    split-TF32 DYAD GEMM twice (up, down), no FMA prefill or tile kernel."""
-    return _launches_by_name(per_kernel, {
-        "flash_fwd_tf32_kernel": n_layers, "flash_prefill_kernel": 0,
-        "dyad_gemm_tc_kernel<true, true, float, true, float>": 2 * n_layers,
-        "dyad_mm_kernel": 0}, "fwd", "train_profile")
+    """Phase 7b: the profiled OPT-125m DYAD step's fp32 launches by kernel
+    name: forward, the split-TF32 flash forward once a layer and the
+    split-TF32 DYAD GEMM twice (up, down), no FMA prefill or tile kernel;
+    backward, the split-TF32 flash dk/dv and dq kernels once a layer each
+    and the split-TF32 dgrad GEMM twice, no FMA flash backward."""
+    return all([
+        _launches_by_name(per_kernel, {
+            "flash_fwd_tf32_kernel": n_layers, "flash_prefill_kernel": 0,
+            "dyad_gemm_tc_kernel<true, true, float, true, float>":
+                2 * n_layers,
+            "dyad_mm_kernel": 0}, "fwd", "train_profile"),
+        _launches_by_name(per_kernel, {
+            "flash_dkv_tf32_kernel": n_layers,
+            "flash_dq_tf32_kernel": n_layers, "flash_dkv_kernel": 0,
+            "flash_dq_kernel": 0, "dyad_dgrad_tf32_kernel": 2 * n_layers},
+            "bwd", "train_profile")])
 
 
 def _dgrad_two_entry(z1, z2, w1, w2, dx1, dx2):
@@ -1920,15 +2015,15 @@ def main() -> int:
         dir=build.BUILD_DIR.relative_to(root))
     # the DYAD GEMMs', the ff megakernel's and the flash kernels' bf16
     # routes on the tensor cores (HGMMA is wgmma's SASS), their fp32 routes
-    # on FMA but flash_prefill's (split TF32, HGMMA too; dyad_mm's decode
-    # rows keep FMA)
+    # on FMA but those of SPLIT_SOURCES (split TF32, HGMMA too; dyad_mm's
+    # decode rows keep FMA)
     sass = {name: tuple(len(re.findall(op, build.sass(name)))
                         for op in (r"\bHGMMA\.", r"\bFFMA\b"))
             for name in ("dyad_mm", "dyad_mm_two", "dyad_dgrad",
                          "dyad_dgrad_fused", "dyad_wgrad", "dyad_ff",
                          "dyad_mm_q", "flash_prefill", "flash_bwd")}
     bad = [name for name, (hgmma, ffma) in sass.items()
-           if not hgmma or not (ffma or name == "flash_prefill")]
+           if not hgmma or not (ffma or name in SPLIT_SOURCES)]
     log("sass", **{name: f"HGMMA:{h},FFMA:{f}"
                    for name, (h, f) in sass.items()}, ok=not bad)
     if bad:
@@ -1940,7 +2035,10 @@ def main() -> int:
     # wgmma serialised; and each ff and quantized instantiation's HGMMA
     for source, kernels in (("flash_prefill", ("flash_fwd_tc_kernel",)),
                             ("flash_bwd", ("flash_dkv_tc_kernel",
-                                           "flash_dq_tc_kernel")),
+                                           "flash_dq_tc_kernel",
+                                           "flash_dkv_tf32_kernel",
+                                           "flash_dq_tf32_kernel")),
+                            ("dyad_dgrad", ("dyad_dgrad_tf32_kernel",)),
                             ("dyad_ff", ("dyad_ff_tc_kernel",)),
                             ("dyad_mm_q", ("dyad_mm_q_tc_kernel",))):
         ptx = _ptxas((build.BUILD_DIR / f"{source}.log").read_text(),
@@ -2116,9 +2214,15 @@ def main() -> int:
         "aligned_n4_M200": (200, 4, 136, 72),
         "split_M2048": (2048, 1, 64, 65),
     }
-    # fp32 past the decode rows and every fp32 flash_prefill on split TF32:
-    # each case also against float64 (F64_GATE), the largest ratio here
-    f64_ratio = {"dyad_mm_blocks": 0.0, "flash_prefill": 0.0}
+    # fp32 past the decode rows, every fp32 flash_prefill, and fp32
+    # dyad_mm_dgrad_two and flash_prefill_grads on split TF32: each case
+    # also against float64 (F64_GATE), the largest ratio here
+    f64_ratio = {"dyad_mm_blocks": 0.0, "flash_prefill": 0.0,
+                 "dyad_mm_dgrad_two": 0.0, "flash_prefill_grads": 0.0}
+
+    def gate_f64(name, label, got, plain, exact):
+        f64_ratio[name] = max(f64_ratio[name], _gate_f64(
+            f"{name}/{label}", got, plain, exact, failures))
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
         for label, (M, n, d_in, d_out, var, *view) in dyad_cases.items():
@@ -2289,10 +2393,24 @@ def main() -> int:
             for zl, zb in (("it", z), ("dt", z2)):
                 got = dyad_mm.dyad_mm_dgrad_two(z, zb, w1, w2)
                 want = dyad_mm.dyad_mm_dgrad_two_plain(z, zb, w1, w2)
+                exact = (dyad_mm.dyad_mm_dgrad_two_plain(
+                    z.double(), zb.double(), w1.double(), w2.double())
+                    if dt == torch.float32 and d_out >= F64_MIN_TERMS
+                    else None)
                 for c in (0, 1):
                     note("dyad_mm_dgrad_two", check(
                         f"dyad_mm_dgrad_two/{label}/{zl}/dx{c + 1}", got[c],
                         want[c], dn))
+                    if exact is not None:
+                        gate_f64("dyad_mm_dgrad_two",
+                                 f"{label}/{zl}/dx{c + 1}", got[c], want[c],
+                                 exact[c])
+                if dt == torch.float32 and label in ("up_M4096",
+                                                     "down_M4096"):
+                    dyad_mm.dyad_mm_dgrad_two(z[:9], zb[:9], w1, w2)
+                    _repeat_bitwise(
+                        torch, f"dyad_mm_dgrad_two/{label}/{zl}", got,
+                        dyad_mm.dyad_mm_dgrad_two(z, zb, w1, w2), failures)
             # wgrad: the IT views (up, gate), and the OT down projection's
             # (one input for both components, the stride-n z2bar)
             for wl, wargs in (("it", (x1, x2, z, z)), ("ot", (x1, x1, z, z2))):
@@ -2376,6 +2494,27 @@ def main() -> int:
             for name, a, b in zip(("dq", "dk", "dv"), got, want):
                 note("flash_prefill_grads", check(
                     f"flash_prefill_grads/{label}/{name}", a, b, dn))
+            if dt == torch.float32:
+                # against float64 on the kernel's own inputs (its forward's
+                # o and lse), beside the plain fp32 version on them
+                ins = (q, kk, vv, o, lse, do)
+                plain = flash_attn.flash_prefill_grads_plain(
+                    *ins, c["q_off"], c["k_off"], **kw)
+                exact = flash_attn.flash_prefill_grads_plain(
+                    *(t.double() for t in ins), c["q_off"], c["k_off"], **kw)
+                for name, a, b, e in zip(("dq", "dk", "dv"), got, plain,
+                                         exact):
+                    gate_f64("flash_prefill_grads", f"{label}/{name}", a, b,
+                             e)
+                if label in ("main", "h80"):
+                    flash_attn.flash_prefill_grads(
+                        q[:1], kk[:1], vv[:1], o[:1], lse[:1], do[:1],
+                        **kw)   # another shape between
+                    _repeat_bitwise(
+                        torch, f"flash_prefill_grads/{label}", got,
+                        flash_attn.flash_prefill_grads(
+                            q, kk, vv, o, lse, do, c["q_off"], c["k_off"],
+                            **kw), failures)
             if dt == torch.bfloat16 and label == "qwen3_train":
                 # no atomics: the same bits again
                 again = flash_attn.flash_prefill_grads(
@@ -2646,7 +2785,8 @@ def main() -> int:
 
     # dyad_mm_dgrad_two, dyad_mm_wgrad: one layer's ff backward, up + down,
     # at the training rows.  Yardstick: one torch.bmm over both components
-    # on contiguous operands.
+    # on contiguous operands.  dyad_mm_dgrad_two runs split TF32: its bound
+    # at SPLIT_TF32_FLOPS, the FMA kernel's beside it (fma_bound_ms)
     for label in ("up_M4096", "down_M4096"):
         M, n, d_in, d_out = bwd_cases[label]
         x, g = randn(M, n * d_in), randn(M, n * d_out)
@@ -2658,12 +2798,14 @@ def main() -> int:
         wc = torch.cat([w1, w2], dim=0).contiguous()
         xc = torch.cat([x1, x2], dim=1).transpose(0, 1).contiguous()
         zt = zc.transpose(1, 2).contiguous()
+        nbytes = f32 * (M * n * d_out + 2 * n * d_out * d_in
+                        + 2 * M * n * d_in)
         record("dyad_mm_dgrad_two",
                time_ms(lambda: dyad_mm.dyad_mm_dgrad_two(z, z, w1, w2)),
                time_ms(lambda: dyad_mm.dyad_mm_dgrad_two_plain(z, z, w1, w2)),
-               time_ms(lambda: torch.bmm(zc, wc)),
-               f32 * (M * n * d_out + 2 * n * d_out * d_in + 2 * M * n * d_in),
-               flops, label)
+               time_ms(lambda: torch.bmm(zc, wc)), nbytes, flops, label,
+               SPLIT_TF32_FLOPS,
+               fma_bound_ms=_bound_ms(nbytes, flops, FP32_FLOPS)[0])
         record("dyad_mm_wgrad",
                time_ms(lambda: dyad_mm.dyad_mm_wgrad(x1, x2, z, z)),
                time_ms(lambda: dyad_mm.dyad_mm_wgrad_plain(x1, x2, z, z)),
@@ -2674,7 +2816,9 @@ def main() -> int:
     _time_qwen3_bwd(torch, randn, record, time_ms, bwd_cases)
 
     # flash_prefill_grads: one layer's attention backward at the training
-    # shape.  Yardstick: the backward of F.scaled_dot_product_attention.
+    # shape, split TF32 (the FMA bound beside); delta_ms: the wrapper's
+    # delta = rowsum(do * o) alone.  Yardstick: the backward of
+    # F.scaled_dot_product_attention.
     Bt, St, K, h = TRAIN["B"], TRAIN["S"], 12, 64
     q, kt, vt, do = (randn(Bt, St, K, 1, h), randn(Bt, St, K, h),
                      randn(Bt, St, K, h), randn(Bt, St, K, 1, h))
@@ -2684,6 +2828,10 @@ def main() -> int:
     sout = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
     sdo = do.reshape(Bt, St, K, h).transpose(1, 2)
     pairs = Bt * K * St * (St + 1) // 2
+    # q, k, v, o, do read; dq, dk, dv written; lse
+    nbytes = f32 * (8 * Bt * St * K * h + Bt * K * St)
+    # recomputed scores, dp, dq, dk, dv: five 2h products per pair
+    flops = 10.0 * h * pairs
     record("flash_prefill_grads",
            time_ms(lambda: flash_attn.flash_prefill_grads(q, kt, vt, o, lse,
                                                           do)),
@@ -2691,10 +2839,9 @@ def main() -> int:
                q, kt, vt, o, lse, do)),
            time_ms(lambda: torch.autograd.grad(sout, (sq, sk, sv), sdo,
                                                retain_graph=True)),
-           # q, k, v, o, do read; dq, dk, dv written; lse
-           f32 * (8 * Bt * St * K * h + Bt * K * St),
-           # recomputed scores, dp, dq, dk, dv: five 2h products per pair
-           10.0 * h * pairs, f"B{Bt}_S{St}_K{K}_h{h}_causal")
+           nbytes, flops, f"B{Bt}_S{St}_K{K}_h{h}_causal", SPLIT_TF32_FLOPS,
+           delta_ms=time_ms(lambda: flash_attn._delta(o, do)),
+           fma_bound_ms=_bound_ms(nbytes, flops, FP32_FLOPS)[0])
     _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases)
     _time_ring(torch, randn, record, time_ms)
     _time_paged(torch, randn, record, time_ms)
@@ -2830,6 +2977,7 @@ def main() -> int:
                  "dyad_mm_wgrad": train_launches,
                  "flash_prefill_grads": train_launches,
                  "dyad_ff_fused": qtrain, "dyad_mm_dgrad": qtrain,
+                 "dyad_mm_dgrad@opt_ot": ot_train,
                  "dyad_mm_blocks_two": ot_train,
                  "flash_decode@qwen3_batch": qserve,
                  "flash_prefill@qwen3_fp32_cache": qserve,

@@ -99,7 +99,10 @@
 // wrappers (m64n128k16 here; m64n64k16 and the register-A m64n64k16 and
 // m64n128k16 for them, and the tf32 ones) also serve the flash kernels,
 // flash_tc.cuh; the layout, the copies and the gathers (of 64-row tiles)
-// the bf16 ff megakernel, dyad_ff_tc.cuh.
+// the bf16 ff megakernel, dyad_ff_tc.cuh; the split-TF32 copies, splits,
+// gathers and wgmma the fp32 route of dyad_dgrad.cu, which computes its
+// product transposed (w[g] is N-major there, which tf32 wgmma cannot read
+// from shared memory) in a kernel of its own.
 #pragma once
 
 #include <type_traits>
@@ -110,6 +113,9 @@ namespace repro {
 namespace tc {
 
 constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 6;
+// the most dynamic shared memory a block may take for two blocks an SM on
+// the H100 (228 KB an SM, 1 KB of it the system's for each block)
+constexpr int kTwoPerSm = 115712;
 constexpr int kThreads = 256;   // two warpgroups, 64 rows of C each
 constexpr int kTileBytes = kBM * kBK * 2;             // 16 KB per operand
 constexpr int kStageBytes = 2 * kTileBytes;           // A, then B
@@ -635,6 +641,28 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, fp32) (+)= A (64 x 8) B (8 x 32), both tf32 K-major in
+// shared memory; scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(
+    float (&d)[16], uint64_t da,
+    uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

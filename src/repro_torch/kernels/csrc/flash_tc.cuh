@@ -1,10 +1,12 @@
 // The pieces that the tensor-core flash kernels share: the forward
 // (flash_fwd_tc.cuh; bf16, and fp32 on split TF32) and the backward
-// (flash_bwd_tc.cuh, bf16), at any head dim h <= 128.
+// (flash_bwd_tc.cuh; bf16, and fp32 on split TF32), at any head dim
+// h <= 128.
 //
-// Every tile is [64][HD] (HD 64 or 128, the lanes past h zero on load and
-// never stored), kept as sub-tiles of 64 rows of 128 bytes (64 bf16 or 32
-// fp32) in the 128-byte swizzle of dyad_gemm_tc.cuh.  In bf16 that one
+// Every tile is [ROWS][HD] (ROWS 64, or 32 for the fp32 backward's walked
+// tiles; HD 64 or 128, the lanes past h zero on load and never stored),
+// kept as sub-tiles of ROWS rows of 128 bytes (64 bf16 or 32 fp32) in the
+// 128-byte swizzle of dyad_gemm_tc.cuh.  In bf16 that one
 // layout is K-major along h (the A or B of a product that sums over h) and
 // MN-major along h (the B of one that sums over the tile's rows), so no
 // tile is staged twice.  tf32 wgmma reads K-major only, so the fp32
@@ -42,13 +44,14 @@ constexpr int kCpr = HD * (int)sizeof(T) / 16;
 template <int HD, typename T = unsigned short>
 constexpr int kRpi = kWG / kCpr<HD, T>;
 
-// byte offset of element (row, col) of a [64][HD] tile of T
-template <typename T = unsigned short>
+// byte offset of element (row, col) of a [ROWS][HD] tile of T
+template <typename T = unsigned short, int ROWS = kT>
 __device__ __forceinline__ uint32_t toff(int row, int col) {
   if constexpr (sizeof(T) == 2)
-    return (col >> 6) * 8192 + tc::tile_off<true>(row, col & 63);
+    return (col >> 6) * (ROWS * 128) + tc::tile_off<true>(row, col & 63);
   else
-    return (col >> 5) * 8192 + tc::tile_off<true>(row, 2 * (col & 31));
+    return (col >> 5) * (ROWS * 128) +
+           tc::tile_off<true>(row, 2 * (col & 31));
 }
 
 // descriptors of k16 step s: K-major (the product sums over h: 16 columns
@@ -61,7 +64,7 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int s) {
   return tc::desc(tile + s * 2048, 8192, 1024);
 }
 
-// One [64][HD] tile of T: the thread copies chunk c = tid % kCpr (its
+// One [ROWS][HD] tile of T: the thread copies chunk c = tid % kCpr (its
 // 16 bytes: elements 8c .. 8c + 7 of bf16, 4c .. 4c + 3 of fp32) of rows
 // tid / kCpr + i * kRpi, i < kPasses.  `src(i)` is that row's first
 // element, or null past the edge (zeros).  With `vec` the chunks go by
@@ -70,17 +73,18 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int s) {
 // needs `vec`): the others stay rolled, so that a kernel's loop body fits
 // the instruction cache (the SASS of a fully unrolled loader made up most
 // of both kernels' time on the card).
-template <int HD, typename T = unsigned short>
-constexpr int kPasses = kT / kRpi<HD, T>;
+template <int HD, typename T = unsigned short, int ROWS = kT>
+constexpr int kPasses = ROWS / kRpi<HD, T>;
 
-template <int HD, bool Unrolled, typename T = unsigned short, typename F>
+template <int HD, bool Unrolled, typename T = unsigned short, int ROWS = kT,
+          typename F>
 __device__ __forceinline__ void load_tile(uint32_t tile, const void* any,
                                           int h, bool vec, F&& src) {
   constexpr int kCr = kCpr<HD, T>, kEpc = 16 / (int)sizeof(T);
   const int c = threadIdx.x % kCr, d0 = c * kEpc;
   const int n = max(0, min(kEpc, h - d0));
   auto dst = [&](int i) {
-    return tile + toff<T>(threadIdx.x / kCr + i * kRpi<HD, T>, d0);
+    return tile + toff<T, ROWS>(threadIdx.x / kCr + i * kRpi<HD, T>, d0);
   };
   auto copy = [&](int i, const T* p) {
     const int bytes = p ? (int)sizeof(T) * n : 0;
@@ -88,11 +92,11 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const void* any,
   };
   if constexpr (Unrolled) {
 #pragma unroll
-    for (int i = 0; i < kPasses<HD, T>; ++i) copy(i, src(i));
+    for (int i = 0; i < kPasses<HD, T, ROWS>; ++i) copy(i, src(i));
     return;
   }
 #pragma unroll 1
-  for (int i = 0; i < kPasses<HD, T>; ++i) {
+  for (int i = 0; i < kPasses<HD, T, ROWS>; ++i) {
     const T* p = src(i);
     if (vec) {
       copy(i, p);
@@ -123,11 +127,12 @@ struct Pair {
   bool vec;
 };
 
-// The tile of folded rows r0 .. r0 + 63 (rg = s * G + g, zero past
+// The tile of folded rows r0 .. r0 + ROWS - 1 (rg = s * G + g, zero past
 // S * G) of a (B, S, K, G, h) tensor of T.  Where G divides kRpi
 // (kFoldStep) every row of the thread is its first one's g, kRpi / G query
 // positions on per pass: one division a tile, the rows by adds.
-template <int HD, typename T = unsigned short, typename Args>
+template <int HD, typename T = unsigned short, int ROWS = kT,
+          typename Args>
 __device__ __forceinline__ void load_fold(uint32_t tile, const Pair& o,
                                           int flags, const Args& a, int b,
                                           int kh, int r0) {
@@ -139,11 +144,11 @@ __device__ __forceinline__ void load_fold(uint32_t tile, const Pair& o,
     const int s0 = rg0 / a.G;
     const T* p0 = base + s0 * o.ss + (rg0 - s0 * a.G) * o.sg;
     const long long step = (long long)(kR / a.G) * o.ss;
-    load_tile<HD, true, T>(tile, o.p, a.h, true, [&](int i) {
+    load_tile<HD, true, T, ROWS>(tile, o.p, a.h, true, [&](int i) {
       return rg0 + i * kR < SG ? p0 + i * step : nullptr;
     });
   } else {
-    load_tile<HD, false, T>(tile, o.p, a.h, o.vec, [&](int i) {
+    load_tile<HD, false, T, ROWS>(tile, o.p, a.h, o.vec, [&](int i) {
       const int rg = rg0 + i * kR;
       const int s = rg / a.G;
       return rg < SG ? base + s * o.ss + (rg - s * a.G) * o.sg : nullptr;
@@ -151,9 +156,10 @@ __device__ __forceinline__ void load_fold(uint32_t tile, const Pair& o,
   }
 }
 
-// the tile of keys t0 .. t0 + 63 (zero past T) of a (B, T, K, h) tensor
-// of T (o.ss is its key stride)
-template <int HD, typename T = unsigned short, typename Args>
+// the tile of keys t0 .. t0 + ROWS - 1 (zero past T) of a (B, T, K, h)
+// tensor of T (o.ss is its key stride)
+template <int HD, typename T = unsigned short, int ROWS = kT,
+          typename Args>
 __device__ __forceinline__ void load_keys(uint32_t tile, const Pair& o,
                                           const Args& a, int b, int kh,
                                           int t0) {
@@ -166,20 +172,20 @@ __device__ __forceinline__ void load_keys(uint32_t tile, const Pair& o,
     return tk0 + i * kR < a.T ? p0 + i * step : nullptr;
   };
   if (o.vec)
-    load_tile<HD, true, T>(tile, o.p, a.h, true, src);
+    load_tile<HD, true, T, ROWS>(tile, o.p, a.h, true, src);
   else
-    load_tile<HD, false, T>(tile, o.p, a.h, false, src);
+    load_tile<HD, false, T, ROWS>(tile, o.p, a.h, false, src);
 }
 
-// The chunks load_tile gave this thread in a [64][HD] fp32 tile, once
+// The chunks load_tile gave this thread in a [ROWS][HD] fp32 tile, once
 // landed (its own copies or stores: no barrier), split into TF32: hi over
 // the raw values, lo into the tile at lo
-template <int HD>
+template <int HD, int ROWS = kT>
 __device__ __forceinline__ void split_tile(uint32_t tile, uint32_t lo) {
   constexpr int kCr = kCpr<HD, uint32_t>;
 #pragma unroll 4
-  for (int i = 0; i < kPasses<HD, uint32_t>; ++i) {
-    const uint32_t off = toff<uint32_t>(
+  for (int i = 0; i < kPasses<HD, uint32_t, ROWS>; ++i) {
+    const uint32_t off = toff<uint32_t, ROWS>(
         threadIdx.x / kCr + i * kRpi<HD, uint32_t>, 4 * (threadIdx.x % kCr));
     tc::split_chunk(tile + off, lo + off);
   }
@@ -230,13 +236,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// every pair of the tile valid: no mask to apply
+// every pair of the tile of nr rows at r0 and nk keys at t0 valid: no
+// mask to apply
 template <typename Args>
 __device__ __forceinline__ bool tile_full(const Args& a, int r0, int t0,
-                                          int qo, int ko) {
-  if (r0 + kT > a.S * a.G || t0 + kT > a.T) return false;
-  const int q_lo = qo + r0 / a.G, q_hi = qo + (r0 + kT - 1) / a.G;
-  if (a.causal && ko + t0 + kT - 1 > q_lo) return false;
+                                          int qo, int ko, int nr = kT,
+                                          int nk = kT) {
+  if (r0 + nr > a.S * a.G || t0 + nk > a.T) return false;
+  const int q_lo = qo + r0 / a.G, q_hi = qo + (r0 + nr - 1) / a.G;
+  if (a.causal && ko + t0 + nk - 1 > q_lo) return false;
   if (a.window >= 0 && q_hi - (ko + t0) >= a.window) return false;
   return true;
 }
@@ -271,22 +279,32 @@ __device__ __forceinline__ void mma_ss(float (&s)[32], uint32_t a,
     tc::wgmma_m64n64k16<0, 0>(s, desc_k(a, k), desc_k(b, k), k > 0);
 }
 
-// the same over [64][HD] fp32 tiles in split TF32, hi and lo of each, per
-// k8 step (32 bytes, as bf16's k16): the small terms a_lo b_hi and a_hi
-// b_lo into `small`, then a_hi b_hi into s; the caller adds the two.
-// (Their sum, some 2^-11 of s, takes the rounding of its own adds at its
-// own scale; s takes a third of the additions it would take with all
-// three, which kept the error against float64 within the plain fp32
-// version's on the card.)
-template <int HD>
-__device__ __forceinline__ void mma_ss32(float (&s)[32], float (&small)[32],
+// the same over fp32 tiles in split TF32, hi and lo of each, per k8 step
+// (32 bytes, as bf16's k16), A [64][HD] and B [N][HD] (N 64 or 32 rows):
+// the small terms a_lo b_hi and a_hi b_lo into `small`, then a_hi b_hi
+// into s; the caller adds the two.  (Their sum, some 2^-11 of s, takes the
+// rounding of its own adds at its own scale; s takes a third of the
+// additions it would take with all three, which kept the error against
+// float64 within the plain fp32 version's on the card.)
+template <int HD, int N = kT>
+__device__ __forceinline__ void mma_ss32(float (&s)[N / 2],
+                                         float (&small)[N / 2],
                                          uint32_t a_hi, uint32_t a_lo,
                                          uint32_t b_hi, uint32_t b_lo) {
 #pragma unroll
   for (int k = 0; k < HD / 8; ++k) {
-    tc::wgmma_m64n64k8_tf32(small, desc_k(a_lo, k), desc_k(b_hi, k), k > 0);
-    tc::wgmma_m64n64k8_tf32(small, desc_k(a_hi, k), desc_k(b_lo, k));
-    tc::wgmma_m64n64k8_tf32(s, desc_k(a_hi, k), desc_k(b_hi, k), k > 0);
+    const uint32_t bo = (k >> 2) * (N * 128) + (k & 3) * 32;
+    const uint64_t bh = tc::desc(b_hi + bo, 16, 1024),
+                   bl = tc::desc(b_lo + bo, 16, 1024);
+    if constexpr (N == 64) {
+      tc::wgmma_m64n64k8_tf32(small, desc_k(a_lo, k), bh, k > 0);
+      tc::wgmma_m64n64k8_tf32(small, desc_k(a_hi, k), bl);
+      tc::wgmma_m64n64k8_tf32(s, desc_k(a_hi, k), bh, k > 0);
+    } else {
+      tc::wgmma_m64n32k8_tf32(small, desc_k(a_lo, k), bh, k > 0);
+      tc::wgmma_m64n32k8_tf32(small, desc_k(a_hi, k), bl);
+      tc::wgmma_m64n32k8_tf32(s, desc_k(a_hi, k), bh, k > 0);
+    }
   }
 }
 

@@ -36,11 +36,14 @@ its decode rows, M > 8), ``dyad_mm_blocks_two``, ``dyad_mm_dgrad_two``,
 pieces in ``dyad_mm_q.cu``, the megakernel's payload instantiation,
 picked by :func:`mm_q_plan` and :func:`ff_q_plan`, the payloads converted
 to bf16 in shared memory by ``quant_tc.cuh``).  With fp32 operands
-``dyad_mm_blocks`` past its decode rows runs on that mainloop too, in
-split TF32: each operand split into tf32 hi and lo, three tf32 products
-a pair (``x_lo w_hi + x_hi w_lo + x_hi w_hi``), each good to about
-2^-21 relative, fp32 sums; its decode rows and every other fp32 operand
-run on fp32 FMA.
+``dyad_mm_blocks`` past its decode rows runs on that mainloop too, and
+``dyad_mm_dgrad_two`` on a kernel of its own on the mainloop's pieces
+(the product transposed, ``dx^T = w^T z^T``, since tf32 ``wgmma`` reads
+its shared operands K-major only), both in split TF32: each operand
+split into tf32 hi and lo, three tf32 products a pair (``a_lo b_hi +
+a_hi b_lo + a_hi b_hi``), each good to about 2^-21 relative, fp32 sums;
+the decode rows of ``dyad_mm_blocks`` and every other fp32 operand run
+on fp32 FMA.
 Each wrapper takes its plain version only for a CPU tensor; a CUDA tensor
 launches the kernel or raises.
 """
@@ -233,7 +236,8 @@ def dyad_mm_dgrad_two(z1, z2, w1, w2):
     Returns ``(dx1, dx2)``, each (M, n, d_in) in z's dtype.  On CUDA
     ``dx2`` is a view of a contiguous (M, d_in, n) buffer, so the IT/DT
     un-view (``ref.unview``: transpose, reshape, add) reshapes it for
-    free."""
+    free.  Both dtypes run on the tensor cores: bf16 products, fp32 in
+    split TF32."""
     if z1.device.type == "cpu":
         return dyad_mm_dgrad_two_plain(z1, z2, w1, w2)
     _check_views("dyad_mm_dgrad_two", z1, z2, w1, w2)

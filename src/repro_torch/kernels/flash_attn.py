@@ -12,8 +12,11 @@
 * :func:`flash_prefill_grads` (``csrc/flash_bwd.cu``) ports
   ``repro.kernels.flash_attn.flash_prefill_grads``: dq, dk and dv from
   q, k, v, the output, its lse and the output cotangent, with the
-  probabilities recomputed from lse; bf16 on the tensor cores
-  (``csrc/flash_bwd_tc.cuh``), fp32 on FMA.
+  probabilities recomputed from lse; both dtypes on the tensor cores
+  (``csrc/flash_bwd_tc.cuh``) at any head dim up to 128: bf16 products,
+  and fp32 in split TF32 (the products that sum over a tile's rows or
+  keys run transposed, since tf32 ``wgmma`` reads its shared operands
+  K-major only).
 * :func:`flash_decode` (``csrc/flash_decode.cu``) ports
   ``repro.kernels.flash_attn.flash_decode``: one query token against the
   ``(B, L, K, h)`` ring cache, slot ``j`` holding position

@@ -8,11 +8,12 @@ tests/test_torch_kernels_cuda.py``.  The others check, on the CPU, that a
 CPU tensor takes the plain version and leaves the launch counter alone.
 
 Tolerance: 2e-5 (fp32) and 2e-2 (bf16) times max(|plain|, 1).  The fp32
-routes of ``flash_prefill`` and of ``dyad_mm_blocks`` past the decode rows
-run on split TF32 (three tf32 products a pair): they are also held against
-their plain versions run in float64, at most F64_GATE times the plain fp32
-versions' error, and on operands +-(1 + 2^-12), whose low bits one TF32
-product drops, within SPLIT_REL of float64."""
+routes of ``flash_prefill``, ``flash_prefill_grads``, ``dyad_mm_dgrad_two``
+and of ``dyad_mm_blocks`` past the decode rows run on split TF32 (three
+tf32 products a pair): they are also held against their plain versions
+run in float64, at most F64_GATE times the plain fp32 versions' error, and
+on operands +-(1 + 2^-12), whose low bits one TF32 product drops, within
+SPLIT_REL of float64."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -297,19 +298,50 @@ def test_flash_prefill_fp32_reads_strided_views(cuda, h, view):
 
 
 def _tf32_case(kernel, shape, draw):
-    """(kernel call, plain version over given operands) of a split-TF32
-    case: dyad_mm_blocks (M, n, d_in, d_out, variant) or flash_prefill
-    (B, S, K, G, h, window, causal), operands from ``draw``."""
+    """(kernel call, plain version over given operands, the operands, which
+    of them a product reads) of a split-TF32 case, both calls returning a
+    tuple of outputs: dyad_mm_blocks (M, n, d_in, d_out, variant),
+    flash_prefill (B, S, K, G, h, window, causal), dyad_mm_dgrad_two (M, n,
+    d_in, d_out, "it" for z2 = z1 or "dt" for the strided z2) or
+    flash_prefill_grads (B, S, T, K, G, h, window, q_off, k_off; causal),
+    operands from ``draw`` (flash_prefill_grads' o and lse, which no
+    product reads, from the plain fp32 forward)."""
     if kernel == "dyad_mm_blocks":
         M, n, d_in, d_out, var = shape
         ops = (draw(M, n * d_in), draw(n, d_out, d_in), draw(n, d_out, d_in))
-        return (lambda: dyad_mm.dyad_mm_blocks(*ops, var),
-                lambda *t: dyad_mm.dyad_mm_blocks_plain(*t, var), ops)
+        return (lambda: (dyad_mm.dyad_mm_blocks(*ops, var),),
+                lambda *t: (dyad_mm.dyad_mm_blocks_plain(*t, var),), ops,
+                (True,) * 3)
+    if kernel == "dyad_mm_dgrad_two":
+        M, n, d_in, d_out, zl = shape
+        g = draw(M, n * d_out)
+        z1 = g.reshape(M, n, d_out)
+        z2 = z1 if zl == "it" else g.reshape(M, d_out, n).transpose(1, 2)
+        ops = (z1, z2, draw(n, d_out, d_in), draw(n, d_out, d_in))
+        return (lambda: dyad_mm.dyad_mm_dgrad_two(*ops),
+                lambda *t: dyad_mm.dyad_mm_dgrad_two_plain(*t), ops,
+                (True,) * 4)
+    if kernel == "flash_prefill_grads":
+        B, S, T, K, G, h, window, q_off, k_off = shape
+        dev = draw(1).device
+        q_off, k_off = (torch.tensor(o, device=dev) if isinstance(o, list)
+                        else o for o in (q_off, k_off))
+        kw = dict(causal=True, window=window)
+        q, k, v = draw(B, S, K, G, h), draw(B, T, K, h), draw(B, T, K, h)
+        o, lse = flash_attn.flash_prefill_plain(q, k, v, q_off, k_off,
+                                                save_lse=True, **kw)
+        ops = (q, k, v, o, lse, draw(B, S, K, G, h))
+        return (lambda: flash_attn.flash_prefill_grads(*ops, q_off, k_off,
+                                                       **kw),
+                lambda *t: flash_attn.flash_prefill_grads_plain(
+                    *t, q_off, k_off, **kw), ops,
+                (True, True, True, False, False, True))
     B, S, K, G, h, window, causal = shape
     ops = (draw(B, S, K, G, h), draw(B, S, K, h), draw(B, S, K, h))
     kw = dict(causal=causal, window=window)
-    return (lambda: flash_attn.flash_prefill(*ops, **kw)[0],
-            lambda *t: flash_attn.flash_prefill_plain(*t, **kw)[0], ops)
+    return (lambda: flash_attn.flash_prefill(*ops, **kw)[:1],
+            lambda *t: flash_attn.flash_prefill_plain(*t, **kw)[:1], ops,
+            (True,) * 3)
 
 
 SPLIT_CASES = [
@@ -321,6 +353,20 @@ SPLIT_CASES = [
     ("flash_prefill", (2, 256, 2, 2, 128, None, True)),
     ("flash_prefill", (2, 150, 2, 2, 80, 40, True)),
     ("flash_prefill", (2, 37, 2, 2, 16, None, False)),
+    # OPT-125m's up and down dx at the training rows, the IT cotangent
+    # view and the DT strided z2; a ragged shape
+    ("dyad_mm_dgrad_two", (4096, 4, 192, 768, "it")),
+    ("dyad_mm_dgrad_two", (4096, 4, 768, 192, "it")),
+    ("dyad_mm_dgrad_two", (4096, 4, 192, 768, "dt")),
+    ("dyad_mm_dgrad_two", (77, 3, 65, 130, "dt")),
+    # OPT-125m's training attention, h 128, h 80 with G 2 and a window,
+    # S < T with per-batch offsets (batch 2's first 20 queries sit before
+    # its first key: zero gradients)
+    ("flash_prefill_grads", (8, 512, 512, 12, 1, 64, None, 0, 0)),
+    ("flash_prefill_grads", (2, 256, 256, 2, 2, 128, None, 0, 0)),
+    ("flash_prefill_grads", (2, 150, 150, 2, 2, 80, 40, 0, 0)),
+    ("flash_prefill_grads", (3, 40, 100, 2, 2, 64, None, [60, 10, 0],
+                             [0, 5, 20])),
 ]
 
 
@@ -331,12 +377,13 @@ def test_split_tf32_error_against_float64(cuda, kernel, shape):
     in float64 is at most F64_GATE times the plain fp32 version's (with
     allow_tf32 off) against the same product."""
     gen = torch.Generator(device=cuda).manual_seed(len(str(shape)))
-    call, plain, ops = _tf32_case(
+    call, plain, ops, _ = _tf32_case(
         kernel, shape, lambda *s: _randn(gen, *s, device=cuda))
     exact = plain(*(t.double() for t in ops))
-    err = float((call().double() - exact).abs().max())
-    ref = float((plain(*ops).double() - exact).abs().max())
-    assert err <= F64_GATE * ref, (err, ref)
+    for got, fp32, want in zip(call(), plain(*ops), exact):
+        err = float((got.double() - want).abs().max())
+        ref = float((fp32.double() - want).abs().max())
+        assert err <= F64_GATE * ref, (err, ref)
 
 
 def _tf32(t):
@@ -358,12 +405,14 @@ def test_split_tf32_keeps_the_bits_one_tf32_product_drops(cuda, kernel,
         sign = torch.randint(0, 2, s, generator=gen, device=cuda) * 2 - 1
         return sign.float() * (1 + 2.0 ** -12)
 
-    call, plain, ops = _tf32_case(kernel, shape, draw)
+    call, plain, ops, product = _tf32_case(kernel, shape, draw)
     exact = plain(*(t.double() for t in ops))
-    scale = float(exact.abs().max())
-    one = plain(*(_tf32(t).double() for t in ops))
-    assert float((one - exact).abs().max()) / scale > 1e-4
-    assert float((call().double() - exact).abs().max()) / scale <= SPLIT_REL
+    one = plain(*((_tf32(t) if p else t).double()
+                  for t, p in zip(ops, product)))
+    for got, want, tf32 in zip(call(), exact, one):
+        scale = float(want.abs().max())
+        assert float((tf32 - want).abs().max()) / scale > 1e-4
+        assert float((got.double() - want).abs().max()) / scale <= SPLIT_REL
 
 
 @pytest.mark.gpu
@@ -372,16 +421,17 @@ def test_split_tf32_gives_the_same_bits_every_run(cuda, kernel, shape):
     """No atomics in the split routes: five runs, another shape launched
     between, bitwise equal."""
     gen = torch.Generator(device=cuda).manual_seed(len(str(shape)) + 2)
-    call, _, _ = _tf32_case(kernel, shape,
-                             lambda *s: _randn(gen, *s, device=cuda))
-    other, _, _ = _tf32_case(kernel, (9, 2, 40, 24, "it") if kernel ==
-                              "dyad_mm_blocks" else (1, 70, 1, 1, 64, None,
-                                                     True),
-                              lambda *s: _randn(gen, *s, device=cuda))
+    draw = lambda *s: _randn(gen, *s, device=cuda)  # noqa: E731
+    call = _tf32_case(kernel, shape, draw)[0]
+    other = _tf32_case(kernel, {
+        "dyad_mm_blocks": (9, 2, 40, 24, "it"),
+        "dyad_mm_dgrad_two": (9, 2, 40, 24, "it"),
+        "flash_prefill_grads": (1, 70, 70, 1, 1, 64, None, 0, 0),
+    }.get(kernel, (1, 70, 1, 1, 64, None, True)), draw)[0]
     first = call()
     for _ in range(4):
         other()
-        assert torch.equal(first, call())
+        assert all(torch.equal(a, b) for a, b in zip(first, call()))
 
 
 @pytest.mark.gpu

@@ -30,7 +30,7 @@ measurement, its first key the label.  The sets:
   dense rings (``REPRO_PAGED_KV=off``), after a short warm-up: decode step
   p50, decode tok/s, the run's wall and the wall of engine steps 60-89.
 
-``fp32`` (one CUDA card): the fp32 forward kernels on the OPT-125m path.
+``fp32`` (one CUDA card): the fp32 kernels on the OPT-125m path.
 
 * ``kernel``: ms of ``flash_prefill`` (fp32) at OPT-125m's training shape
   (B 8, S 512, 12 heads of 64, causal, with lse; ``flash_prefill@train``),
@@ -39,8 +39,11 @@ measurement, its first key the label.  The sets:
   cache (bf16 q, K 8 x G 2, h 128; ``flash_prefill@qwen3_fp32_cache``);
   ms of ``dyad_mm_blocks`` (fp32, IT) for one OPT-125m layer's up + down
   at M 1024 and at M 8, and at the training rows, M 4096
-  (``dyad_mm_blocks@train``); ``chip_smoke.timer`` (CUDA events, the L2
-  flushed before each run, median of 25);
+  (``dyad_mm_blocks@train``); ms of ``flash_prefill_grads`` (fp32) at
+  OPT-125m's training shape (its o and lse from ``flash_prefill``), and of
+  ``dyad_mm_dgrad_two`` (fp32, the IT cotangent view) for one layer's up +
+  down dx at M 4096; ``chip_smoke.timer`` (CUDA events, the L2 flushed
+  before each run, median of 25);
 * ``step``: the OPT-125m train step (fp32, B 8 x S 512 of ``SyntheticLM``)
   with ``dyad_it_4_kernel`` and with ``dense``: 2 warm-up steps, then
   ``--steps`` timed, the median and every step in ms.
@@ -171,6 +174,10 @@ def _fp32(torch, cs, args) -> None:
     q, k, v = randn(B, S, K, 1, h), randn(B, S, K, h), randn(B, S, K, h)
     out = {"flash_prefill@train": time_ms(
         lambda: flash_attn.flash_prefill(q, k, v, save_lse=True))}
+    do = randn(B, S, K, 1, h)
+    o, lse = flash_attn.flash_prefill(q, k, v, save_lse=True)
+    out["flash_prefill_grads"] = time_ms(
+        lambda: flash_attn.flash_prefill_grads(q, k, v, o, lse, do))
     S, L = 128, 160
     q, kc, vc = randn(B, S, K, 1, h), randn(B, L, K, h), randn(B, L, K, h)
     out["flash_prefill"] = time_ms(
@@ -189,6 +196,12 @@ def _fp32(torch, cs, args) -> None:
             w1, w2 = randn(n, d_out, d_in), randn(n, d_out, d_in)
             total += time_ms(lambda: dyad_mm.dyad_mm_blocks(x, w1, w2, "it"))
         out[name] = total
+    total = 0.0
+    for d_in, d_out in ((d, ff), (ff, d)):
+        z = randn(4096, n, d_out)
+        w1, w2 = randn(n, d_out, d_in), randn(n, d_out, d_in)
+        total += time_ms(lambda: dyad_mm.dyad_mm_dgrad_two(z, z, w1, w2))
+    out["dyad_mm_dgrad_two"] = total
     _emit(label, "kernel", **{k: round(v, 4) for k, v in out.items()},
           device=torch.cuda.get_device_name(0))
 

@@ -15,12 +15,14 @@ exit and no result line):
    megakernels (``dyad_ff``), of the quantized GEMMs (``dyad_mm_q``) and
    of the flash forward and backward (``flash_prefill``, ``flash_bwd``;
    ``cuobjdump -sass``): each must hold ``HGMMA`` (wgmma) and, but for
-   ``flash_prefill``, ``flash_bwd`` and ``dyad_dgrad`` (both routes on
-   wgmma), ``FFMA`` (an fp32 route on FMA), counts on one line; the
-   split-TF32 instantiations (the fp32 DYAD GEMM of ``dyad_mm``, the fp32
-   dgrad GEMM of ``dyad_dgrad``, the fp32 flash forward and the fp32
-   flash backward's dk/dv and dq kernels at HD 64 and 128) and their bf16
-   twins, each one's HGMMA, FFMA, registers, spills and wgmma
+   ``flash_prefill``, ``flash_bwd``, ``dyad_dgrad``, ``dyad_dgrad_fused``
+   and ``dyad_wgrad`` (both routes on wgmma), ``FFMA`` (an fp32 route on
+   FMA), counts on one line; the split-TF32 instantiations (the fp32 DYAD
+   GEMM of ``dyad_mm``, the fp32 dgrad GEMMs of ``dyad_dgrad`` and
+   ``dyad_dgrad_fused``, the fp32 wgrad GEMM of ``dyad_wgrad`` for both
+   out dtypes, the fp32 flash forward and the fp32 flash backward's dk/dv
+   and dq kernels at HD 64 and 128) and their bf16 twins, each one's
+   HGMMA, FFMA, registers, spills and wgmma
    serialisation on one line (HGMMA in each, no spill, no FFMA in the fp32
    GEMMs, no more in an fp32 flash forward than in its bf16 twin and HD,
    none more in an fp32 flash backward kernel than in its twin); ptxas's
@@ -28,7 +30,7 @@ exit and no result line):
    spills and wgmma serialisation of the tensor-core flash kernels, ff
    megakernel and quantized GEMM, one line each for the flash forward
    (``flash_fwd_tc_kernel``), the flash backward (bf16 and split TF32),
-   the fp32 dgrad GEMM, the ff megakernel
+   the fp32 dgrad, fused dgrad and wgrad GEMMs, the ff megakernel
    (``dyad_ff_tc_kernel``, gated and not, over bf16, int8 and fp8
    weights) and the quantized GEMM (``dyad_mm_q_tc_kernel``, int8 and
    fp8; no spill and no serialised wgmma allowed); the split-key decode
@@ -69,13 +71,15 @@ exit and no result line):
    {-1, 0, 1}, whose sums are exact: o bitwise, lse within 1e-6
    relative; every ``flash_prefill`` case's fully-masked rows with the
    plain version's lse bits; the split-TF32 routes (fp32 ``flash_prefill``,
-   ``flash_prefill_grads`` and ``dyad_mm_dgrad_two``, and fp32
+   ``flash_prefill_grads``, ``dyad_mm_dgrad_two``, ``dyad_mm_dgrad`` (the
+   OT z2bar) and ``dyad_mm_wgrad`` (IT and OT views, fp32 out), and fp32
    ``dyad_mm_blocks`` past the decode rows) also against their plain
-   versions run in float64 in every case (at most F64_GATE x the plain
-   fp32 version's error), repeated bitwise at OPT's shapes (and a strided
-   x, the DT z2, h 80), fp32 ``flash_prefill`` on strided views at h 64
-   and 128, and all four on operands +-(1 + 2^-12), within SPLIT_REL of
-   float64 where one TF32 product is off by about 5e-4; bf16
+   versions run in float64 in every case whose outputs sum at least
+   F64_MIN_TERMS products (at most F64_GATE x the plain fp32 version's
+   error), repeated bitwise at OPT's shapes (and a strided x, the DT z2,
+   h 80), fp32 ``flash_prefill`` on strided views at h 64 and 128, and
+   all six on operands +-(1 + 2^-12), within SPLIT_REL of float64 where
+   one TF32 product is off by about 5e-4; bf16
    ``dyad_mm_blocks_two`` on integer
    inputs at Qwen3's split-route down shape and ragged shapes, and
    ``dyad_ff_fused`` with relu on integer inputs at Qwen3's widths, M 4096
@@ -92,7 +96,7 @@ exit and no result line):
    Qwen3-0.6B's training attention in bf16, against SDPA, the backward
    with the wrapper's delta alone, ``delta_ms``, as at OPT's;
    ``dyad_mm_dgrad@opt_ot``: fp32 ``dyad_mm_dgrad`` at OPT-125m's OT dx,
-   on FMA); for the quantized-weight
+   on split TF32); for the quantized-weight
    kernels the yardstick is torch.bmm over weights dequantized before the
    timing, and the same with the dequantization timed too, and beside
    each bf16 one the FMA kernel through the C entry (``fma_ms``, the
@@ -107,9 +111,12 @@ exit and no result line):
    (``time_pools``); the ring decode at Qwen3's batch step
    (``@qwen3_batch``) and dense-ring step (``@ring512``), bf16 q over an
    fp32 cache; ``flash_prefill`` at Qwen3's serving prefill over its fp32
-   cache (``@qwen3_fp32_cache``, bf16 q cast up, against SDPA); the
-   split-TF32 routes' bounds at a third of the TF32 rate, the FMA bound
-   beside (``fma_bound_ms``);
+   cache (``@qwen3_fp32_cache``, bf16 q cast up, against SDPA); the fp32
+   routes of the ff megakernels, ``dyad_ff_fused`` and ``dyad_ff_fused_q``
+   (int8), at one Qwen3 ff at M 8 and 128 (``@fp32_decode``,
+   ``@fp32_chunk``, on FMA, beside the torch.bmm chain); the split-TF32
+   routes' bounds at a third of the TF32 rate, the FMA bound beside
+   (``fma_bound_ms``);
 5. the OPT serving path: OPT-125m at full width with ``dyad_it_4_kernel``,
    random weights from ``--seed``, ``Engine.generate`` at batch 8, prompt
    128, 32 new tokens, with the kernels' launch counters read around it;
@@ -129,11 +136,13 @@ exit and no result line):
    one DENSE step, the DYAD one's fp32 launches by kernel name (the
    split-TF32 flash forward once a layer, the split-TF32 DYAD GEMM
    twice, no FMA prefill or tile kernel; the split-TF32 flash dk/dv and
-   dq kernels once a layer each, the split-TF32 dgrad GEMM twice, no FMA
-   flash backward);
+   dq kernels once a layer each, the split-TF32 dgrad and wgrad GEMMs
+   twice each, no FMA flash backward and no FMA GEMM);
    7c. the same training path with the OT and DT variants
    (``dyad_ot_4_kernel``, ``dyad_dt_4_kernel``) at full depth, their
-   launch counters checked exactly;
+   launch counters checked exactly, and a profiled OT step: the fused
+   split-TF32 dgrad and the split-TF32 wgrad twice a layer each, the FMA
+   GEMM twice (the forward's ``dyad_mm_blocks_two``);
 8. one train step of OPT-125m and Pythia-160m at full width and 2 layers
    on the card against the CPU port on the same params and batch, and on
    the card the kernel backward against the forced plain backward; where
@@ -421,8 +430,9 @@ def _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases):
            "bfloat16", copied_views_ms=time_ms(
                lambda: dyad_mm.dyad_mm_dgrad(z1, z1, w1, w2)))
 
-    # dyad_mm_dgrad in fp32 (FMA) at OPT-125m's OT dx, one layer's up +
-    # down: the OT cotangent views, z2 the stride-n z2bar
+    # dyad_mm_dgrad in fp32 (split TF32: the bound at SPLIT_TF32_FLOPS, the
+    # FMA bound beside) at OPT-125m's OT dx, one layer's up + down: the OT
+    # cotangent views, z2 the stride-n z2bar
     for label in ("opt_up_M4096", "opt_down_M4096"):
         M, n, d_in, d_out = two_cases[label]
         g = randn(M, n * d_out)
@@ -431,12 +441,14 @@ def _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases):
         w1, w2 = randn(n, d_out, d_in), randn(n, d_out, d_in)
         zc = torch.cat([z1, z2], dim=2).transpose(0, 1).contiguous()
         wc = torch.cat([w1, w2], dim=1).contiguous()
+        nbytes = 4 * (M * n * d_out + 2 * n * d_out * d_in + M * n * d_in)
+        flops = 4.0 * M * n * d_out * d_in
         record("dyad_mm_dgrad@opt_ot",
                time_ms(lambda: dyad_mm.dyad_mm_dgrad(z1, z2, w1, w2)),
                time_ms(lambda: dyad_mm.dyad_mm_dgrad_plain(z1, z2, w1, w2)),
-               time_ms(lambda: torch.bmm(zc, wc)),
-               4 * (M * n * d_out + 2 * n * d_out * d_in + M * n * d_in),
-               4.0 * M * n * d_out * d_in, label)
+               time_ms(lambda: torch.bmm(zc, wc)), nbytes, flops, label,
+               SPLIT_TF32_FLOPS,
+               fma_bound_ms=_bound_ms(nbytes, flops, FP32_FLOPS)[0])
 
     # dyad_ff_fused: bf16 x, fp32 params (the main path's inputs); beside
     # the wrapper (ff_plan's kernel), the FMA kernel through the entry
@@ -778,7 +790,9 @@ def _check_split_precision(torch, gen, dyad_mm, flash_attn, failures):
     those shapes (dq, dk and dv each; o and lse, which no product reads,
     the plain fp32 forward's); dyad_mm_dgrad_two at OPT's up and down dx
     (M 1024, the IT cotangent view) and a ragged shape with the DT strided
-    z2."""
+    z2; dyad_mm_dgrad at OPT's up and down OT dx (M 1024, the stride-n
+    z2bar) and a ragged shape; dyad_mm_wgrad at OPT's up (M 1024, the IT
+    views) and down (the OT views) and a ragged OT shape, fp32 out."""
     def pm(*shape):
         sign = torch.randint(0, 2, shape, generator=gen,
                              device=gen.device) * 2 - 1
@@ -842,6 +856,27 @@ def _check_split_precision(torch, gen, dyad_mm, flash_attn, failures):
         one = dplain(*(_tf32(torch, t).double() for t in (z1, z2, w1, w2)))
         for c in (0, 1):
             gate(f"dyad_mm_dgrad_two/{label}/dx{c + 1}", got[c], exact[c],
+                 one[c])
+    fplain = dyad_mm.dyad_mm_dgrad_plain
+    wplain = dyad_mm.dyad_mm_wgrad_plain
+    for label, (M, n, d_in, d_out, view) in (
+            ("up_M1024", (1024, 4, 192, 768, "it")),
+            ("down_M1024", (1024, 4, 768, 192, "ot")),
+            ("ragged_ot", (77, 3, 65, 130, "ot"))):
+        g, x = pm(M, n * d_out), pm(M, n * d_in)
+        z1, x1 = g.reshape(M, n, d_out), x.reshape(M, n, d_in)
+        z2 = g.reshape(M, d_out, n).transpose(1, 2)
+        w1, w2 = pm(n, d_out, d_in), pm(n, d_out, d_in)
+        gate(f"dyad_mm_dgrad/{label}", dyad_mm.dyad_mm_dgrad(z1, z2, w1, w2),
+             fplain(z1.double(), z2.double(), w1.double(), w2.double()),
+             fplain(*(_tf32(torch, t).double() for t in (z1, z2, w1, w2))))
+        wargs = ((x1, x.reshape(M, d_in, n).transpose(1, 2), z1, z1)
+                 if view == "it" else (x1, x1, z1, z2))
+        got = dyad_mm.dyad_mm_wgrad(*wargs)
+        exact = wplain(*(t.double() for t in wargs))
+        one = wplain(*(_tf32(torch, t).double() for t in wargs))
+        for c in (0, 1):
+            gate(f"dyad_mm_wgrad/{label}/{view}/dw{c + 1}", got[c], exact[c],
                  one[c])
 
 
@@ -945,7 +980,8 @@ def _sass_by_function(sass: str, kernel: str) -> dict:
 
 
 # the sources whose fp32 route runs on split TF32 (no FMA kernel left)
-SPLIT_SOURCES = ("flash_prefill", "flash_bwd", "dyad_dgrad")
+SPLIT_SOURCES = ("flash_prefill", "flash_bwd", "dyad_dgrad",
+                 "dyad_dgrad_fused", "dyad_wgrad")
 # the split-TF32 instantiations and their bf16 twins: a mangled name's
 # pattern, and its key
 _SPLIT_FNS = {
@@ -955,8 +991,17 @@ _SPLIT_FNS = {
     r"flash_fwd_tf32_kernelILi128E": "flash_fwd_tf32<128>",
     r"flash_fwd_tc_kernelILi64E": "flash_fwd_tc<64>",
     r"flash_fwd_tc_kernelILi128E": "flash_fwd_tc<128>",
-    r"dyad_dgrad_tf32_kernel": "dyad_dgrad_tf32",
+    r"dyad_dgrad_tf32_kernelILb0E": "dyad_dgrad_tf32",
     r"dyad_gemm_tc_kernelILb1ELb0E13__nv_bfloat16Lb0E": "dyad_dgrad_tc<bf16>",
+    r"dyad_dgrad_tf32_kernelILb1E": "dyad_dgrad_tf32<fuse>",
+    r"dyad_gemm_tc_kernelILb1ELb0E13__nv_bfloat16Lb1E":
+        "dyad_dgrad_tc<bf16,fuse>",
+    r"dyad_wgrad_tf32_kernelIfL": "dyad_wgrad_tf32<f32>",
+    r"dyad_wgrad_tf32_kernelI13__nv_bfloat16L": "dyad_wgrad_tf32<bf16>",
+    r"dyad_gemm_tc_kernelILb0ELb0EfLb0E13__nv_bfloat16E":
+        "dyad_wgrad_tc<bf16,f32>",
+    r"dyad_gemm_tc_kernelILb0ELb0E13__nv_bfloat16Lb0E":
+        "dyad_wgrad_tc<bf16,bf16>",
     r"flash_dkv_tf32_kernelILi64E": "flash_dkv_tf32<64>",
     r"flash_dkv_tf32_kernelILi128E": "flash_dkv_tf32<128>",
     r"flash_dq_tf32_kernelILi64E": "flash_dq_tf32<64>",
@@ -975,9 +1020,10 @@ def _split_key(mangled: str):
 
 def _sass_split(build) -> bool:
     """Phase 2 for the split-TF32 routes (dyad_mm_blocks past the decode
-    rows, dyad_mm_dgrad_two, flash_prefill and flash_prefill_grads in
-    fp32) and their bf16 twins: each instantiation's HGMMA and FFMA in the
-    SASS and ptxas's registers, spills and wgmma serialisation, one line.
+    rows, dyad_mm_dgrad_two, dyad_mm_dgrad, dyad_mm_wgrad, flash_prefill
+    and flash_prefill_grads in fp32) and their bf16 twins: each
+    instantiation's HGMMA and FFMA in the SASS and ptxas's registers,
+    spills and wgmma serialisation, one line.
     Fails without HGMMA in each, with a spill or a serialised wgmma, with
     any FFMA in the fp32 GEMMs (their partial sums are added with FADD),
     with more FFMA in an fp32 flash forward than in its bf16 twin (whose
@@ -987,7 +1033,8 @@ def _sass_split(build) -> bool:
     (whose FFMA are the probabilities': the fp32 one adds its partials
     with FADD)."""
     got, ptx = {}, {}
-    for source in ("dyad_mm", "flash_prefill", "dyad_dgrad", "flash_bwd"):
+    for source in ("dyad_mm", "flash_prefill", "dyad_dgrad", "flash_bwd",
+                   "dyad_dgrad_fused", "dyad_wgrad"):
         for chunk in build.sass(source).split("Function : ")[1:]:
             key = _split_key(chunk.split(None, 1)[0])
             if key:
@@ -1001,7 +1048,8 @@ def _sass_split(build) -> bool:
         if not hgmma or r.get("spill_stores") or r.get("spill_loads") \
                 or r.get("serialized"):
             bad.append(k)
-    for k in ("dyad_gemm_tc<f32>", "dyad_dgrad_tf32"):
+    for k in ("dyad_gemm_tc<f32>", "dyad_dgrad_tf32", "dyad_dgrad_tf32<fuse>",
+              "dyad_wgrad_tf32<f32>", "dyad_wgrad_tf32<bf16>"):
         if got.get(k, (0, 1))[1]:
             bad.append(f"{k} FFMA")
     for hd in (64, 128):
@@ -1137,7 +1185,8 @@ def _opt_kernel_split(per_kernel: dict, n_layers: int) -> bool:
     name: forward, the split-TF32 flash forward once a layer and the
     split-TF32 DYAD GEMM twice (up, down), no FMA prefill or tile kernel;
     backward, the split-TF32 flash dk/dv and dq kernels once a layer each
-    and the split-TF32 dgrad GEMM twice, no FMA flash backward."""
+    and the split-TF32 dgrad and wgrad GEMMs twice each, no FMA flash
+    backward and no FMA GEMM (``dyad_gemm_kernel``) at all."""
     return all([
         _launches_by_name(per_kernel, {
             "flash_fwd_tf32_kernel": n_layers, "flash_prefill_kernel": 0,
@@ -1147,8 +1196,22 @@ def _opt_kernel_split(per_kernel: dict, n_layers: int) -> bool:
         _launches_by_name(per_kernel, {
             "flash_dkv_tf32_kernel": n_layers,
             "flash_dq_tf32_kernel": n_layers, "flash_dkv_kernel": 0,
-            "flash_dq_kernel": 0, "dyad_dgrad_tf32_kernel": 2 * n_layers},
+            "flash_dq_kernel": 0, "dyad_dgrad_tf32_kernel": 2 * n_layers,
+            "dyad_wgrad_tf32_kernel": 2 * n_layers, "dyad_gemm_kernel": 0},
             "bwd", "train_profile")])
+
+
+def _ot_kernel_split(per_kernel: dict, n_layers: int) -> bool:
+    """Phase 7c: the profiled OPT-125m OT step's DYAD GEMMs by kernel name:
+    its input cotangent on the fused split-TF32 dgrad twice a layer (up,
+    down; the unfused one never), its weight cotangents on the split-TF32
+    wgrad twice, and the FMA GEMM twice, for the forward's
+    dyad_mm_blocks_two (B.6) alone."""
+    return _launches_by_name(per_kernel, {
+        "dyad_dgrad_tf32_kernel<true": 2 * n_layers,
+        "dyad_dgrad_tf32_kernel<false": 0,
+        "dyad_wgrad_tf32_kernel": 2 * n_layers,
+        "dyad_gemm_kernel": 2 * n_layers}, "dyad", "ot_train_profile")
 
 
 def _dgrad_two_entry(z1, z2, w1, w2, dx1, dx2):
@@ -1930,6 +1993,63 @@ def _time_quant(torch, randn, record, time_ms):
                fma_ms=time_ms(_ff_q_fma_entry(args, gate, act)[0]))
 
 
+def _time_ff_fp32(torch, randn, record, time_ms):
+    """Phase 4 for the fp32 routes of the ff megakernels (FMA), which the
+    fp32 Qwen3 step (phase 11) and the fp32 quantized serving runs (phase
+    13d-e) launch: dyad_ff_fused at one Qwen3 ff (fp32 x and params) and
+    dyad_ff_fused_q (fp32 x, int8 payloads) at decode and prefill-chunk
+    rows (records ``...@fp32_decode``, ``...@fp32_chunk``).  No single
+    PyTorch call computes the ff: beside each, the torch.bmm chain over the
+    -CAT operands (the weights dequantized before the timing for the
+    quantized one); bounds at FP32_FLOPS."""
+    from repro_torch.kernels import dyad_mm
+
+    f32 = torch.float32
+    for label, suffix in (("qwen3_M8", "@fp32_decode"),
+                          ("qwen3_M128", "@fp32_chunk")):
+        M, n, d_in, d_ff, d_out, act = QUANT_FF_CASES[label]
+        args = _ff_args(randn, M, n, d_in, d_ff, d_out, act, f32, f32)
+        qargs, gate = _ff_q_args(randn, M, n, d_in, d_ff, d_out, act, f32,
+                                 "int8")
+        x1, x2 = args[0], args[1]
+        xc = torch.cat([x1, x2], dim=2).transpose(0, 1).contiguous()
+        wu1, wu2, wd1, wd2, wg1, wg2 = args[2:]
+        dq = {k: _dequant(q, s_, f32) for k, q, s_ in (
+            ("u1", qargs[2], qargs[6]), ("u2", qargs[3], qargs[7]),
+            ("d1", qargs[4], qargs[8]), ("d2", qargs[5], qargs[9]),
+            ("g1", gate["wg1"], gate["sg1"]), ("g2", gate["wg2"],
+                                               gate["sg2"]))}
+
+        def cat(u1, u2, g1, g2, d1, d2):
+            return (torch.cat([u1, u2], dim=2).transpose(1, 2).contiguous(),
+                    torch.cat([g1, g2], dim=2).transpose(1, 2).contiguous(),
+                    torch.cat([d1, d2], dim=1).transpose(1, 2).contiguous())
+
+        def chain(wuc, wgc, wdc):
+            h = torch.nn.functional.silu(torch.bmm(xc, wgc)) * torch.bmm(
+                xc, wuc)
+            return torch.bmm(h, wdc)
+        fp = cat(wu1, wu2, wg1, wg2, wd1, wd2)
+        qp = cat(*(dq[k] for k in ("u1", "u2", "g1", "g2", "d1", "d2")))
+        flops = 2.0 * M * n * (4 * d_ff * d_in + 2 * d_out * d_ff)
+        io = 4 * M * n * d_in + 4 * 2 * M * n * d_out
+        record("dyad_ff_fused" + suffix,
+               time_ms(lambda: dyad_mm.dyad_ff_fused(*args, act=act)),
+               time_ms(lambda: dyad_mm.dyad_ff_fused_plain(*args, act=act)),
+               None, io + 4 * (4 * n * d_ff * d_in + 2 * n * d_out * d_ff),
+               flops, label, FP32_FLOPS, "float32",
+               bmm_chain_ms=time_ms(lambda: chain(*fp)))
+        record("dyad_ff_fused_q" + suffix,
+               time_ms(lambda: dyad_mm.dyad_ff_fused_q(*qargs, act=act,
+                                                       **gate)),
+               time_ms(lambda: dyad_mm.dyad_ff_fused_q_plain(
+                   *qargs, act=act, **gate)),
+               None, io + 4 * n * d_ff * d_in + 2 * n * d_out * d_ff
+               + 4 * (4 * n * d_ff + 2 * n * d_out), flops, label,
+               FP32_FLOPS, "float32 x, int8 payloads",
+               bmm_chain_ms=time_ms(lambda: chain(*qp)))
+
+
 def _ff_args(randn, M, n, d_in, d_ff, d_out, act, dtype, wdtype):
     """dyad_ff_fused's arguments: the IT views of one (M, n * d_in)
     activation in ``dtype``, up (and gate) and down weights in ``wdtype``
@@ -2029,20 +2149,25 @@ def main() -> int:
     if bad:
         log("sass", failed=",".join(bad))
         return 1
-    # ptxas on the tensor-core flash forward and backward, the
-    # tensor-core ff megakernel (<1> gated, <0> not; bf16, int8 and fp8
-    # weights) and the quantized GEMM (int8, fp8): registers, no spill, no
-    # wgmma serialised; and each ff and quantized instantiation's HGMMA
-    for source, kernels in (("flash_prefill", ("flash_fwd_tc_kernel",)),
-                            ("flash_bwd", ("flash_dkv_tc_kernel",
-                                           "flash_dq_tc_kernel",
-                                           "flash_dkv_tf32_kernel",
-                                           "flash_dq_tf32_kernel")),
-                            ("dyad_dgrad", ("dyad_dgrad_tf32_kernel",)),
-                            ("dyad_ff", ("dyad_ff_tc_kernel",)),
-                            ("dyad_mm_q", ("dyad_mm_q_tc_kernel",))):
+    # ptxas on the tensor-core flash forward and backward, the split-TF32
+    # dgrad and wgrad GEMMs (by _SPLIT_FNS's keys), the tensor-core ff
+    # megakernel (<1> gated, <0> not; bf16, int8 and fp8 weights) and the
+    # quantized GEMM (int8, fp8): registers, no spill, no wgmma serialised;
+    # and each ff and quantized instantiation's HGMMA
+    def split_tf32(mangled, _):
+        return _split_key(mangled) if "tf32_kernel" in mangled else None
+    for source, kernels, key in (
+            ("flash_prefill", ("flash_fwd_tc_kernel",), _kernel_key),
+            ("flash_bwd", ("flash_dkv_tc_kernel", "flash_dq_tc_kernel",
+                           "flash_dkv_tf32_kernel", "flash_dq_tf32_kernel"),
+             _kernel_key),
+            ("dyad_dgrad", (), split_tf32),
+            ("dyad_dgrad_fused", (), split_tf32),
+            ("dyad_wgrad", (), split_tf32),
+            ("dyad_ff", ("dyad_ff_tc_kernel",), _kernel_key),
+            ("dyad_mm_q", ("dyad_mm_q_tc_kernel",), _kernel_key)):
         ptx = _ptxas((build.BUILD_DIR / f"{source}.log").read_text(),
-                     kernels)
+                     kernels, key)
         spilled = [k for k, r in ptx.items()
                    if r["spill_stores"] or r["serialized"]] or (
             [] if ptx else ["no report"])
@@ -2215,10 +2340,12 @@ def main() -> int:
         "split_M2048": (2048, 1, 64, 65),
     }
     # fp32 past the decode rows, every fp32 flash_prefill, and fp32
-    # dyad_mm_dgrad_two and flash_prefill_grads on split TF32: each case
-    # also against float64 (F64_GATE), the largest ratio here
+    # dyad_mm_dgrad_two, dyad_mm_dgrad, dyad_mm_wgrad and
+    # flash_prefill_grads on split TF32: each case also against float64
+    # (F64_GATE), the largest ratio here
     f64_ratio = {"dyad_mm_blocks": 0.0, "flash_prefill": 0.0,
-                 "dyad_mm_dgrad_two": 0.0, "flash_prefill_grads": 0.0}
+                 "dyad_mm_dgrad_two": 0.0, "flash_prefill_grads": 0.0,
+                 "dyad_mm_dgrad": 0.0, "dyad_mm_wgrad": 0.0}
 
     def gate_f64(name, label, got, plain, exact):
         f64_ratio[name] = max(f64_ratio[name], _gate_f64(
@@ -2412,24 +2539,41 @@ def main() -> int:
                         torch, f"dyad_mm_dgrad_two/{label}/{zl}", got,
                         dyad_mm.dyad_mm_dgrad_two(z, zb, w1, w2), failures)
             # wgrad: the IT views (up, gate), and the OT down projection's
-            # (one input for both components, the stride-n z2bar)
+            # (one input for both components, the stride-n z2bar); fp32 (on
+            # split TF32, either out dtype) against float64 too, with fp32
+            # out, where each output sums M >= F64_MIN_TERMS products
             for wl, wargs in (("it", (x1, x2, z, z)), ("ot", (x1, x1, z, z2))):
                 for out_dt in {dt, torch.float32}:
                     got = dyad_mm.dyad_mm_wgrad(*wargs, out_dtype=out_dt)
                     want = dyad_mm.dyad_mm_wgrad_plain(*wargs,
                                                        out_dtype=out_dt)
+                    exact = (dyad_mm.dyad_mm_wgrad_plain(
+                        *(t.double() for t in wargs))
+                        if dt == out_dt == torch.float32
+                        and M >= F64_MIN_TERMS else None)
                     for c in (0, 1):
+                        tag = (f"{label}/{wl}/out_{str(out_dt)[6:]}/"
+                               f"dw{c + 1}")
                         note("dyad_mm_wgrad", check(
-                            f"dyad_mm_wgrad/{label}/{wl}/out_"
-                            f"{str(out_dt)[6:]}/dw{c + 1}", got[c], want[c],
-                            dn))
+                            f"dyad_mm_wgrad/{tag}", got[c], want[c], dn))
+                        if exact is not None:
+                            gate_f64("dyad_mm_wgrad", tag, got[c], want[c],
+                                     exact[c])
+                    if dt == torch.float32 and label in ("up_M4096",
+                                                         "down_M4096"):
+                        dyad_mm.dyad_mm_wgrad(*(t[:9] for t in wargs),
+                                              out_dtype=out_dt)  # another
+                        _repeat_bitwise(
+                            torch, f"dyad_mm_wgrad/{label}/{wl}/out_"
+                            f"{str(out_dt)[6:]}", got, dyad_mm.dyad_mm_wgrad(
+                                *wargs, out_dtype=out_dt), failures)
                     # no atomics, partials added in a fixed order
                     again = dyad_mm.dyad_mm_wgrad(*wargs, out_dtype=out_dt)
                     same = all(torch.equal(a, b) for a, b in zip(got, again))
                     log("check", case=f"dyad_mm_wgrad/{label}/{wl}/out_"
                         f"{str(out_dt)[6:]}/bitwise_repeat", dtype=dn,
                         split=dyad_mm.wgrad_split(
-                            M, n, d_in, d_out, tc=dt == torch.bfloat16)[0],
+                            M, n, d_in, d_out, bf16=dt == torch.bfloat16)[0],
                         ok=same)
                     if not same:
                         failures.append(f"dyad_mm_wgrad/{label}/{wl}/"
@@ -2620,9 +2764,22 @@ def main() -> int:
             g = randn(M, n * d_out, dtype=dt)
             z1 = g.reshape(M, n, d_out)
             z2 = g.reshape(M, d_out, n).transpose(1, 2)
-            note("dyad_mm_dgrad", check(
-                f"dyad_mm_dgrad/{label}", dyad_mm.dyad_mm_dgrad(z1, z2, w1, w2),
-                dyad_mm.dyad_mm_dgrad_plain(z1, z2, w1, w2), dn))
+            got = dyad_mm.dyad_mm_dgrad(z1, z2, w1, w2)
+            want = dyad_mm.dyad_mm_dgrad_plain(z1, z2, w1, w2)
+            note("dyad_mm_dgrad", check(f"dyad_mm_dgrad/{label}", got, want,
+                                        dn))
+            # fp32 on split TF32: each output sums both components' o
+            if dt == torch.float32 and 2 * d_out >= F64_MIN_TERMS:
+                gate_f64("dyad_mm_dgrad", label, got, want,
+                         dyad_mm.dyad_mm_dgrad_plain(
+                             z1.double(), z2.double(), w1.double(),
+                             w2.double()))
+            if dt == torch.float32 and label in ("opt_up_M4096",
+                                                 "opt_down_M4096"):
+                dyad_mm.dyad_mm_dgrad(z1[:9], z2[:9], w1, w2)   # another
+                _repeat_bitwise(torch, f"dyad_mm_dgrad/{label}", (got,),
+                                (dyad_mm.dyad_mm_dgrad(z1, z2, w1, w2),),
+                                failures)
 
         def randn_ff(*shape, dtype=torch.float32):
             return randn(*shape, dtype=dtype, generator=aside_ff)
@@ -2784,9 +2941,10 @@ def main() -> int:
            nbytes, 4.0 * h * B * K * valid, f"B{B}_L{L}_K{K}_h{h}_idx{idx}")
 
     # dyad_mm_dgrad_two, dyad_mm_wgrad: one layer's ff backward, up + down,
-    # at the training rows.  Yardstick: one torch.bmm over both components
-    # on contiguous operands.  dyad_mm_dgrad_two runs split TF32: its bound
-    # at SPLIT_TF32_FLOPS, the FMA kernel's beside it (fma_bound_ms)
+    # at the training rows (the wgrad on the IT views).  Yardstick: one
+    # torch.bmm over both components on contiguous operands.  Both run
+    # split TF32: their bounds at SPLIT_TF32_FLOPS, the FMA kernel's beside
+    # (fma_bound_ms)
     for label in ("up_M4096", "down_M4096"):
         M, n, d_in, d_out = bwd_cases[label]
         x, g = randn(M, n * d_in), randn(M, n * d_out)
@@ -2806,12 +2964,13 @@ def main() -> int:
                time_ms(lambda: torch.bmm(zc, wc)), nbytes, flops, label,
                SPLIT_TF32_FLOPS,
                fma_bound_ms=_bound_ms(nbytes, flops, FP32_FLOPS)[0])
+        nbytes = f32 * (M * n * d_in + M * n * d_out + 2 * n * d_out * d_in)
         record("dyad_mm_wgrad",
                time_ms(lambda: dyad_mm.dyad_mm_wgrad(x1, x2, z, z)),
                time_ms(lambda: dyad_mm.dyad_mm_wgrad_plain(x1, x2, z, z)),
-               time_ms(lambda: torch.bmm(zt, xc)),
-               f32 * (M * n * d_in + M * n * d_out + 2 * n * d_out * d_in),
-               flops, label)
+               time_ms(lambda: torch.bmm(zt, xc)), nbytes, flops, label,
+               SPLIT_TF32_FLOPS,
+               fma_bound_ms=_bound_ms(nbytes, flops, FP32_FLOPS)[0])
 
     _time_qwen3_bwd(torch, randn, record, time_ms, bwd_cases)
 
@@ -2846,6 +3005,7 @@ def main() -> int:
     _time_ring(torch, randn, record, time_ms)
     _time_paged(torch, randn, record, time_ms)
     _time_quant(torch, randn, record, time_ms)
+    _time_ff_fp32(torch, randn, record, time_ms)
     _time_qwen3_attn(torch, randn, record, time_ms)
     del flush, sout
 
@@ -2873,15 +3033,16 @@ def main() -> int:
     # -- 7c. the OT and DT variants on the same path -------------------------
     # the forward of each ff projection is dyad_mm_blocks_two; its input
     # cotangent is dyad_mm_dgrad (OT: one accumulator) or dyad_mm_dgrad_two
-    # (DT: the components apart, re-viewed)
+    # (DT: the components apart, re-viewed); one OT step profiled
     variant_launches = {}
-    for spec, dx, phase in (
-            ("dyad_ot_4_kernel", "dyad_mm_dgrad", "ot_train"),
-            ("dyad_dt_4_kernel", "dyad_mm_dgrad_two", "dt_train")):
+    for spec, dx, phase, prof in (
+            ("dyad_ot_4_kernel", "dyad_mm_dgrad", "ot_train",
+             _ot_kernel_split),
+            ("dyad_dt_4_kernel", "dyad_mm_dgrad_two", "dt_train", None)):
         got = run.train("opt125m", spec, {
             "dyad_mm_blocks_two": 2, dx: 2, "dyad_mm_wgrad": 2,
             "flash_prefill": 1, "flash_prefill_grads": 1}, phase,
-            compare=False)
+            compare=False, profile_check=prof)
         if got is None:
             return 1
         variant_launches[spec] = got
@@ -3209,8 +3370,9 @@ class _Run:
               profile_check=None):
         """The train launcher's trainer at full width, B x S of TRAIN: 2
         warm-up steps, one counted step, 5 timed; with ``compare``, the
-        same with dense and one profiled step, whose kernel table
-        ``profile_check(per_kernel, n_layers)`` may hold to account.
+        same with dense; with ``compare`` or ``profile_check``, one profiled
+        step of each run, whose kernel table ``profile_check(per_kernel,
+        n_layers)`` may hold to account.
         Returns the launch counts of the counted step, None on a
         failure."""
         from torch.profiler import ProfilerActivity, profile
@@ -3277,7 +3439,7 @@ class _Run:
                 return None
             if lin == spec:
                 launches = got
-            if compare:
+            if compare or profile_check:
                 # one profiled step each: the busy time beside the wall
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:

@@ -47,7 +47,7 @@ ENTRIES = {
     "dyad_dgrad": ("dyad_dgrad", "repro_dyad_mm_dgrad_two",
                    [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_I, _P]),
     "dyad_wgrad": ("dyad_wgrad", "repro_dyad_mm_wgrad",
-                   [_P] * 7 + [_I] * 6 + [_LL] * 12 + [_I, _I, _P]),
+                   [_P] * 7 + [_I] * 7 + [_LL] * 12 + [_I, _I, _P]),
     "flash_bwd": ("flash_bwd", "repro_flash_prefill_grads",
                   [_P] * 9 + [_P, _I, _P, _I] + [_I] * 6 + [_LL] * 14
                   + [_I, _I, _F, _I, _P]),

@@ -1,8 +1,8 @@
 // A batched, strided fp32-accumulating FMA GEMM shared by the DYAD kernels
-// that are plain products (the fp32 operands of dyad_mm_two.cu,
-// dyad_dgrad_fused.cu and dyad_wgrad.cu, whose bf16 operands take the
-// tensor-core mainloop of dyad_gemm_tc.cuh; dyad_dgrad.cu's fp32 runs on
-// split TF32 there):
+// that are plain products (the fp32 operands of dyad_mm_two.cu; its bf16
+// operands, and the other DYAD GEMMs' fp32 ones, take the tensor-core
+// mainloops of dyad_gemm_tc.cuh and dyad_gemm_tf32.cuh), and the split
+// reduction that every DYAD GEMM's row split ends with:
 //
 //   C_c[g][r, j] = sum_{k in [k_begin, k_end)} A_c[g][r, k] * B_c[g][k, j]
 //

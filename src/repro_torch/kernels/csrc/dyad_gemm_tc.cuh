@@ -60,7 +60,10 @@
 //   wgrad operands z (r = o) and x (j = i) are contiguous along M and N,
 //   not k, so both are MN-major; the dgrad z is K-major and its weight
 //   N-major; the forward's x and its weight (o rows of k) are both K-major.
-//   tf32 wgmma reads both operands K-major only, which the forward is.
+//   tf32 wgmma reads both operands K-major only, which the forward is; the
+//   fp32 backward runs on dyad_gemm_tf32.cuh: the dgrad transposed (w read
+//   as it lies into registers, z K-major), the wgrad with one operand read
+//   as it lies into registers and the other transposed on its way in.
 // - The split (fp32): B's copied tile lands raw in the hi slot; once its
 //   copies have landed, each thread splits the 16-byte chunks it copied
 //   itself (no barrier: its own cp.async writes are visible to it), hi in
@@ -100,9 +103,9 @@
 // m64n128k16 for them, and the tf32 ones) also serve the flash kernels,
 // flash_tc.cuh; the layout, the copies and the gathers (of 64-row tiles)
 // the bf16 ff megakernel, dyad_ff_tc.cuh; the split-TF32 copies, splits,
-// gathers and wgmma the fp32 route of dyad_dgrad.cu, which computes its
-// product transposed (w[g] is N-major there, which tf32 wgmma cannot read
-// from shared memory) in a kernel of its own.
+// gathers and wgmma the fp32 backward GEMMs of dyad_gemm_tf32.cuh (dgrad,
+// fused dgrad, wgrad), whose operands tf32 wgmma cannot read from shared
+// memory as they lie, in kernels of their own.
 #pragma once
 
 #include <type_traits>

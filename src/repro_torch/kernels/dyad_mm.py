@@ -37,13 +37,15 @@ pieces in ``dyad_mm_q.cu``, the megakernel's payload instantiation,
 picked by :func:`mm_q_plan` and :func:`ff_q_plan`, the payloads converted
 to bf16 in shared memory by ``quant_tc.cuh``).  With fp32 operands
 ``dyad_mm_blocks`` past its decode rows runs on that mainloop too, and
-``dyad_mm_dgrad_two`` on a kernel of its own on the mainloop's pieces
-(the product transposed, ``dx^T = w^T z^T``, since tf32 ``wgmma`` reads
-its shared operands K-major only), both in split TF32: each operand
-split into tf32 hi and lo, three tf32 products a pair (``a_lo b_hi +
-a_hi b_lo + a_hi b_hi``), each good to about 2^-21 relative, fp32 sums;
-the decode rows of ``dyad_mm_blocks`` and every other fp32 operand run
-on fp32 FMA.
+``dyad_mm_dgrad_two``, ``dyad_mm_dgrad`` and ``dyad_mm_wgrad`` on
+kernels of their own on the mainloop's pieces (``dyad_gemm_tf32.cuh``:
+the dgrad transposed, ``dx^T = w^T z^T``, the wgrad with one operand
+transposed on its way in, since tf32 ``wgmma`` reads its shared operands
+K-major only), all in split TF32: each operand split into tf32 hi and
+lo, three tf32 products a pair (``a_lo b_hi + a_hi b_lo + a_hi b_hi``),
+each good to about 2^-21 relative, fp32 sums; the decode rows of
+``dyad_mm_blocks``, ``dyad_mm_blocks_two`` and the ff and quantized
+kernels' fp32 operands run on fp32 FMA.
 Each wrapper takes its plain version only for a CPU tensor; a CUDA tensor
 launches the kernel or raises.
 """
@@ -194,7 +196,8 @@ def dyad_mm_dgrad(z1, z2, w1, w2):
     where both dx components share the block layout (the OT input side).
     z1, z2: (M, n, d_out) views (any strides; the OT ``z2bar`` is a stride-n
     view); w1, w2: (n, d_out, d_in), one dtype with z (fp32 or bf16).
-    Returns dx (M, n, d_in) in z's dtype."""
+    Returns dx (M, n, d_in) in z's dtype.  Both dtypes run on the tensor
+    cores: bf16 products, fp32 in split TF32."""
     if z1.device.type == "cpu":
         return dyad_mm_dgrad_plain(z1, z2, w1, w2)
     _check_views("dyad_mm_dgrad", z1, z2, w1, w2)
@@ -277,30 +280,68 @@ def dyad_mm_wgrad_plain(x1, x2, z1, z2, out_dtype=None):
 
 
 _SMS = 132   # an H100's
-# the tiles of csrc/dyad_gemm.cuh (fp32, FMA): 128 rows (o) x 64 columns
-# (i) per block, the rows summed in steps of 8 (a split range a multiple of
-# 32), and the blocks its grid aims for (about 4 per SM)
-_TILE_O, _TILE_I, _WGRAD_ROWS = 128, 64, 32
-_WGRAD_BLOCKS = 4 * _SMS
-# the tiles of csrc/dyad_gemm_tc.cuh (bf16, tensor cores): 128 x 128 per
-# block, one block per SM, the rows summed in stages of 64
+# the wgrad tiles of csrc/dyad_gemm_tf32.cuh (fp32 on split TF32): 64
+# columns of the operand read as it lies (A) x 96 of the one transposed on
+# its way in (B) per block, two blocks an SM, the rows summed in stages of
+# 32; and the most row ranges a call is split into
+_TF32_TILE_A, _TF32_TILE_B, _WGRAD_ROWS = 64, 96, 32
+_TF32_SLOTS = 2 * _SMS
+_WGRAD_MAX_SPLIT = 8
+# the tiles of csrc/dyad_gemm_tc.cuh (bf16): 128 x 128 per block, one block
+# per SM, the rows summed in stages of 64
 _TC_TILE_O, _TC_TILE_I, _TC_ROWS = 128, 128, 64
 
 
-def wgrad_split(M: int, n: int, d_in: int, d_out: int, tc: bool = False):
+def _tf32_tiles(d_in: int, d_out: int):
+    """The split-TF32 wgrad's tiles for one (component, dyad block) GEMM:
+    with x as A, and with z as A."""
+    return (math.ceil(d_in / _TF32_TILE_A) * math.ceil(d_out / _TF32_TILE_B),
+            math.ceil(d_out / _TF32_TILE_A) * math.ceil(d_in / _TF32_TILE_B))
+
+
+def wgrad_orient(d_in: int, d_out: int, x_strided: bool = False,
+                 z_strided: bool = False) -> bool:
+    """Whether the split-TF32 wgrad (fp32) reads x as its A, in 64-column
+    tiles over d_in, and z as its B, in 96-column tiles over d_out (else
+    the other way round): the way with fewer tiles; on a tie the operand
+    with a stride-n view (``x_strided``: the IT x2; ``z_strided``: the OT
+    z2bar), whose gather then runs along A's contiguous tile rows; else x
+    where d_in is the narrower side.  OPT-125m's 192 x 768 and 768 x 192
+    blocks tie (24 tiles either way): x for the IT views, z for the OT."""
+    t_x, t_z = _tf32_tiles(d_in, d_out)
+    if t_x != t_z:
+        return t_x < t_z
+    if x_strided != z_strided:
+        return x_strided
+    return d_in <= d_out
+
+
+def wgrad_split(M: int, n: int, d_in: int, d_out: int, bf16: bool = False):
     """(split, rows): the row ranges the wgrad kernel reduces apart; rows
-    is a multiple of the kernel's row step.  The FMA kernel (fp32) aims for
-    about four blocks per SM.  The tensor-core kernel (``tc``, bf16) splits
-    only as far as its tiles leave SMs idle, since each split adds
-    2 * n * d_out * d_in fp32 partials written and read again, bytes
-    comparable to its operands' at the Qwen3 training rows."""
-    tile_o, tile_i, step = ((_TC_TILE_O, _TC_TILE_I, _TC_ROWS) if tc
-                            else (_TILE_O, _TILE_I, _WGRAD_ROWS))
-    tiles = (2 * n * math.ceil(d_out / tile_o) * math.ceil(d_in / tile_i))
-    chunks = max(1, math.ceil(M / step))
-    want = (_SMS // max(tiles, 1) if tc
-            else math.ceil(_WGRAD_BLOCKS / max(tiles, 1)))
-    split = max(1, min(chunks, want))
+    is a multiple of the kernel's row step.  Each split adds 2 * n * d_out
+    * d_in fp32 partials written and read again, so a kernel splits only
+    where its tiles alone leave block slots idle.  The bf16 kernel (one
+    block an SM) splits as far as its tiles still find idle SMs.  The
+    split-TF32 kernel (fp32, two blocks an SM) takes the split, at most
+    ``_WGRAD_MAX_SPLIT``, whose blocks best fill whole waves of its slots:
+    the least waves x stages a block, the fewer ranges on a tie (OPT-125m's
+    192 tiles: 4 ranges, 3 waves of 32 stages, against 128 stages in one
+    wave of 192 blocks on 264 slots)."""
+    if bf16:
+        tiles = 2 * n * math.ceil(d_out / _TC_TILE_O) * math.ceil(
+            d_in / _TC_TILE_I)
+        chunks = max(1, math.ceil(M / _TC_ROWS))
+        split = max(1, min(chunks, _SMS // max(tiles, 1)))
+        step = _TC_ROWS
+    else:
+        tiles = max(1, 2 * n * min(_tf32_tiles(d_in, d_out)))
+        chunks = max(1, math.ceil(M / _WGRAD_ROWS))
+        split = 1
+        if tiles < _TF32_SLOTS:
+            split = min(range(1, min(chunks, _WGRAD_MAX_SPLIT) + 1),
+                        key=lambda s: (math.ceil(tiles * s / _TF32_SLOTS)
+                                       * math.ceil(chunks / s), s))
+        step = _WGRAD_ROWS
     rows = math.ceil(chunks / split) * step
     return max(1, math.ceil(M / rows)), rows
 
@@ -311,7 +352,9 @@ def dyad_mm_wgrad(x1, x2, z1, z2, out_dtype=None):
     bf16).  Returns ``(dw1, dw2)``, each (n, d_out, d_in) in ``out_dtype``
     (x1's dtype by default), cast once from the fp32 sums.  The sum over
     rows is split into fixed ranges added in a fixed order, so the result
-    does not depend on the run."""
+    does not depend on the run.  Both dtypes run on the tensor cores: bf16
+    products, fp32 in split TF32 (:func:`wgrad_orient` picks which operand
+    is read as it lies)."""
     if x1.device.type == "cpu":
         return dyad_mm_wgrad_plain(x1, x2, z1, z2, out_dtype)
     _check_views("dyad_mm_wgrad", x1, x2, z1, z2)
@@ -329,14 +372,16 @@ def dyad_mm_wgrad(x1, x2, z1, z2, out_dtype=None):
     dw1 = torch.empty(n, d_out, d_in, dtype=out_dtype, device=dev)
     dw2 = torch.empty(n, d_out, d_in, dtype=out_dtype, device=dev)
     split, rows = wgrad_split(M, n, d_in, d_out,
-                              tc=x1.dtype == torch.bfloat16)
+                              bf16=x1.dtype == torch.bfloat16)
     part = (torch.empty(split, 2, n, d_out, d_in, dtype=torch.float32,
                         device=dev) if split > 1 else None)
     err = build.entry("dyad_wgrad")(
         build.ptr(x1), build.ptr(x2), build.ptr(z1), build.ptr(z2),
         build.ptr(dw1), build.ptr(dw2), build.ptr(part), M, n, d_in, d_out,
-        split, rows, *x1.stride(), *x2.stride(), *z1.stride(), *z2.stride(),
-        _DTYPES[x1.dtype], _DTYPES[out_dtype], build.stream(dev))
+        split, rows, int(wgrad_orient(d_in, d_out, x2.stride(2) != 1,
+                                      z2.stride(2) != 1)), *x1.stride(),
+        *x2.stride(), *z1.stride(), *z2.stride(), _DTYPES[x1.dtype],
+        _DTYPES[out_dtype], build.stream(dev))
     build.check(err, "dyad_mm_wgrad")
     dyad_mm_wgrad.launches += 1
     return dw1, dw2

@@ -96,8 +96,65 @@ def test_wgrad_split_covers_the_rows():
         split, rows = dyad_mm.wgrad_split(M, n, d_in, d_out)
         assert rows % 32 == 0 and split >= 1
         assert (split - 1) * rows < max(M, 1) <= split * rows
-    # OPT-125m up/down: 144 output tiles, so the rows split four ways
+    # OPT-125m up/down on the split-TF32 kernel: 192 tiles of 64 x 96 on
+    # 264 block slots, so the rows split four ways (3 waves of 32 stages)
     assert dyad_mm.wgrad_split(4096, 4, 192, 768) == (4, 1024)
+    assert dyad_mm.wgrad_split(4096, 4, 768, 192) == (4, 1024)
+
+
+def _tf32_tiles(n, d_in, d_out):
+    a, b = ((d_in, d_out) if dyad_mm.wgrad_orient(d_in, d_out)
+            else (d_out, d_in))
+    return (2 * n * -(-a // dyad_mm._TF32_TILE_A)
+            * -(-b // dyad_mm._TF32_TILE_B))
+
+
+def _waves_x_stages(tiles, split, stages):
+    """Waves of blocks on the card's slots x stages a block."""
+    return -(-tiles * split // dyad_mm._TF32_SLOTS) * stages
+
+
+@pytest.mark.parametrize("M,n,d_in,d_out", [
+    (4096, 4, 192, 768), (4096, 4, 768, 192), (4096, 4, 256, 768),
+    (4096, 4, 768, 256), (1024, 4, 192, 768), (2048, 1, 64, 65),
+    (129, 2, 13, 130), (300, 3, 200, 130), (77, 3, 65, 130),
+    (4096, 16, 768, 768), (1, 1, 1, 1), (0, 2, 8, 8)])
+def test_wgrad_split_covers_the_rows_on_the_split_tf32_tiles(M, n, d_in,
+                                                             d_out):
+    """The fp32 plan: ranges that cover M in steps of the kernel's 32
+    rows, no split where the tiles alone fill the card's two blocks an
+    SM, at most _WGRAD_MAX_SPLIT ranges, and among those the split whose
+    blocks fill whole waves best (the fewest waves x stages a block)."""
+    split, rows = dyad_mm.wgrad_split(M, n, d_in, d_out)
+    assert rows % dyad_mm._WGRAD_ROWS == 0 and split >= 1
+    assert (split - 1) * rows < max(M, 1) <= split * rows
+    assert split <= dyad_mm._WGRAD_MAX_SPLIT
+    tiles = _tf32_tiles(n, d_in, d_out)
+    if tiles >= dyad_mm._TF32_SLOTS:
+        assert split == 1
+        return
+    chunks = max(1, -(-M // dyad_mm._WGRAD_ROWS))
+    best = min(_waves_x_stages(tiles, s, -(-chunks // s))
+               for s in range(1, min(chunks, dyad_mm._WGRAD_MAX_SPLIT) + 1))
+    assert _waves_x_stages(tiles, split,
+                           rows // dyad_mm._WGRAD_ROWS) == best
+
+
+@pytest.mark.parametrize("d_in,d_out,x_strided,z_strided,x_as_a", [
+    # OPT-125m's up and down: 3 x 8 or 12 x 2 tiles of 64 x 96 either way,
+    # so the stride-n view decides (the IT x2, the OT z2bar), else the
+    # narrower side
+    (192, 768, True, False, True), (192, 768, False, True, False),
+    (768, 192, True, False, True), (768, 192, False, True, False),
+    (192, 768, False, False, True), (768, 192, False, False, False),
+    # Qwen3-0.6B's up and down: 4 x 8 tiles against 12 x 3, whatever the
+    # views
+    (256, 768, False, True, True), (768, 256, True, False, False),
+    (64, 64, False, False, True), (13, 130, False, True, True),
+    (130, 13, True, False, False)])
+def test_wgrad_orient_takes_the_fewer_tiles(d_in, d_out, x_strided,
+                                            z_strided, x_as_a):
+    assert dyad_mm.wgrad_orient(d_in, d_out, x_strided, z_strided) is x_as_a
 
 
 def test_wgrad_split_covers_the_rows_on_the_tensor_core_tiles():
@@ -106,7 +163,7 @@ def test_wgrad_split_covers_the_rows_on_the_tensor_core_tiles():
     for M, n, d_in, d_out in [(4096, 4, 256, 768), (4096, 4, 768, 256),
                               (129, 2, 13, 130), (100, 1, 64, 65),
                               (1, 1, 1, 1), (0, 2, 8, 8)]:
-        split, rows = dyad_mm.wgrad_split(M, n, d_in, d_out, tc=True)
+        split, rows = dyad_mm.wgrad_split(M, n, d_in, d_out, bf16=True)
         assert rows % step == 0 and split >= 1
         assert (split - 1) * rows < max(M, 1) <= split * rows
         tiles = 2 * n * -(-d_out // tile_o) * -(-d_in // tile_i)
@@ -114,10 +171,10 @@ def test_wgrad_split_covers_the_rows_on_the_tensor_core_tiles():
         assert split == 1 or split * tiles <= dyad_mm._SMS
     # Qwen3-0.6B up/gate and down: 96 tiles of 128 x 128 fill 96 of 132
     # SMs, so the rows are not split and no partials are written
-    assert dyad_mm.wgrad_split(4096, 4, 256, 768, tc=True) == (1, 4096)
-    assert dyad_mm.wgrad_split(4096, 4, 768, 256, tc=True) == (1, 4096)
+    assert dyad_mm.wgrad_split(4096, 4, 256, 768, bf16=True) == (1, 4096)
+    assert dyad_mm.wgrad_split(4096, 4, 768, 256, bf16=True) == (1, 4096)
     # a small grid splits: 4 tiles, 2048 rows in 32 stages of 64
-    assert dyad_mm.wgrad_split(2048, 1, 64, 65, tc=True) == (32, 64)
+    assert dyad_mm.wgrad_split(2048, 1, 64, 65, bf16=True) == (32, 64)
 
 
 # -- flash_prefill_grads ----------------------------------------------------------

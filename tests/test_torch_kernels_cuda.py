@@ -8,8 +8,9 @@ tests/test_torch_kernels_cuda.py``.  The others check, on the CPU, that a
 CPU tensor takes the plain version and leaves the launch counter alone.
 
 Tolerance: 2e-5 (fp32) and 2e-2 (bf16) times max(|plain|, 1).  The fp32
-routes of ``flash_prefill``, ``flash_prefill_grads``, ``dyad_mm_dgrad_two``
-and of ``dyad_mm_blocks`` past the decode rows run on split TF32 (three
+routes of ``flash_prefill``, ``flash_prefill_grads``, ``dyad_mm_dgrad_two``,
+``dyad_mm_dgrad``, ``dyad_mm_wgrad`` and of ``dyad_mm_blocks`` past the
+decode rows run on split TF32 (three
 tf32 products a pair): they are also held against their plain versions
 run in float64, at most F64_GATE times the plain fp32 versions' error, and
 on operands +-(1 + 2^-12), whose low bits one TF32 product drops, within
@@ -302,7 +303,10 @@ def _tf32_case(kernel, shape, draw):
     of them a product reads) of a split-TF32 case, both calls returning a
     tuple of outputs: dyad_mm_blocks (M, n, d_in, d_out, variant),
     flash_prefill (B, S, K, G, h, window, causal), dyad_mm_dgrad_two (M, n,
-    d_in, d_out, "it" for z2 = z1 or "dt" for the strided z2) or
+    d_in, d_out, "it" for z2 = z1 or "dt" for the strided z2),
+    dyad_mm_dgrad (M, n, d_in, d_out; z2 the OT's stride-n z2bar),
+    dyad_mm_wgrad (M, n, d_in, d_out, "it" for x2 the stride-n view and z2
+    = z1, or "ot" for x2 = x1 and z2 the stride-n z2bar; fp32 out) or
     flash_prefill_grads (B, S, T, K, G, h, window, q_off, k_off; causal),
     operands from ``draw`` (flash_prefill_grads' o and lse, which no
     product reads, from the plain fp32 forward)."""
@@ -320,6 +324,24 @@ def _tf32_case(kernel, shape, draw):
         ops = (z1, z2, draw(n, d_out, d_in), draw(n, d_out, d_in))
         return (lambda: dyad_mm.dyad_mm_dgrad_two(*ops),
                 lambda *t: dyad_mm.dyad_mm_dgrad_two_plain(*t), ops,
+                (True,) * 4)
+    if kernel == "dyad_mm_dgrad":
+        M, n, d_in, d_out = shape
+        g = draw(M, n * d_out)
+        ops = (g.reshape(M, n, d_out), g.reshape(M, d_out, n).transpose(1, 2),
+               draw(n, d_out, d_in), draw(n, d_out, d_in))
+        return (lambda: (dyad_mm.dyad_mm_dgrad(*ops),),
+                lambda *t: (dyad_mm.dyad_mm_dgrad_plain(*t),), ops,
+                (True,) * 4)
+    if kernel == "dyad_mm_wgrad":
+        M, n, d_in, d_out, view = shape
+        x, g = draw(M, n * d_in), draw(M, n * d_out)
+        x1, z1 = x.reshape(M, n, d_in), g.reshape(M, n, d_out)
+        ops = ((x1, x.reshape(M, d_in, n).transpose(1, 2), z1, z1)
+               if view == "it" else
+               (x1, x1, z1, g.reshape(M, d_out, n).transpose(1, 2)))
+        return (lambda: dyad_mm.dyad_mm_wgrad(*ops),
+                lambda *t: dyad_mm.dyad_mm_wgrad_plain(*t), ops,
                 (True,) * 4)
     if kernel == "flash_prefill_grads":
         B, S, T, K, G, h, window, q_off, k_off = shape
@@ -359,6 +381,17 @@ SPLIT_CASES = [
     ("dyad_mm_dgrad_two", (4096, 4, 768, 192, "it")),
     ("dyad_mm_dgrad_two", (4096, 4, 192, 768, "dt")),
     ("dyad_mm_dgrad_two", (77, 3, 65, 130, "dt")),
+    # OPT-125m's up and down OT dx at the training rows (the stride-n
+    # z2bar), and their weight cotangents with the IT and the OT views; a
+    # ragged shape of each (the wgrad's rows split)
+    ("dyad_mm_dgrad", (4096, 4, 192, 768)),
+    ("dyad_mm_dgrad", (4096, 4, 768, 192)),
+    ("dyad_mm_dgrad", (77, 3, 65, 130)),
+    ("dyad_mm_wgrad", (4096, 4, 192, 768, "it")),
+    ("dyad_mm_wgrad", (4096, 4, 768, 192, "it")),
+    ("dyad_mm_wgrad", (4096, 4, 192, 768, "ot")),
+    ("dyad_mm_wgrad", (4096, 4, 768, 192, "ot")),
+    ("dyad_mm_wgrad", (77, 3, 65, 130, "ot")),
     # OPT-125m's training attention, h 128, h 80 with G 2 and a window,
     # S < T with per-batch offsets (batch 2's first 20 queries sit before
     # its first key: zero gradients)
@@ -426,6 +459,8 @@ def test_split_tf32_gives_the_same_bits_every_run(cuda, kernel, shape):
     other = _tf32_case(kernel, {
         "dyad_mm_blocks": (9, 2, 40, 24, "it"),
         "dyad_mm_dgrad_two": (9, 2, 40, 24, "it"),
+        "dyad_mm_dgrad": (9, 2, 40, 24),
+        "dyad_mm_wgrad": (9, 2, 40, 24, "ot"),
         "flash_prefill_grads": (1, 70, 70, 1, 1, 64, None, 0, 0),
     }.get(kernel, (1, 70, 1, 1, 64, None, True)), draw)[0]
     first = call()

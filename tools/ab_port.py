@@ -40,13 +40,16 @@ measurement, its first key the label.  The sets:
   ms of ``dyad_mm_blocks`` (fp32, IT) for one OPT-125m layer's up + down
   at M 1024 and at M 8, and at the training rows, M 4096
   (``dyad_mm_blocks@train``); ms of ``flash_prefill_grads`` (fp32) at
-  OPT-125m's training shape (its o and lse from ``flash_prefill``), and of
+  OPT-125m's training shape (its o and lse from ``flash_prefill``), of
   ``dyad_mm_dgrad_two`` (fp32, the IT cotangent view) for one layer's up +
-  down dx at M 4096; ``chip_smoke.timer`` (CUDA events, the L2 flushed
-  before each run, median of 25);
+  down dx at M 4096, of ``dyad_mm_wgrad`` (fp32, the IT views) for its up +
+  down weight cotangents (``dyad_mm_wgrad@train``) and of ``dyad_mm_dgrad``
+  (fp32, the OT cotangent views, z2 the stride-n z2bar) for its OT up +
+  down dx (``dyad_mm_dgrad@opt_ot``); ``chip_smoke.timer`` (CUDA events,
+  the L2 flushed before each run, median of 25);
 * ``step``: the OPT-125m train step (fp32, B 8 x S 512 of ``SyntheticLM``)
-  with ``dyad_it_4_kernel`` and with ``dense``: 2 warm-up steps, then
-  ``--steps`` timed, the median and every step in ms.
+  with ``dyad_it_4_kernel``, ``dyad_ot_4_kernel`` and ``dense``: 2 warm-up
+  steps, then ``--steps`` timed, the median and every step in ms.
 
 ``relu_ties`` (the CPU alone): the ReLU units that ``chip_smoke.py``
 phase 8's OPT-125m step (2 layers, ``dyad_it_4_kernel``, B 2 x S 256, on
@@ -202,10 +205,22 @@ def _fp32(torch, cs, args) -> None:
         w1, w2 = randn(n, d_out, d_in), randn(n, d_out, d_in)
         total += time_ms(lambda: dyad_mm.dyad_mm_dgrad_two(z, z, w1, w2))
     out["dyad_mm_dgrad_two"] = total
+    wgrad = dgrad = 0.0
+    for d_in, d_out in ((d, ff), (ff, d)):
+        x, g = randn(4096, n * d_in), randn(4096, n * d_out)
+        x1, x2 = x.reshape(4096, n, d_in), x.reshape(4096, d_in, n).transpose(
+            1, 2)
+        z1, z2 = g.reshape(4096, n, d_out), g.reshape(4096, d_out,
+                                                      n).transpose(1, 2)
+        w1, w2 = randn(n, d_out, d_in), randn(n, d_out, d_in)
+        wgrad += time_ms(lambda: dyad_mm.dyad_mm_wgrad(x1, x2, z1, z1))
+        dgrad += time_ms(lambda: dyad_mm.dyad_mm_dgrad(z1, z2, w1, w2))
+    out["dyad_mm_wgrad@train"] = wgrad
+    out["dyad_mm_dgrad@opt_ot"] = dgrad
     _emit(label, "kernel", **{k: round(v, 4) for k, v in out.items()},
           device=torch.cuda.get_device_name(0))
 
-    for lin in ("dyad_it_4_kernel", "dense"):
+    for lin in ("dyad_it_4_kernel", "dyad_ot_4_kernel", "dense"):
         _, trainer = build_trainer(
             "opt125m", linear=lin, steps=100, seq_len=512, batch=8,
             seed=args.seed, device=dev, log_fn=lambda *a: None)

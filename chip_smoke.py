@@ -15,14 +15,15 @@ exit and no result line):
    megakernels (``dyad_ff``), of the quantized GEMMs (``dyad_mm_q``) and
    of the flash forward and backward (``flash_prefill``, ``flash_bwd``;
    ``cuobjdump -sass``): each must hold ``HGMMA`` (wgmma) and, but for
-   ``flash_prefill``, ``flash_bwd``, ``dyad_dgrad``, ``dyad_dgrad_fused``
-   and ``dyad_wgrad`` (both routes on wgmma), ``FFMA`` (an fp32 route on
-   FMA), counts on one line; the split-TF32 instantiations (the fp32 DYAD
-   GEMM of ``dyad_mm``, the fp32 dgrad GEMMs of ``dyad_dgrad`` and
-   ``dyad_dgrad_fused``, the fp32 wgrad GEMM of ``dyad_wgrad`` for both
-   out dtypes, the fp32 flash forward and the fp32 flash backward's dk/dv
-   and dq kernels at HD 64 and 128) and their bf16 twins, each one's
-   HGMMA, FFMA, registers, spills and wgmma
+   ``flash_prefill``, ``flash_bwd``, ``dyad_dgrad``, ``dyad_dgrad_fused``,
+   ``dyad_wgrad`` and ``dyad_mm_two`` (both routes on wgmma), ``FFMA``
+   (an fp32 route on FMA), counts on one line; the split-TF32
+   instantiations (the fp32 DYAD GEMMs of ``dyad_mm`` and ``dyad_mm_two``,
+   the fp32 dgrad GEMMs of ``dyad_dgrad`` and ``dyad_dgrad_fused``, the
+   fp32 wgrad GEMM of ``dyad_wgrad`` for both out dtypes, the fp32 flash
+   forward and the fp32 flash backward's dk/dv and dq kernels at HD 64
+   and 128), the fp32-x quantized GEMM of ``dyad_mm_q`` (int8, fp8) and
+   their bf16 twins, each one's HGMMA, FFMA, registers, spills and wgmma
    serialisation on one line (HGMMA in each, no spill, no FFMA in the fp32
    GEMMs, no more in an fp32 flash forward than in its bf16 twin and HD,
    none more in an fp32 flash backward kernel than in its twin); ptxas's
@@ -32,8 +33,9 @@ exit and no result line):
    (``flash_fwd_tc_kernel``), the flash backward (bf16 and split TF32),
    the fp32 dgrad, fused dgrad and wgrad GEMMs, the ff megakernel
    (``dyad_ff_tc_kernel``, gated and not, over bf16, int8 and fp8
-   weights) and the quantized GEMM (``dyad_mm_q_tc_kernel``, int8 and
-   fp8; no spill and no serialised wgmma allowed); the split-key decode
+   weights) and the quantized GEMMs (``dyad_mm_q_tc_kernel`` and
+   ``dyad_mm_q_tf32_kernel``, int8 and fp8; no spill and no serialised
+   wgmma allowed); the split-key decode
    kernels' registers and spills at HD 128, paged and ring, with the
    shared memory of a block and the blocks an SM at the span of its cache
    dtype (no spill in any instantiation allowed); and the HGMMA count of
@@ -59,10 +61,12 @@ exit and no result line):
    launching one kernel with no cast beside it; the
    quantized-weight kernels over int8 and fp8 payloads, bf16 x on the
    tensor cores also repeated bitwise, on the FMA kernels through the C
-   entries at Qwen3's shapes (the route phase 4 times beside), and on
-   payloads that cover every int8 and every finite e4m3 value with
-   power-of-two scales and integer x (the ff: one-hot x, relu), whose
-   sums are exact, bitwise against the plain version; bf16
+   entries at Qwen3's shapes, fp32 x at OPT-125m's (the route phase 4
+   times beside), fp32 x on the tensor cores also against float64 and
+   repeated bitwise, and on payloads that cover every int8 and every
+   finite e4m3 value with power-of-two scales and integer x (bf16 x, and
+   fp32 x for the GEMMs; the ff: one-hot x, relu), whose sums are exact,
+   bitwise against the plain version; bf16
    ``flash_prefill_grads`` also at h 80 and S < T, repeated bitwise at
    Qwen3's shape, and on integer-valued inputs with lse 0 whose sums are
    exact, bitwise against the plain version; bf16 ``flash_prefill`` also
@@ -72,14 +76,16 @@ exit and no result line):
    relative; every ``flash_prefill`` case's fully-masked rows with the
    plain version's lse bits; the split-TF32 routes (fp32 ``flash_prefill``,
    ``flash_prefill_grads``, ``dyad_mm_dgrad_two``, ``dyad_mm_dgrad`` (the
-   OT z2bar) and ``dyad_mm_wgrad`` (IT and OT views, fp32 out), and fp32
-   ``dyad_mm_blocks`` past the decode rows) also against their plain
-   versions run in float64 in every case whose outputs sum at least
-   F64_MIN_TERMS products (at most F64_GATE x the plain fp32 version's
-   error), repeated bitwise at OPT's shapes (and a strided x, the DT z2,
-   h 80), fp32 ``flash_prefill`` on strided views at h 64 and 128, and
-   all six on operands +-(1 + 2^-12), within SPLIT_REL of float64 where
-   one TF32 product is off by about 5e-4; bf16
+   OT z2bar), ``dyad_mm_wgrad`` (IT and OT views, fp32 out),
+   ``dyad_mm_blocks_two`` (OT and DT views) and fp32 ``dyad_mm_blocks``
+   past the decode rows) and the quantized GEMMs' fp32 x on the tensor
+   cores also against their plain versions run in float64 in every case
+   whose outputs sum at least F64_MIN_TERMS products (at most F64_GATE x
+   the plain fp32 version's error), repeated bitwise at OPT's shapes (and
+   a strided x, the DT z2, h 80), fp32 ``flash_prefill`` on strided views
+   at h 64 and 128, and all eight on operands +-(1 + 2^-12), within
+   SPLIT_REL of float64 where one TF32 product is off by about 5e-4 (the
+   quantized GEMMs' payloads are exact in TF32: x alone); bf16
    ``dyad_mm_blocks_two`` on integer
    inputs at Qwen3's split-route down shape and ragged shapes, and
    ``dyad_ff_fused`` with relu on integer inputs at Qwen3's widths, M 4096
@@ -99,16 +105,23 @@ exit and no result line):
    on split TF32); for the quantized-weight
    kernels the yardstick is torch.bmm over weights dequantized before the
    timing, and the same with the dequantization timed too, and beside
-   each bf16 one the FMA kernel through the C entry (``fma_ms``, the
-   parent's route) and for the quantized GEMMs the tensor-core route
-   through it (``tc_ms``: the two routes whichever the plan picks;
-   ``dyad_mm_blocks_q@split_up``: Qwen3's split-route up and gate);
+   each GEMM record at decode rows (M <= 8) both routes through the C
+   entry, the FMA decode kernel (``fma_ms``) and the tensor cores
+   (``tc_ms``), whichever the plan picks (``dyad_mm_blocks_q``: OPT's
+   fp32 x, its records on the tensor cores bound at TWO_TF32_FLOPS;
+   ``dyad_mm_blocks_q@split_up``: Qwen3's split-route up and gate),
+   beside the bf16 ff's the FMA kernel (``fma_ms``);
+   ``dyad_mm_blocks_two`` at OPT-125m's OT forward and
+   ``dyad_mm_blocks_two@opt_dt`` at its DT forward (fp32, split TF32);
    ``dyad_ff_fused`` at Qwen3's training, prefill, prefill-chunk and
    decode rows (``@prefill``, ``@prefill_chunk``, ``@decode``), each
    beside the split route, a torch.bmm chain and the FMA kernel through
    the C entry (``fma_ms``, the parent's route); the paged decode over
-   each pool dtype at contexts 64 and 512 with the splits a slot takes
-   (``time_pools``); the ring decode at Qwen3's batch step
+   fp32, int8 and bf16 pools (``@bf16_pools``) against the gather and
+   SDPA, and over each pool dtype at contexts 64 and 512 with the splits
+   a slot takes (``time_pools``); ``dyad_mm_blocks_two`` at Qwen3's
+   split-route down at M 4096 and 8 (``@qwen3_split``,
+   ``@qwen3_split_M8``); the ring decode at Qwen3's batch step
    (``@qwen3_batch``) and dense-ring step (``@ring512``), bf16 q over an
    fp32 cache; ``flash_prefill`` at Qwen3's serving prefill over its fp32
    cache (``@qwen3_fp32_cache``, bf16 q cast up, against SDPA); the fp32
@@ -140,9 +153,10 @@ exit and no result line):
    twice each, no FMA flash backward and no FMA GEMM);
    7c. the same training path with the OT and DT variants
    (``dyad_ot_4_kernel``, ``dyad_dt_4_kernel``) at full depth, their
-   launch counters checked exactly, and a profiled OT step: the fused
-   split-TF32 dgrad and the split-TF32 wgrad twice a layer each, the FMA
-   GEMM twice (the forward's ``dyad_mm_blocks_two``);
+   launch counters checked exactly, and a profiled OT step: the forward's
+   split-TF32 GEMM with the components apart (``dyad_mm_blocks_two``),
+   the fused split-TF32 dgrad and the split-TF32 wgrad twice a layer
+   each, no FMA GEMM;
 8. one train step of OPT-125m and Pythia-160m at full width and 2 layers
    on the card against the CPU port on the same params and batch, and on
    the card the kernel backward against the forced plain backward; where
@@ -186,7 +200,10 @@ exit and no result line):
 13. quantized serving: (a) OPT-125m at full width with int8 weight
    sidecars (``dyad_it_4_kernel_w8``) through ``Engine.generate`` as in
    phase 5, launch counters exact, its decode time in turns with the fp
-   route on the same weights, profiled, and against the CPU port;
+   route on the same weights, profiled (its quantized GEMM launches by
+   kernel name as mm_q_plan routes each projection: the fp32-x
+   tensor-core kernel and its second pass, or the FMA decode kernel),
+   and against the CPU port;
    (b) the README's quantized serving command on Qwen3-0.6B at full width
    and depth, int8 weights (quantized after the ff weights x 4) and int8
    pools, in phase 12's engine and trace, launch counters exact, then a
@@ -223,12 +240,14 @@ from pathlib import Path
 # the peak rate for each input type.  The split-TF32 (3xTF32) fp32 routes
 # run three TF32 products for each fp32 one: their fp32 work is bound at a
 # third of the TF32 rate (and at FP32_FLOPS the FMA kernels were, printed
-# beside as fma_bound_ms)
+# beside as fma_bound_ms); the quantized GEMMs' fp32-x route runs two (x
+# split, the payload exact in TF32): half the TF32 rate
 HBM_BYTES_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12
 SPLIT_TF32_FLOPS = TF32_FLOPS / 3
+TWO_TF32_FLOPS = TF32_FLOPS / 2
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # x max(|plain|, 1)
 # the split-TF32 kernels against a float64 product (the plain version run
@@ -382,8 +401,11 @@ def _bound_ms(nbytes: float, flops: float, flop_rate: float):
 def _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases):
     """Phase 4 for the three kernels of the ff slice, at the shapes of
     the paths that launch them: dyad_mm_blocks_two at OPT-125m's OT
-    forward (fp32, the OT train step) and at Qwen3's split-route down
-    projection (bf16); dyad_mm_dgrad at Qwen3's down dh (bf16, the train
+    forward (fp32 on split TF32, the OT train step: its bound at
+    SPLIT_TF32_FLOPS, the FMA bound beside), at its DT forward (the
+    stride-n x2, ``@opt_dt``) and at Qwen3's split-route down projection
+    (bf16, at the training and the decode rows); dyad_mm_dgrad at Qwen3's
+    down dh (bf16, the train
     step); dyad_ff_fused at Qwen3's training, prefill and decode rows (bf16
     x, the fp32 params), beside the split route and a torch.bmm chain,
     each a composition of several calls."""
@@ -391,25 +413,37 @@ def _time_ff_slice(torch, randn, record, time_ms, two_cases, ff_cases):
 
     bf16, f32 = torch.bfloat16, torch.float32
 
-    def two(label, dt, rate):
-        M, n, d_in, d_out = two_cases[label]
-        x1 = randn(M, n, d_in, dtype=dt)
+    def two(name, label, dt, rate, view="ot", dims=None):
+        M, n, d_in, d_out = dims or two_cases[label]
+        x = randn(M, n * d_in, dtype=dt)
+        x1 = x.reshape(M, n, d_in)
+        # OT: x2 = x1; DT: the stride-n view
+        x2 = x1 if view == "ot" else x.reshape(M, d_in, n).transpose(1, 2)
         w1, w2 = (randn(n, d_out, d_in).to(dt) for _ in range(2))
-        # OT (x2 = x1); yardstick: one torch.bmm over both components
-        xc = torch.cat([x1, x1], dim=1).transpose(0, 1).contiguous()
+        # yardstick: one torch.bmm over both components
+        xc = torch.cat([x1, x2], dim=1).transpose(0, 1).contiguous()
         wc = torch.cat([w1, w2], dim=0).transpose(1, 2).contiguous()
-        es = x1.element_size()
-        record("dyad_mm_blocks_two" + ("" if dt == f32 else "@qwen3_split"),
-               time_ms(lambda: dyad_mm.dyad_mm_blocks_two(x1, x1, w1, w2)),
+        nbytes = x1.element_size() * (M * n * d_in + 2 * n * d_out * d_in
+                                      + 2 * M * n * d_out)
+        flops = 4.0 * M * n * d_out * d_in
+        kw = ({"fma_bound_ms": _bound_ms(nbytes, flops, FP32_FLOPS)[0]}
+              if dt == f32 else {})
+        record(name,
+               time_ms(lambda: dyad_mm.dyad_mm_blocks_two(x1, x2, w1, w2)),
                time_ms(lambda: dyad_mm.dyad_mm_blocks_two_plain(
-                   x1, x1, w1, w2)),
-               time_ms(lambda: torch.bmm(xc, wc)),
-               es * (M * n * d_in + 2 * n * d_out * d_in + 2 * M * n * d_out),
-               4.0 * M * n * d_out * d_in, label, rate, str(dt)[6:])
+                   x1, x2, w1, w2)),
+               time_ms(lambda: torch.bmm(xc, wc)), nbytes, flops, label,
+               rate, str(dt)[6:], **kw)
 
-    two("opt_up_M4096", f32, FP32_FLOPS)
-    two("opt_down_M4096", f32, FP32_FLOPS)
-    two("qwen3_split_down_M4096", bf16, BF16_FLOPS)
+    for view, name in (("ot", "dyad_mm_blocks_two"),
+                       ("dt", "dyad_mm_blocks_two@opt_dt")):
+        for label in ("opt_up_M4096", "opt_down_M4096"):
+            two(name, label, f32, SPLIT_TF32_FLOPS, view)
+    two("dyad_mm_blocks_two@qwen3_split", "qwen3_split_down_M4096", bf16,
+        BF16_FLOPS)
+    # the split route's down projection at Qwen3's decode rows
+    two("dyad_mm_blocks_two@qwen3_split_M8", "qwen3_split_down_M8", bf16,
+        BF16_FLOPS, dims=(8,) + two_cases["qwen3_split_down_M4096"][1:])
 
     # dyad_mm_dgrad: Qwen3's down projection dh at the training rows, the
     # OT cotangent views; yardstick: one torch.bmm over the contraction
@@ -792,7 +826,12 @@ def _check_split_precision(torch, gen, dyad_mm, flash_attn, failures):
     (M 1024, the IT cotangent view) and a ragged shape with the DT strided
     z2; dyad_mm_dgrad at OPT's up and down OT dx (M 1024, the stride-n
     z2bar) and a ragged shape; dyad_mm_wgrad at OPT's up (M 1024, the IT
-    views) and down (the OT views) and a ragged OT shape, fp32 out."""
+    views) and down (the OT views) and a ragged OT shape, fp32 out;
+    dyad_mm_blocks_two at OPT's up and down (M 1024, the OT and the DT
+    views) and a ragged shape; dyad_mm_blocks_q and dyad_mm_blocks_two_q
+    over int8 and fp8 payloads quantized from such weights (the payloads
+    exact in TF32: only x is rounded in the one-product case) at those
+    shapes, the IT view."""
     def pm(*shape):
         sign = torch.randint(0, 2, shape, generator=gen,
                              device=gen.device) * 2 - 1
@@ -878,6 +917,44 @@ def _check_split_precision(torch, gen, dyad_mm, flash_attn, failures):
         for c in (0, 1):
             gate(f"dyad_mm_wgrad/{label}/{view}/dw{c + 1}", got[c], exact[c],
                  one[c])
+    from repro_torch import quant
+
+    fwd_shapes = (("up_M1024", (1024, 4, 192, 768)),
+                  ("down_M1024", (1024, 4, 768, 192)),
+                  ("ragged", (77, 3, 65, 130)))
+    tplain = dyad_mm.dyad_mm_blocks_two_plain
+    for label, (M, n, d_in, d_out) in fwd_shapes:
+        x, w1, w2 = pm(M, n * d_in), pm(n, d_out, d_in), pm(n, d_out, d_in)
+        x1 = x.reshape(M, n, d_in)
+        for view, x2 in (("ot", x1),
+                         ("dt", x.reshape(M, d_in, n).transpose(1, 2))):
+            got = dyad_mm.dyad_mm_blocks_two(x1, x2, w1, w2)
+            exact = tplain(x1.double(), x2.double(), w1.double(), w2.double())
+            one = tplain(*(_tf32(torch, t).double() for t in (x1, x2, w1, w2)))
+            for c in (0, 1):
+                gate(f"dyad_mm_blocks_two/{label}/{view}/z{c + 1}", got[c],
+                     exact[c], one[c])
+    for qdt in ("int8", "fp8"):
+        for label, (M, n, d_in, d_out) in fwd_shapes:
+            x = pm(M, n * d_in)
+            x1, x2 = x.reshape(M, n, d_in), x.reshape(M, d_in, n).transpose(
+                1, 2)
+            (q1, s1), (q2, s2) = (quant.quantize_dyad_weight(
+                pm(n, d_out, d_in), qdt) for _ in range(2))
+            args = (x1, x2, q1, q2, s1, s2)
+            dargs = (x1.double(), x2.double(), q1, q2, s1, s2)
+            oargs = (_tf32(torch, x1).double(), _tf32(torch, x2).double(),
+                     q1, q2, s1, s2)
+            gate(f"dyad_mm_blocks_q/{label}/{qdt}",
+                 dyad_mm.dyad_mm_blocks_q(*args),
+                 dyad_mm.dyad_mm_blocks_q_plain(*dargs),
+                 dyad_mm.dyad_mm_blocks_q_plain(*oargs))
+            got = dyad_mm.dyad_mm_blocks_two_q(*args)
+            exact = dyad_mm.dyad_mm_blocks_two_q_plain(*dargs)
+            one = dyad_mm.dyad_mm_blocks_two_q_plain(*oargs)
+            for c in (0, 1):
+                gate(f"dyad_mm_blocks_two_q/{label}/{qdt}/z{c + 1}", got[c],
+                     exact[c], one[c])
 
 
 def _check_prefill_views_fp32(torch, gen, flash_attn, check, failures):
@@ -981,12 +1058,19 @@ def _sass_by_function(sass: str, kernel: str) -> dict:
 
 # the sources whose fp32 route runs on split TF32 (no FMA kernel left)
 SPLIT_SOURCES = ("flash_prefill", "flash_bwd", "dyad_dgrad",
-                 "dyad_dgrad_fused", "dyad_wgrad")
+                 "dyad_dgrad_fused", "dyad_wgrad", "dyad_mm_two")
 # the split-TF32 instantiations and their bf16 twins: a mangled name's
 # pattern, and its key
 _SPLIT_FNS = {
     r"dyad_gemm_tc_kernelILb1ELb1EfLb1EfE": "dyad_gemm_tc<f32>",
     r"dyad_gemm_tc_kernelILb1ELb1E13__nv_bfloat16Lb1E": "dyad_gemm_tc<bf16>",
+    r"dyad_gemm_tc_kernelILb1ELb1EfLb0EfE": "dyad_gemm_tc<f32,two>",
+    r"dyad_gemm_tc_kernelILb1ELb1E13__nv_bfloat16Lb0E":
+        "dyad_gemm_tc<bf16,two>",
+    r"dyad_mm_q_tf32_kernelIaE": "dyad_mm_q_tf32<int8>",
+    r"dyad_mm_q_tf32_kernelI13__nv_fp8_e4m3E": "dyad_mm_q_tf32<fp8>",
+    r"dyad_mm_q_tc_kernelIaE": "dyad_mm_q_tc<int8>",
+    r"dyad_mm_q_tc_kernelI13__nv_fp8_e4m3E": "dyad_mm_q_tc<fp8>",
     r"flash_fwd_tf32_kernelILi64E": "flash_fwd_tf32<64>",
     r"flash_fwd_tf32_kernelILi128E": "flash_fwd_tf32<128>",
     r"flash_fwd_tc_kernelILi64E": "flash_fwd_tc<64>",
@@ -1020,12 +1104,14 @@ def _split_key(mangled: str):
 
 def _sass_split(build) -> bool:
     """Phase 2 for the split-TF32 routes (dyad_mm_blocks past the decode
-    rows, dyad_mm_dgrad_two, dyad_mm_dgrad, dyad_mm_wgrad, flash_prefill
-    and flash_prefill_grads in fp32) and their bf16 twins: each
-    instantiation's HGMMA and FFMA in the SASS and ptxas's registers,
-    spills and wgmma serialisation, one line.
+    rows, dyad_mm_blocks_two, dyad_mm_dgrad_two, dyad_mm_dgrad,
+    dyad_mm_wgrad, flash_prefill and flash_prefill_grads in fp32), the
+    quantized GEMMs' fp32-x route (two tf32 products a pair) and their
+    bf16 twins: each instantiation's HGMMA and FFMA in the SASS and
+    ptxas's registers, spills and wgmma serialisation, one line.
     Fails without HGMMA in each, with a spill or a serialised wgmma, with
-    any FFMA in the fp32 GEMMs (their partial sums are added with FADD),
+    any FFMA in the fp32 GEMMs (their partial sums are added with FADD,
+    the quantized one's scales multiply with FMUL),
     with more FFMA in an fp32 flash forward than in its bf16 twin (whose
     FFMA are the softmax's: the products are wgmma in both) and the HD / 2
     of the fp32 one's alpha O + P V merge, two code paths' worth: HD; or
@@ -1034,7 +1120,8 @@ def _sass_split(build) -> bool:
     with FADD)."""
     got, ptx = {}, {}
     for source in ("dyad_mm", "flash_prefill", "dyad_dgrad", "flash_bwd",
-                   "dyad_dgrad_fused", "dyad_wgrad"):
+                   "dyad_dgrad_fused", "dyad_wgrad", "dyad_mm_two",
+                   "dyad_mm_q"):
         for chunk in build.sass(source).split("Function : ")[1:]:
             key = _split_key(chunk.split(None, 1)[0])
             if key:
@@ -1048,8 +1135,10 @@ def _sass_split(build) -> bool:
         if not hgmma or r.get("spill_stores") or r.get("spill_loads") \
                 or r.get("serialized"):
             bad.append(k)
-    for k in ("dyad_gemm_tc<f32>", "dyad_dgrad_tf32", "dyad_dgrad_tf32<fuse>",
-              "dyad_wgrad_tf32<f32>", "dyad_wgrad_tf32<bf16>"):
+    for k in ("dyad_gemm_tc<f32>", "dyad_gemm_tc<f32,two>", "dyad_dgrad_tf32",
+              "dyad_dgrad_tf32<fuse>", "dyad_wgrad_tf32<f32>",
+              "dyad_wgrad_tf32<bf16>", "dyad_mm_q_tf32<int8>",
+              "dyad_mm_q_tf32<fp8>"):
         if got.get(k, (0, 1))[1]:
             bad.append(f"{k} FFMA")
     for hd in (64, 128):
@@ -1203,15 +1292,49 @@ def _opt_kernel_split(per_kernel: dict, n_layers: int) -> bool:
 
 def _ot_kernel_split(per_kernel: dict, n_layers: int) -> bool:
     """Phase 7c: the profiled OPT-125m OT step's DYAD GEMMs by kernel name:
-    its input cotangent on the fused split-TF32 dgrad twice a layer (up,
-    down; the unfused one never), its weight cotangents on the split-TF32
-    wgrad twice, and the FMA GEMM twice, for the forward's
-    dyad_mm_blocks_two (B.6) alone."""
+    its forward (dyad_mm_blocks_two, B.6) on the split-TF32 GEMM with the
+    components apart twice a layer (up, down; the fused one, IT's, never),
+    its input cotangent on the fused split-TF32 dgrad twice (the unfused
+    one never), its weight cotangents on the split-TF32 wgrad twice, and
+    no FMA GEMM (``dyad_gemm_kernel``, gone from the sources) at all."""
     return _launches_by_name(per_kernel, {
+        "dyad_gemm_tc_kernel<true, true, float, false, float>": 2 * n_layers,
+        "dyad_gemm_tc_kernel<true, true, float, true, float>": 0,
         "dyad_dgrad_tf32_kernel<true": 2 * n_layers,
         "dyad_dgrad_tf32_kernel<false": 0,
         "dyad_wgrad_tf32_kernel": 2 * n_layers,
-        "dyad_gemm_kernel": 2 * n_layers}, "dyad", "ot_train_profile")
+        "dyad_gemm_kernel": 0}, "dyad", "ot_train_profile")
+
+
+def _quant_opt_split(B: int, S: int, steps: int, sms: int):
+    """A ``profile_check`` for phase 13a's profiled generate (OPT-125m,
+    fp32 x over int8 payloads): its quantized GEMM launches by kernel name
+    as mm_q_plan routes each projection, prefill (M = B S, one call a
+    layer for up and down) and each decode step (M = B): the fp32-x
+    tensor-core kernel (``dyad_mm_q_tf32_kernel``) or the FMA decode
+    kernel (``dyad_mv_q_kernel``), the summed forward's second pass
+    (``dyad_mm_q_reduce``) after each tensor-core launch, and never the
+    bf16-x tensor-core kernel."""
+    import torch
+    from repro_torch.kernels import dyad_mm
+
+    n, d, ff = 4, 768 // 4, 3072 // 4
+
+    def check(per_kernel: dict, n_layers: int) -> bool:
+        want = {"dyad_mm_q_tf32_kernel": 0, "dyad_mv_q_kernel": 0,
+                "dyad_mm_q_reduce": 0, "dyad_mm_q_tc_kernel": 0}
+        for M, calls in ((B * S, 1), (B, steps)):
+            for d_in, d_out in ((d, ff), (ff, d)):
+                kernel = dyad_mm.mm_q_plan(M, n, d_in, d_out, sms,
+                                           torch.float32)[0]
+                if kernel == "tc":
+                    want["dyad_mm_q_tf32_kernel"] += calls * n_layers
+                    want["dyad_mm_q_reduce"] += calls * n_layers
+                else:
+                    want["dyad_mv_q_kernel"] += calls * n_layers
+        return _launches_by_name(per_kernel, want, "quant_gemm",
+                                 "quant_opt_profile")
+    return check
 
 
 def _dgrad_two_entry(z1, z2, w1, w2, dx1, dx2):
@@ -1315,8 +1438,8 @@ def _check_integer_ff_slice(torch, gen, dyad_mm, two_cases, failures):
 def _mm_q_entry(args, two: bool, tc: bool):
     """dyad_mm_blocks_q's (``two``: dyad_mm_blocks_two_q's) C entry on the
     tensor-core route (``tc``, with mm_q_tc_split's ranges) or the FMA
-    kernels, whatever mm_q_plan picks; returns (the call, its outputs),
-    for timing and checking.  Not counted."""
+    decode kernel (decode rows only), whatever mm_q_plan picks; returns
+    (the call, its outputs), for timing and checking.  Not counted."""
     import torch
     from repro_torch.kernels import build, dyad_mm
 
@@ -1328,7 +1451,7 @@ def _mm_q_entry(args, two: bool, tc: bool):
     z2 = dyad_mm._permuted_out(M, n, d_out, x1)
     outs = (z1, z2) if two else (z1,)
     split, krows = (dyad_mm.mm_q_tc_split(M, n, d_in, d_out,
-                                          dyad_mm.sm_count(dev))
+                                          dyad_mm.sm_count(dev), x1.dtype)
                     if tc else (1, d_in))
     part = (torch.empty(split, 2, n, M, d_out, dtype=torch.float32,
                         device=dev) if tc and (split > 1 or not two)
@@ -1400,10 +1523,11 @@ def _exact_payload(torch, shape, qdtype, device, salt=0):
 
 
 def _check_exact_quant(torch, gen, dyad_mm, failures):
-    """Phase 3: the bf16 tensor-core routes of the quantized kernels on
+    """Phase 3: the tensor-core routes of the quantized kernels on
     payloads that cover every int8 value and every finite e4m3 value
     (``_exact_payload``), power-of-two scales and integer x, whose fp32
-    sums are exact, bitwise against the plain version.
+    sums are exact, bitwise against the plain version: bf16 x, and for
+    the GEMMs fp32 x too (its tf32 hi is x, its lo 0).
     dyad_mm_blocks_q and dyad_mm_blocks_two_q (IT and OT views) at Qwen3's
     split-route down (M 8, 128) and up (M 128): x in [-2, 2], every sum
     below 2^24 of its row's quantum (int8: 768 x 2 x 128; fp8: one binade
@@ -1413,13 +1537,15 @@ def _check_exact_quant(torch, gen, dyad_mm, failures):
     that one component at most feeds each block's up sum; the up scales
     bring each hidden value to a multiple of 2^-7 (int8) or 1/16 (fp8)
     below 1, exact in bf16, and the down sums stay below 768 x 128 (int8)
-    or 768 x 2^8 (fp8) of their quantum."""
+    or 768 x 2^8 (fp8) of their quantum.  Then fp32 x through both GEMMs
+    at Qwen3's split-route down (M 8, 128) and OPT-125m's up and down at
+    its quantized prefill rows (M 1024)."""
     bf16 = torch.bfloat16
     dev = gen.device
 
-    def exact(label, got, want, **kw):
+    def exact(label, got, want, dtype="bfloat16", **kw):
         same = all(torch.equal(a, b) for a, b in zip(got, want))
-        log("check", case=label, dtype="bfloat16", exact_inputs=True,
+        log("check", case=label, dtype=dtype, exact_inputs=True,
             **kw, bitwise=same, ok=same)
         if not same:
             failures.append(label)
@@ -1484,6 +1610,34 @@ def _check_exact_quant(torch, gen, dyad_mm, failures):
                   dyad_mm.dyad_ff_fused_q(*args, act="relu"),
                   dyad_mm.dyad_ff_fused_q_plain(*args, act="relu"),
                   kernel=plan[0], split=plan[1])
+    # fp32 x (drawn after every bf16 case, which keeps its inputs)
+    for qdt in ("int8", "fp8"):
+        for label, (M, n, d_in, d_out) in (
+                ("qwen3_down_M8", (8, 4, 768, 256)),
+                ("qwen3_down_M128", (128, 4, 768, 256)),
+                ("opt_up_M1024", (1024, 4, 192, 768)),
+                ("opt_down_M1024", (1024, 4, 768, 192))):
+            x = torch.randint(-2, 3, (M, n * d_in), generator=gen,
+                              device=dev).float()
+            x1 = x.reshape(M, n, d_in)
+            q1 = _exact_payload(torch, (n, d_out, d_in), qdt, dev)[0]
+            q2 = _exact_payload(torch, (n, d_out, d_in), qdt, dev, 5)[0]
+            if qdt == "fp8":
+                q2 = q1.view(torch.uint8).flip(-1).contiguous().view(
+                    torch.float8_e4m3fn)
+            s1, s2 = pow2(n, d_out, 0), pow2(n, d_out, 1)
+            plan = dyad_mm.mm_q_plan(M, n, d_in, d_out, sms, torch.float32)
+            for xl, xb in (("it", x.reshape(M, d_in, n).transpose(1, 2)),
+                           ("ot", x1)):
+                args = (x1, xb, q1, q2, s1, s2)
+                exact(f"dyad_mm_blocks_q/{label}/{xl}/{qdt}/fp32_x/exact",
+                      (dyad_mm.dyad_mm_blocks_q(*args),),
+                      (dyad_mm.dyad_mm_blocks_q_plain(*args),),
+                      dtype="float32", kernel=plan[0], split=plan[1])
+                exact(f"dyad_mm_blocks_two_q/{label}/{xl}/{qdt}/fp32_x/exact",
+                      dyad_mm.dyad_mm_blocks_two_q(*args),
+                      dyad_mm.dyad_mm_blocks_two_q_plain(*args),
+                      dtype="float32", kernel=plan[0], split=plan[1])
 
 
 def _ring_cases(span: int) -> dict:
@@ -1689,7 +1843,7 @@ def _time_paged(torch, randn, record, time_ms):
     """Phase 4 for the paged decode kernels: one layer's decode step of
     the continuous path, Qwen3 at 8 slots with 512 tokens of context each,
     bf16 queries (the bf16 compute) over fp32 pools (the engine's cache
-    dtype) and over int8 pools.  Yardstick: the plain route's dataflow as
+    dtype), over int8 pools and over bf16 pools (``@bf16_pools``).  Yardstick: the plain route's dataflow as
     library calls, the gather to a dense (B, NB * P, K, h) view (and the
     dequant for int8) plus F.scaled_dot_product_attention over it, the G
     query heads of each KV head as its query rows."""
@@ -1703,7 +1857,8 @@ def _time_paged(torch, randn, record, time_ms):
              l_real=None, window=None)
     B, K, G, h, P, NB = (c[k] for k in ("B", "K", "G", "h", "P", "NB"))
     for name, pool_dt in (("flash_decode_paged", torch.float32),
-                          ("flash_decode_paged_int8", torch.int8)):
+                          ("flash_decode_paged_int8", torch.int8),
+                          ("flash_decode_paged@bf16_pools", torch.bfloat16)):
         q, pk, pv, bt, idx, sc = _paged_inputs(torch, randn, c,
                                                torch.bfloat16, pool_dt)
         q4 = q[:, 0]
@@ -1728,7 +1883,8 @@ def _time_paged(torch, randn, record, time_ms):
                   + (2 * rows * K * 4 if sc else 0)
                   + 2 * 2 * B * K * G * h + 4 * (B * NB + B))
         # scores and P.V, 2h operations each per key and query head; the
-        # inputs' type: fp32 for fp32 pools (promoted), bf16 for int8
+        # inputs' type: fp32 for fp32 pools (promoted), bf16 for int8 and
+        # bf16 pools
         record(name,
                time_ms(lambda: flash_attn.flash_decode_paged(
                    q, pk, pv, bt, idx, **sc)),
@@ -1787,13 +1943,17 @@ def _ff_q_args(randn, M, n, d_in, d_ff, d_out, act, dtype, qdtype):
              ups[0][1], ups[1][1], downs[0][1], downs[1][1]), gate)
 
 
-def _check_quant_kernels(torch, randn, check, failures, dt, max_err):
+def _check_quant_kernels(torch, randn, check, failures, dt, max_err,
+                         gate_f64):
     """Phase 3 for the quantized-weight kernels at x dtype ``dt``: int8 and
     fp8 payloads, dyad_mm_blocks_q and dyad_mm_blocks_two_q over the IT
     (stride-n x2) and OT views, dyad_ff_fused_q, each with a second call
     that must give the same bits (the split partials add in a fixed
-    order); for bf16 x at Qwen3's shapes also the FMA kernels through the
-    C entries, the parent's route that phase 4 times beside (fma_ms)."""
+    order); the GEMMs' fp32 x on the tensor cores also against their
+    plain versions in float64 (``gate_f64``) where each output sums at
+    least F64_MIN_TERMS products; at the decode rows (M <= 8) the route
+    the plan does not pick through the C entries, since phase 4 times
+    both there (fma_ms, tc_ms)."""
     from repro_torch.kernels import dyad_mm
 
     dn = str(dt).split(".")[1]
@@ -1832,23 +1992,30 @@ def _check_quant_kernels(torch, randn, check, failures, dt, max_err):
                     note("dyad_mm_blocks_two_q", check(
                         f"dyad_mm_blocks_two_q/{case}/z{c + 1}", got[c],
                         want[c], dn))
-                if not bf16:
-                    continue
+                if not bf16 and kernel == "tc" and d_in >= F64_MIN_TERMS:
+                    dargs = (x1.double(), xb.double(), q1, q2, s1, s2)
+                    gate_f64("dyad_mm_blocks_q", case, got_q, want_q,
+                             dyad_mm.dyad_mm_blocks_q_plain(*dargs))
+                    exact = dyad_mm.dyad_mm_blocks_two_q_plain(*dargs)
+                    for c in (0, 1):
+                        gate_f64("dyad_mm_blocks_two_q", f"{case}/z{c + 1}",
+                                 got[c], want[c], exact[c])
                 repeat(f"dyad_mm_blocks_q/{case}", (got_q,),
                        (dyad_mm.dyad_mm_blocks_q(*args),), kernel=kernel,
                        split=split)
                 repeat(f"dyad_mm_blocks_two_q/{case}", got,
                        dyad_mm.dyad_mm_blocks_two_q(*args), kernel=kernel,
                        split=split)
-                if label.startswith("qwen3"):
+                if M <= dyad_mm._MV_ROWS:
+                    other = "tc" if kernel == "fma" else "fma"
                     for two, name, ref in (
                             (False, "dyad_mm_blocks_q", (want_q,)),
                             (True, "dyad_mm_blocks_two_q", want)):
-                        call, out = _mm_q_entry(args, two, False)
+                        call, out = _mm_q_entry(args, two, other == "tc")
                         call()
                         for c, (a, b) in enumerate(zip(out, ref)):
-                            check(f"{name}/{case}/fma_kernel/z{c + 1}", a,
-                                  b, dn)
+                            check(f"{name}/{case}/{other}_kernel/z{c + 1}",
+                                  a, b, dn)
         for label, (M, n, d_in, d_ff, d_out, act) in QUANT_FF_CASES.items():
             args, gate = _ff_q_args(randn, M, n, d_in, d_ff, d_out, act, dt,
                                     qdt)
@@ -1880,8 +2047,13 @@ def _time_quant(torch, randn, record, time_ms):
     dyad_mm_blocks_two_q at Qwen3's split-route down projection (bf16 x,
     fp8: phase 13c) at decode and prefill-chunk rows; dyad_ff_fused_q at
     one Qwen3 ff (bf16 x, int8: phase 13b) at decode, prefill-chunk and
-    prefill rows.  Beside each bf16 record the FMA kernel through the C
-    entry (fma_ms, the parent's route).  Yardstick: torch.bmm over the
+    prefill rows.  Beside each GEMM record at decode rows (M <= 8) both
+    routes through the C entry, the FMA decode kernel (fma_ms) and the
+    tensor cores (tc_ms), and beside the ff's the FMA kernel (fma_ms).
+    The fp32
+    GEMM records on the tensor cores are bound at TWO_TF32_FLOPS (two
+    TF32 products a pair), the FMA bound beside (fma_bound_ms).
+    Yardstick: torch.bmm over the
     -CAT operands with the weights dequantized to x's dtype before the
     timing (library_ms), and the same with the dequantization timed too;
     for the ff, the quantized split route and both bmm chains.  Bounds:
@@ -1912,16 +2084,23 @@ def _time_quant(torch, randn, record, time_ms):
         plain = (dyad_mm.dyad_mm_blocks_two_q_plain if two
                  else dyad_mm.dyad_mm_blocks_q_plain)
         es = x1.element_size()
-        if dt == bf16:   # both routes, whichever mm_q_plan picks
+        # both routes at the decode rows, whichever mm_q_plan picks
+        if M <= dyad_mm._MV_ROWS:
             kw["fma_ms"] = time_ms(_mm_q_entry(args, two, False)[0])
             kw["tc_ms"] = time_ms(_mm_q_entry(args, two, True)[0])
+        nbytes = (es * M * n * d_in + 2 * n * d_out * d_in + 4 * 2 * n * d_out
+                  + es * (2 if two else 1) * M * n * d_out)
+        flops = 4.0 * M * n * d_out * d_in
+        rate = BF16_FLOPS
+        if dt == f32:
+            kernel = dyad_mm.mm_q_plan(M, n, d_in, d_out,
+                                       dyad_mm.sm_count(x1.device), f32)[0]
+            log("plan", kernel=name, shape=label, route=kernel)
+            rate = TWO_TF32_FLOPS if kernel == "tc" else FP32_FLOPS
+            kw["fma_bound_ms"] = _bound_ms(nbytes, flops, FP32_FLOPS)[0]
         record(name, time_ms(lambda: fn(*args)),
                time_ms(lambda: plain(*args)),
-               time_ms(lambda: torch.bmm(xc, wc)),
-               es * M * n * d_in + 2 * n * d_out * d_in
-               + 4 * 2 * n * d_out + es * (2 if two else 1) * M * n * d_out,
-               4.0 * M * n * d_out * d_in, label,
-               FP32_FLOPS if dt == f32 else BF16_FLOPS,
+               time_ms(lambda: torch.bmm(xc, wc)), nbytes, flops, label, rate,
                f"{str(dt)[6:]} x, {qdt} payloads",
                dequant_bmm_ms=time_ms(lambda: torch.bmm(xc, wcat())), **kw)
 
@@ -2152,8 +2331,9 @@ def main() -> int:
     # ptxas on the tensor-core flash forward and backward, the split-TF32
     # dgrad and wgrad GEMMs (by _SPLIT_FNS's keys), the tensor-core ff
     # megakernel (<1> gated, <0> not; bf16, int8 and fp8 weights) and the
-    # quantized GEMM (int8, fp8): registers, no spill, no wgmma serialised;
-    # and each ff and quantized instantiation's HGMMA
+    # quantized GEMMs (bf16 x and fp32 x, int8 and fp8): registers, no
+    # spill, no wgmma serialised; and each ff and quantized instantiation's
+    # HGMMA
     def split_tf32(mangled, _):
         return _split_key(mangled) if "tf32_kernel" in mangled else None
     for source, kernels, key in (
@@ -2165,7 +2345,8 @@ def main() -> int:
             ("dyad_dgrad_fused", (), split_tf32),
             ("dyad_wgrad", (), split_tf32),
             ("dyad_ff", ("dyad_ff_tc_kernel",), _kernel_key),
-            ("dyad_mm_q", ("dyad_mm_q_tc_kernel",), _kernel_key)):
+            ("dyad_mm_q", ("dyad_mm_q_tc_kernel", "dyad_mm_q_tf32_kernel"),
+             _kernel_key)):
         ptx = _ptxas((build.BUILD_DIR / f"{source}.log").read_text(),
                      kernels, key)
         spilled = [k for k, r in ptx.items()
@@ -2184,10 +2365,11 @@ def main() -> int:
         return 1
     per_fn = {}
     for source, kernel in (("dyad_ff", "dyad_ff_tc_kernel"),
-                           ("dyad_mm_q", "dyad_mm_q_tc_kernel")):
+                           ("dyad_mm_q", "dyad_mm_q_tc_kernel"),
+                           ("dyad_mm_q", "dyad_mm_q_tf32_kernel")):
         per_fn.update(_sass_by_function(build.sass(source), kernel))
     missing = [k for k, c in per_fn.items() if not c] or (
-        [] if len(per_fn) == 8 else ["instantiations"])
+        [] if len(per_fn) == 10 else ["instantiations"])
     log("sass_tc", **{k: f"HGMMA:{c}" for k, c in per_fn.items()},
         ok=not missing)
     if missing:
@@ -2340,12 +2522,15 @@ def main() -> int:
         "split_M2048": (2048, 1, 64, 65),
     }
     # fp32 past the decode rows, every fp32 flash_prefill, and fp32
-    # dyad_mm_dgrad_two, dyad_mm_dgrad, dyad_mm_wgrad and
-    # flash_prefill_grads on split TF32: each case also against float64
-    # (F64_GATE), the largest ratio here
+    # dyad_mm_blocks_two, dyad_mm_dgrad_two, dyad_mm_dgrad, dyad_mm_wgrad
+    # and flash_prefill_grads on split TF32, and the quantized GEMMs' fp32
+    # x on the tensor cores: each case also against float64 (F64_GATE),
+    # the largest ratio here
     f64_ratio = {"dyad_mm_blocks": 0.0, "flash_prefill": 0.0,
                  "dyad_mm_dgrad_two": 0.0, "flash_prefill_grads": 0.0,
-                 "dyad_mm_dgrad": 0.0, "dyad_mm_wgrad": 0.0}
+                 "dyad_mm_dgrad": 0.0, "dyad_mm_wgrad": 0.0,
+                 "dyad_mm_blocks_two": 0.0, "dyad_mm_blocks_q": 0.0,
+                 "dyad_mm_blocks_two_q": 0.0}
 
     def gate_f64(name, label, got, plain, exact):
         f64_ratio[name] = max(f64_ratio[name], _gate_f64(
@@ -2757,10 +2942,24 @@ def main() -> int:
                            ("dt", x.reshape(M, d_in, n).transpose(1, 2))):
                 got = dyad_mm.dyad_mm_blocks_two(x1, xb, w1, w2)
                 want = dyad_mm.dyad_mm_blocks_two_plain(x1, xb, w1, w2)
+                # fp32 on split TF32: each output sums d_in products
+                exact = (dyad_mm.dyad_mm_blocks_two_plain(
+                    x1.double(), xb.double(), w1.double(), w2.double())
+                    if dt == torch.float32 and d_in >= F64_MIN_TERMS
+                    else None)
                 for c in (0, 1):
                     note("dyad_mm_blocks_two", check(
                         f"dyad_mm_blocks_two/{label}/{xl}/z{c + 1}", got[c],
                         want[c], dn))
+                    if exact is not None:
+                        gate_f64("dyad_mm_blocks_two", f"{label}/{xl}/z{c + 1}",
+                                 got[c], want[c], exact[c])
+                if dt == torch.float32 and label in ("opt_up_M4096",
+                                                     "opt_down_M4096"):
+                    dyad_mm.dyad_mm_blocks_two(x1[:9], xb[:9], w1, w2)
+                    _repeat_bitwise(
+                        torch, f"dyad_mm_blocks_two/{label}/{xl}", got,
+                        dyad_mm.dyad_mm_blocks_two(x1, xb, w1, w2), failures)
             g = randn(M, n * d_out, dtype=dt)
             z1 = g.reshape(M, n, d_out)
             z2 = g.reshape(M, d_out, n).transpose(1, 2)
@@ -2820,7 +3019,8 @@ def main() -> int:
                 dtype=dn, kernel=kernel, split=split, ok=same)
             if not same:
                 failures.append(f"dyad_ff_fused/{label}/bitwise_repeat")
-        _check_quant_kernels(torch, randn, check, failures, dt, max_err)
+        _check_quant_kernels(torch, randn, check, failures, dt, max_err,
+                             gate_f64)
     _check_ring_decode(torch, aside_ring, flash_attn, failures, max_err)
     _check_prefill_views_fp32(torch, aside_split, flash_attn, check, failures)
     _check_split_precision(torch, aside_split, dyad_mm, flash_attn, failures)
@@ -3099,7 +3299,8 @@ def main() -> int:
     qopt = run.serve("opt125m", "dyad_it_4_kernel_w8", B, S, new,
                      {"dyad_mm_blocks_q": 2 * (1 + steps), "flash_prefill": 1,
                       "flash_decode": steps}, "quant_opt", "quant_opt_profile",
-                     quant="int8")
+                     quant="int8", profile_check=_quant_opt_split(
+                         B, S, steps, dyad_mm.sm_count(dev)))
     if qopt is None:
         return 1
     qcont = run.quant_continuous()
@@ -3140,6 +3341,8 @@ def main() -> int:
                  "dyad_ff_fused": qtrain, "dyad_mm_dgrad": qtrain,
                  "dyad_mm_dgrad@opt_ot": ot_train,
                  "dyad_mm_blocks_two": ot_train,
+                 "dyad_mm_blocks_two@opt_dt":
+                     variant_launches["dyad_dt_4_kernel"],
                  "flash_decode@qwen3_batch": qserve,
                  "flash_prefill@qwen3_fp32_cache": qserve,
                  "flash_decode@ring512": cont["dense"],

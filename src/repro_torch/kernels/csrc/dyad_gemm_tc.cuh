@@ -1,7 +1,6 @@
 // The tensor-core mainloop of the DYAD GEMMs (dyad_mm.cu and
 // dyad_mm_two.cu past the decode rows, dyad_dgrad.cu, dyad_dgrad_fused.cu,
-// dyad_wgrad.cu), beside the fp32 FMA one of dyad_gemm.cuh.  It computes
-// what that one does, through the same DyadGemmArgs:
+// dyad_wgrad.cu), through dyad_gemm.cuh's DyadGemmArgs:
 //
 //   C_c[g][r, j] = sum_{k in [k_begin, k_end)} A_c[g][r, k] * B_c[g][k, j]
 //
@@ -11,11 +10,11 @@
 // range, then component 1's, into one accumulator.  The sums are fp32 and
 // the output is rounded once.  Two operand types:
 //
-// - bf16 (every kernel above): one bf16 product per pair, as the FMA
-//   mainloop computes it.
-// - fp32, split TF32 (3xTF32; dyad_mm.cu's forward, both operands
-//   K-major): every operand element a is split as a_hi = cvt.rna.tf32(a),
-//   a_lo = cvt.rna.tf32(a - a_hi) (the difference is exact in fp32), and a
+// - bf16 (every kernel above): one bf16 product per pair.
+// - fp32, split TF32 (3xTF32; the forward of dyad_mm.cu, Fuse, and of
+//   dyad_mm_two.cu, the components apart: both operands K-major): every
+//   operand element a is split as a_hi = cvt.rna.tf32(a), a_lo =
+//   cvt.rna.tf32(a - a_hi) (the difference is exact in fp32), and a
 //   product a b becomes a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms
 //   issued first, each a wgmma m64n128k8 tf32; a_lo b_lo is dropped.  Each
 //   stage's 12 wgmma sum into a partial of their own, and the partials
@@ -39,9 +38,9 @@
 //
 // What bounds it on the H100: the tensor cores (989 TFLOP/s bf16).  A call
 // at Qwen3-0.6B's training rows does 12.9 GFLOP on 25-35 MB: 0.013 ms of
-// operations against 0.008-0.010 ms of bytes.  The FMA mainloop ran such a
-// call at 12-24 TFLOP/s, with the bf16 operands widened to fp32 in shared
-// memory and a barrier every 8 k.  The design:
+// operations against 0.008-0.010 ms of bytes.  The FMA tile GEMM this
+// replaced ran such a call at 12-24 TFLOP/s, with the bf16 operands widened
+// to fp32 in shared memory and a barrier every 8 k.  The design:
 //
 // - Tensor cores: a block of two warpgroups owns a 128 x 128 tile of C;
 //   each warpgroup issues wgmma.mma_async m64n128k16 (bf16) or m64n128k8
@@ -96,6 +95,11 @@
 //   quarter of the span and writing each block's elements into its owner's
 //   tile through distributed shared memory, was exact on the card but
 //   slower than this gather, so it is not used.
+// - The interleaved output (fp32, no Fuse): the OT/DT z2 holds element
+//   (r, g, j) at r * c_sr + 4 j + g, so a block's own elements are 4 bytes
+//   in every 16.  Where a block's k is short (at most kXchgStages stages)
+//   the n = 4 blocks of a tile run as one cluster and write it together
+//   through distributed shared memory, 16 bytes a store (store_xchg).
 // - Determinism: no atomics; the split reduction adds in a fixed order.
 //
 // The swizzled tile layout, the copies, the descriptors and the wgmma
@@ -156,6 +160,10 @@ enum Load : int {
 };
 struct TcFlags {
   int a[2], b[2];   // Load, per component
+  // component c's C is written through the cluster exchange (store_xchg):
+  // the split-TF32 mainloop without Fuse, launched in clusters of the n = 4
+  // blocks' CTAs
+  int xchg[2];
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -808,6 +816,70 @@ __device__ __forceinline__ void store_c(const DyadGemmArgs& a, int c, int g,
   }
 }
 
+// The epilogue of a component whose C interleaves the n = 4 dyad blocks
+// along j (element (r, g, j) at r * c_sr + 4 j + g: the OT/DT z2 that
+// ref.combine reshapes for free), for a cluster of the 4 blocks' CTAs
+// (rank = g) on one (r, j) tile.  store_c would write each element alone,
+// 4 bytes in every 16, so each 32-byte sector is written in four pieces by
+// four blocks at different times (at OPT-125m's OT up projection, M 4096,
+// 0.339 ms against 0.198 with z2 contiguous; tools/two_store.py).  Here
+// each CTA puts its 128 x 128 tile into its shared memory, the cluster
+// syncs, and CTA q reads rows 32 q .. 32 q + 31 of all four tiles through
+// distributed shared memory and writes each (r, j) as one 16-byte store of
+// its 4 blocks, neighbouring threads on neighbouring j.  The ring is free
+// by then: the caller has waited for its copies and wgmma.
+template <typename O>
+__device__ __forceinline__ void store_xchg(const DyadGemmArgs& a, int c,
+                                           int r0, int j0, int w,
+                                           uint32_t tile,
+                                           const float (&acc)[64]) {
+  static_assert(sizeof(O) == 4, "the exchange writes fp32");
+  constexpr int kP = kBN + 4;   // row pitch in floats
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  __syncthreads();   // every warp done reading the ring
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 64 * w + 16 * warp + lane / 4 + 8 * h;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                       tile + 4 * (r * kP + col)),
+                   "f"(acc[4 * j + 2 * h]), "f"(acc[4 * j + 2 * h + 1]));
+    }
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  uint32_t q;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(q));
+  uint32_t remote[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(remote[g])
+                 : "r"(tile), "r"(g));
+  O* C = static_cast<O*>(a.C[c]);
+  const long long c_sr = a.c_sr[c];
+#pragma unroll 4
+  for (int i = 0; i < 32 * kBN / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int row = 32 * q + e / kBN, col = e % kBN;
+    const int r = r0 + row, jj = j0 + col;
+    float v[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+                   : "=f"(v[g])
+                   : "r"(remote[g] + 4 * (row * kP + col)));
+    if (r < a.R && jj < a.N)
+      *reinterpret_cast<float4*>(C + r * c_sr + 4LL * jj) =
+          make_float4(v[0], v[1], v[2], v[3]);
+  }
+  // no CTA leaves while another reads its tile
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // Op: the operand type (bf16, or fp32 on split TF32); O: the output's
 template <bool AK, bool BKM, typename O, bool Fuse, typename Op>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -933,6 +1005,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < 64; ++i) acc[i] += part[i];
     }
     cp_async_wait<0>();
+    if constexpr (!Fuse) {
+      if (f.xchg[c]) {
+        store_xchg<O>(a, c, r0, j0, w, base, acc);
+        return;
+      }
+    }
     store_c<O>(a, c, g, s, r0 + w * 64, j0, acc);
   } else {
     // the deferred gather of the next stage: one operand's raw loads (A's
@@ -1030,6 +1108,23 @@ inline int load_of(const void* p, long long s_axis, long long s_other,
   return kGather;
 }
 
+// the most k stages a block may run for its C to take the cluster
+// exchange: the four CTAs of a cluster start and end together, which cost
+// more than the exchange saved at OPT-125m's down projection (24 stages a
+// block) in a trial and less at its up (6 stages: 0.339 -> 0.226 ms at M
+// 4096, tools/two_store.py); no k between the two was tried
+constexpr int kXchgStages = 8;
+
+// whether component c's C takes the cluster exchange (store_xchg): fp32
+// out of the split-TF32 mainloop without Fuse, at most kXchgStages stages
+// of k, n = 4 blocks interleaved along j (s_g 1, s_j 4) on 16-byte aligned
+// rows, written whole (no split partials)
+inline int xchg_of(const DyadGemmArgs& a, int c, int bk) {
+  return a.n == 4 && a.split == 1 && !a.part && a.K <= kXchgStages * bk &&
+         a.c_sg[c] == 1 && a.c_sj[c] == 4 && a.c_sr[c] % 4 == 0 &&
+         (reinterpret_cast<unsigned long long>(a.C[c]) & 15) == 0;
+}
+
 // AK / BKM: A / B staged K-major (else MN-major); Op the operand type
 // (bf16, or fp32 on split TF32, both K-major)
 template <bool AK, bool BKM, typename O, bool Fuse = false,
@@ -1041,12 +1136,14 @@ cudaError_t launch(const DyadGemmArgs& a, cudaStream_t stream) {
       (a.split > 1 && a.krows % Ring<Op>::kBK))
     return cudaErrorInvalidValue;
   if (a.n == 0 || a.R == 0 || a.N == 0) return cudaSuccess;
+  constexpr bool kXchg = Ring<Op>::kSplit && !Fuse && sizeof(O) == 4;
   TcFlags f;
   for (int c = 0; c < 2; ++c) {
     f.a[c] = AK ? load_of(a.A[c], a.a_sk[c], a.a_sr[c], a.a_sg[c], a.n, epc)
                 : load_of(a.A[c], a.a_sr[c], a.a_sk[c], a.a_sg[c], a.n, epc);
     f.b[c] = BKM ? load_of(a.B[c], a.b_sk[c], a.b_sj[c], a.b_sg[c], a.n, epc)
                  : load_of(a.B[c], a.b_sj[c], a.b_sk[c], a.b_sg[c], a.n, epc);
+    f.xchg[c] = kXchg ? xchg_of(a, c, Ring<Op>::kBK) : 0;
   }
   auto kernel = dyad_gemm_tc_kernel<AK, BKM, O, Fuse, Op>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1054,8 +1151,26 @@ cudaError_t launch(const DyadGemmArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   dim3 grid((a.N + kBN - 1) / kBN, (a.R + kBM - 1) / kBM,
             (Fuse ? 1 : 2) * a.n * a.split);
-  kernel<<<grid, kThreads, Ring<Op>::kSmem, stream>>>(a, f);
-  err = cudaGetLastError();
+  if (f.xchg[0] || f.xchg[1]) {
+    // clusters of the n = 4 blocks' CTAs of one (component, tile): grid.z
+    // runs over g fastest
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 4;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = Ring<Op>::kSmem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, a, f);
+  } else {
+    kernel<<<grid, kThreads, Ring<Op>::kSmem, stream>>>(a, f);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess || !a.part) return err;
   const long long total = 2LL * a.n * a.R * a.N;
   constexpr int kReduceThreads = 256;

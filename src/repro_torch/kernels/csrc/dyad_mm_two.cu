@@ -17,22 +17,32 @@
 //
 // Bound on the H100: at the training rows of OPT-125m (M = 4096, n = 4,
 // 192 x 768) a call does 4.8 GFLOP per component on about 20 MB, so fp32
-// operations bound it; Qwen3-0.6B's split-route down projection (M 4096,
-// d_ff_b 768 -> d_out_b 256, bf16) does 12.9 GFLOP on 45 MB: 0.013 ms on
-// the bf16 tensor cores, 0.0135 ms of bytes.  Each (component, dyad
-// block) is one GEMM, routed by dtype:
-//  - bf16, at every row count: the tensor-core mainloop of
-//    dyad_gemm_tc.cuh (128 x 128 tiles, 64-deep cp.async stages, wgmma),
-//    A = x and B = w[g] (o rows of k) both K-major, the components apart
-//    (no Fuse): x1 and the weights copied with cp.async, the stride-n x2
-//    gathered through registers (the 16-byte runs at n = 4), z2 written
-//    through its permuted strides.  It runs the split ff route (the
-//    ff demotion rung of the continuous engine, REPRO_KERNEL_FF=split)
-//    and the bf16 OT/DT forward.  At Qwen3's decode rows (M 8) it is
-//    faster than the FMA kernel too, so there is no cut by M.
-//  - fp32: the shared FMA kernel of dyad_gemm.cuh (128 x 64 tiles, 8 x 8
-//    per thread, two shared-memory stages), as for OPT-125m's OT/DT train
-//    step.
+// operations bound it: up + down, 19.3 GFLOP, take 0.117 ms as three TF32
+// products at 495 TFLOP/s (0.289 ms at the 67 TFLOP/s of fp32 FMA)
+// against 0.040 ms of bytes; Qwen3-0.6B's split-route down projection
+// (M 4096, d_ff_b 768 -> d_out_b 256, bf16) does 12.9 GFLOP on 45 MB:
+// 0.013 ms on the bf16 tensor cores, 0.0135 ms of bytes.  Each (component,
+// dyad block) is one GEMM on the tensor-core mainloop of dyad_gemm_tc.cuh
+// (128 x 128 tiles of z_c, wgmma), at every row count, A = x and B = w[g]
+// (o rows of k) both K-major, the components apart (no Fuse): x1 and the
+// weights copied with cp.async, the stride-n x2 (the DT view) gathered
+// through registers, z2 written through its permuted strides.
+//  - bf16: one wgmma product per pair, 64-deep cp.async stages (the stride-n
+//    x2 from the 16-byte runs at n = 4).  It runs the split ff route (the
+//    ff demotion rung of the continuous engine, REPRO_KERNEL_FF=split) and
+//    the bf16 OT/DT forward.  At Qwen3's decode rows (M 8) it is faster
+//    than the FMA kernel too, so there is no cut by M.
+//  - fp32 (OPT-125m's OT and DT train steps): split TF32, as dyad_mm.cu's
+//    fp32 forward runs it (the same mainloop, 32-deep stages, three tf32
+//    products a pair, each stage's products summed into a partial of its
+//    own and added into the accumulator with fp32 adds; the error model in
+//    dyad_gemm_tc.cuh's header), with z1 and z2 apart: the OT x2 (= x1) is
+//    copied, the DT x2 gathered element by element.  z2's elements, 4
+//    bytes in every 16 for one block, written one by one took the OT up
+//    projection (6 stages of k a block) 0.339 ms against 0.198 with z2
+//    contiguous (tools/two_store.py), so there the four blocks of a tile
+//    write it together as one cluster (store_xchg, 0.226 ms); the down
+//    projection (24 stages) writes them one by one.
 #include "dyad_gemm_tc.cuh"
 
 extern "C" int repro_dyad_mm_blocks_two(
@@ -55,7 +65,7 @@ extern "C" int repro_dyad_mm_blocks_two(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kF32:
-      return repro::gemm::launch<float, float>(a, s);
+      return repro::tc::launch<true, true, float, false, float>(a, s);
     case repro::kBF16:
       return repro::tc::launch<true, true, __nv_bfloat16>(a, s);
     default:

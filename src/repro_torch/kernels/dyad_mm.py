@@ -36,16 +36,20 @@ its decode rows, M > 8), ``dyad_mm_blocks_two``, ``dyad_mm_dgrad_two``,
 pieces in ``dyad_mm_q.cu``, the megakernel's payload instantiation,
 picked by :func:`mm_q_plan` and :func:`ff_q_plan`, the payloads converted
 to bf16 in shared memory by ``quant_tc.cuh``).  With fp32 operands
-``dyad_mm_blocks`` past its decode rows runs on that mainloop too, and
-``dyad_mm_dgrad_two``, ``dyad_mm_dgrad`` and ``dyad_mm_wgrad`` on
-kernels of their own on the mainloop's pieces (``dyad_gemm_tf32.cuh``:
-the dgrad transposed, ``dx^T = w^T z^T``, the wgrad with one operand
-transposed on its way in, since tf32 ``wgmma`` reads its shared operands
-K-major only), all in split TF32: each operand split into tf32 hi and
-lo, three tf32 products a pair (``a_lo b_hi + a_hi b_lo + a_hi b_hi``),
-each good to about 2^-21 relative, fp32 sums; the decode rows of
-``dyad_mm_blocks``, ``dyad_mm_blocks_two`` and the ff and quantized
-kernels' fp32 operands run on fp32 FMA.
+``dyad_mm_blocks`` past its decode rows and ``dyad_mm_blocks_two`` run on
+that mainloop too, and ``dyad_mm_dgrad_two``, ``dyad_mm_dgrad`` and
+``dyad_mm_wgrad`` on kernels of their own on the mainloop's pieces
+(``dyad_gemm_tf32.cuh``: the dgrad transposed, ``dx^T = w^T z^T``, the
+wgrad with one operand transposed on its way in, since tf32 ``wgmma``
+reads its shared operands K-major only), all in split TF32: each operand
+split into tf32 hi and lo, three tf32 products a pair (``a_lo b_hi +
+a_hi b_lo + a_hi b_hi``), each good to about 2^-21 relative, fp32 sums.
+The quantized GEMMs take fp32 x on the tensor cores too
+(``dyad_mm_q_tf32_kernel``): x split into tf32 hi and lo, the payload
+converted to fp32, which is exact in tf32, so two tf32 products a pair
+(``x_lo w + x_hi w``).  The decode rows of ``dyad_mm_blocks`` and the ff
+kernels' fp32 operands run on fp32 FMA, and so do the quantized GEMMs'
+decode rows where :func:`mm_q_plan` keeps them there.
 Each wrapper takes its plain version only for a CPU tensor; a CUDA tensor
 launches the kernel or raises.
 """
@@ -151,9 +155,11 @@ def dyad_mm_blocks_two(x1, x2, w1, w2):
 
     Returns ``(z1, z2)``, each (M, n, d_out) in x's dtype.  On CUDA ``z2``
     is a view of a contiguous (M, d_out, n) buffer, so the OT/DT
-    ``ref.combine`` (transpose, reshape, add) reshapes it for free.  bf16
-    runs on the tensor-core mainloop at every row count (at Qwen3's decode
-    rows, M 8, it beats the FMA kernel too), fp32 on the FMA kernel."""
+    ``ref.combine`` (transpose, reshape, add) reshapes it for free.  Both
+    dtypes run on the tensor-core mainloop at every row count: bf16 one
+    product a pair (at Qwen3's decode rows, M 8, it beats the FMA kernel
+    too), fp32 in split TF32 (the OT and DT forward of OPT-125m's fp32
+    train step)."""
     if x1.device.type == "cpu":
         return dyad_mm_blocks_two_plain(x1, x2, w1, w2)
     _check_views("dyad_mm_blocks_two", x1, x2, w1, w2)
@@ -580,36 +586,50 @@ dyad_ff_fused.launches = 0
 _PAYLOADS = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
 
-# the FMA decode-row kernel of csrc/dyad_mm_q.cu: up to 8 rows of x, one
+# the FMA decode-row kernel of csrc/dyad_mm_q.cu: up to 8 rows of x, both
+# x views of a group staged as fp32 within 200 KB of shared memory, one
 # warp per output row, 8 output rows a block
-_MV_ROWS, _MV_OUTS = 8, 8
+_MV_ROWS, _MV_SMEM, _MV_OUTS = 8, 200 * 1024, 8
 
 
-def mm_q_tc_split(M: int, n: int, d_in: int, d_out: int, sms: int):
-    """(split, krows) of the quantized GEMMs' tensor-core route: k cut into
-    ``split`` ranges of ``krows`` (a multiple of its 64-deep stage) as far
-    as its 128 x 128 tiles per (component, block) alone leave SMs of a
-    card with ``sms`` idle (one block an SM; each range writes scaled fp32
-    partials that a second pass adds in a fixed order)."""
+# the k of one stage of the quantized GEMMs' tensor-core routes: 64 for
+# bf16 x, 32 for fp32 x (one 128-byte row of x either way)
+_Q_TC_DEPTH = {torch.bfloat16: 64, torch.float32: 32}
+
+
+def mm_q_tc_split(M: int, n: int, d_in: int, d_out: int, sms: int,
+                  dtype: torch.dtype):
+    """(split, krows) of the quantized GEMMs' tensor-core route for x of
+    ``dtype``: k cut into ``split`` ranges of ``krows`` (whole stages of
+    the route's depth, 64 k for bf16 x and 32 for fp32) as far as its
+    128 x 128 tiles per (component, block) alone leave SMs of a card with
+    ``sms`` idle (one block an SM; each range writes scaled fp32 partials
+    that a second pass adds in a fixed order)."""
+    depth = _Q_TC_DEPTH[dtype]
     tiles = 2 * n * math.ceil(M / _TC_TILE_O) * math.ceil(d_out / _TC_TILE_I)
-    stages = max(1, math.ceil(d_in / _TC_ROWS))
+    stages = max(1, math.ceil(d_in / depth))
     per = math.ceil(stages / max(1, min(stages, sms // max(tiles, 1))))
-    return math.ceil(stages / per), per * _TC_ROWS
+    return math.ceil(stages / per), per * depth
 
 
 def mm_q_plan(M: int, n: int, d_in: int, d_out: int, sms: int,
               dtype: torch.dtype):
     """(kernel, split, krows) of ``dyad_mm_blocks_q`` and
-    ``dyad_mm_blocks_two_q``: ``"tc"``, the tensor-core route, for bf16 x,
-    with :func:`mm_q_tc_split`'s ranges; else ``"fma"``, the FMA kernels:
-    fp32 x, and bf16 decode rows (M <= 8) whose decode kernel has at
-    least two waves of blocks.  On an H100 that kernel beats the tensor
-    cores at Qwen3's up and gate (M 8, 384 blocks), and loses at its down
-    (128 blocks; PERF.md)."""
-    if dtype != torch.bfloat16 or (
-            M <= _MV_ROWS and n * math.ceil(d_out / _MV_OUTS) >= 2 * sms):
+    ``dyad_mm_blocks_two_q``: ``"tc"``, the tensor-core route (bf16
+    products for bf16 x, two tf32 products a pair for fp32 x), with
+    :func:`mm_q_tc_split`'s ranges; but ``"fma"``, the FMA decode kernel,
+    for decode rows (M <= 8 whose two x views fit its shared memory) where
+    it wins on an H100: with bf16 x where the decode kernel has at least
+    two waves of blocks (it beats the tensor cores at Qwen3's up and gate,
+    M 8, 384 blocks, and loses at its down, 128 blocks), with fp32 x
+    always (it beats the two-product tf32 kernel at both of OPT-125m's
+    projections at M 8, 384 and 96 blocks: 0.0126 and 0.0169 ms against
+    0.0208 and 0.0221; PERF.md)."""
+    if (M <= _MV_ROWS and 2 * 4 * M * d_in <= _MV_SMEM
+            and (dtype == torch.float32
+                 or n * math.ceil(d_out / _MV_OUTS) >= 2 * sms)):
         return "fma", 1, max(d_in, 1)
-    return ("tc",) + mm_q_tc_split(M, n, d_in, d_out, sms)
+    return ("tc",) + mm_q_tc_split(M, n, d_in, d_out, sms, dtype)
 
 
 def ff_q_plan(M: int, n: int, d_in: int, d_ff: int, d_out: int, sms: int,
@@ -675,7 +695,8 @@ def dyad_mm_blocks_q(x1, x2, w1, w2, s1, s2):
     ``x2`` is the stride-n view), fp32 or bf16; w1, w2: (n, d_out, d_in)
     int8 or fp8 payloads; s1, s2: (n, d_out) fp32 scales.  Returns (M, n,
     d_out) in x's dtype.  :func:`mm_q_plan` picks the kernel: the tensor
-    cores for bf16 x (but for some decode rows), FMA for fp32."""
+    cores (bf16 products for bf16 x, two tf32 products a pair for fp32),
+    but FMA for some decode rows."""
     for q, s in ((w1, s1), (w2, s2)):
         _check_payload("dyad_mm_blocks_q", q, s)
     if x1.device.type == "cpu":

@@ -203,15 +203,23 @@ def test_ff_q_plan_picks_the_kernel(M, dtype, d_in, want):
     (128, 4, 256, 768, "bfloat16", "tc"), (8, 4, 256, 768, "bfloat16", "fma"),
     (1024, 4, 256, 768, "bfloat16", "tc"), (77, 3, 129, 67, "bfloat16", "tc"),
     (5, 2, 70, 131, "bfloat16", "tc"), (8, 4, 192, 768, "float32", "fma"),
-    (1024, 4, 768, 192, "float32", "fma")])
+    (1024, 4, 768, 192, "float32", "tc"), (1024, 4, 192, 768, "float32", "tc"),
+    (8, 4, 768, 192, "float32", "fma"), (128, 4, 768, 256, "float32", "tc"),
+    (77, 3, 129, 67, "float32", "tc"), (5, 2, 70, 131, "float32", "fma"),
+    (9, 4, 768, 192, "float32", "tc"), (8, 2, 3300, 70, "float32", "tc"),
+    (4, 2, 3300, 70, "float32", "fma"), (8, 4, 3300, 768, "bfloat16", "tc")])
 def test_mm_q_plan_picks_the_kernel(M, n, d_in, d_out, dtype, want):
-    """The quantized GEMMs: bf16 x takes the tensor cores, its k split
-    into ranges of whole 64-deep stages covering d_in, as many as keep its
-    128 x 128 tiles per (component, block) within one wave of an H100's 132
-    SMs (Qwen3's split-route down at M 128: 16 tiles, 6 ranges of 128);
-    but decode rows (M <= 8) whose FMA decode kernel has two waves of
-    blocks (8 outputs a block: Qwen3's up and gate, 384) stay on it; fp32
-    x takes the FMA kernels, unsplit."""
+    """The quantized GEMMs take the tensor cores, k split into ranges of
+    whole stages (64 k for bf16 x, 32 for fp32) covering d_in, as many as
+    keep the 128 x 128 tiles per (component, block) within one wave of an
+    H100's 132 SMs (Qwen3's split-route down at M 128: 16 tiles, 6 ranges
+    of 128 for bf16 x, 8 of 96 for fp32); but decode rows (M <= 8) stay
+    on the FMA decode kernel, unsplit, where it wins on an H100: bf16 x
+    where it has two waves of blocks (8 outputs a block: Qwen3's up and
+    gate, 384), fp32 x always (OPT-125m's up and down, 384 and 96
+    blocks); fp32 x at M 9 takes the tensor cores, and so do decode rows
+    whose two x views, as fp32, pass the decode kernel's 200 KB of shared
+    memory (8 rows of 3300)."""
     sms = 132
     kernel, split, krows = dyad_mm.mm_q_plan(M, n, d_in, d_out, sms,
                                              TDT[dtype])
@@ -219,11 +227,14 @@ def test_mm_q_plan_picks_the_kernel(M, n, d_in, d_out, dtype, want):
     if want == "fma":
         assert split == 1 and krows >= d_in
         return
+    depth = 64 if dtype == "bfloat16" else 32
     tiles = 2 * n * math.ceil(M / 128) * math.ceil(d_out / 128)
-    assert krows % 64 == 0 and (split - 1) * krows < d_in <= split * krows
+    assert krows % depth == 0 and (split - 1) * krows < d_in <= split * krows
     assert split == 1 or tiles * split <= sms
+    assert (split, krows) == dyad_mm.mm_q_tc_split(M, n, d_in, d_out, sms,
+                                                   TDT[dtype])
     if (M, d_in, d_out) == (128, 768, 256):
-        assert (split, krows) == (6, 128)
+        assert (split, krows) == ((6, 128) if depth == 64 else (8, 96))
 
 
 def test_ff_plan_keeps_the_route_and_its_edges(monkeypatch):

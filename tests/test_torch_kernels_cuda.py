@@ -9,12 +9,14 @@ CPU tensor takes the plain version and leaves the launch counter alone.
 
 Tolerance: 2e-5 (fp32) and 2e-2 (bf16) times max(|plain|, 1).  The fp32
 routes of ``flash_prefill``, ``flash_prefill_grads``, ``dyad_mm_dgrad_two``,
-``dyad_mm_dgrad``, ``dyad_mm_wgrad`` and of ``dyad_mm_blocks`` past the
-decode rows run on split TF32 (three
-tf32 products a pair): they are also held against their plain versions
-run in float64, at most F64_GATE times the plain fp32 versions' error, and
-on operands +-(1 + 2^-12), whose low bits one TF32 product drops, within
-SPLIT_REL of float64."""
+``dyad_mm_dgrad``, ``dyad_mm_wgrad``, ``dyad_mm_blocks_two`` and of
+``dyad_mm_blocks`` past the decode rows run on split TF32 (three tf32
+products a pair), and those of ``dyad_mm_blocks_q`` and
+``dyad_mm_blocks_two_q`` on the tensor cores with x split (two tf32
+products a pair, the payload exact in tf32): they are also held against
+their plain versions run in float64, at most F64_GATE times the plain fp32
+versions' error, and on operands +-(1 + 2^-12), whose low bits one TF32
+product drops, within SPLIT_REL of float64."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -308,8 +310,42 @@ def _tf32_case(kernel, shape, draw):
     dyad_mm_wgrad (M, n, d_in, d_out, "it" for x2 the stride-n view and z2
     = z1, or "ot" for x2 = x1 and z2 the stride-n z2bar; fp32 out) or
     flash_prefill_grads (B, S, T, K, G, h, window, q_off, k_off; causal),
+    dyad_mm_blocks_two (M, n, d_in, d_out, "ot" for x2 = x1 or "dt" for
+    the stride-n x2) or dyad_mm_blocks_q and dyad_mm_blocks_two_q (M, n,
+    d_in, d_out, payload, "it" or "ot" x2; on the tensor-core route),
     operands from ``draw`` (flash_prefill_grads' o and lse, which no
-    product reads, from the plain fp32 forward)."""
+    product reads, from the plain fp32 forward; the quantized GEMMs'
+    payloads and scales quantized from drawn weights, the payloads read as
+    they are: exact in tf32)."""
+    if kernel == "dyad_mm_blocks_two":
+        M, n, d_in, d_out, view = shape
+        x = draw(M, n * d_in)
+        x1 = x.reshape(M, n, d_in)
+        x2 = x1 if view == "ot" else x.reshape(M, d_in, n).transpose(1, 2)
+        ops = (x1, x2, draw(n, d_out, d_in), draw(n, d_out, d_in))
+        return (lambda: dyad_mm.dyad_mm_blocks_two(*ops),
+                lambda *t: dyad_mm.dyad_mm_blocks_two_plain(*t), ops,
+                (True,) * 4)
+    if kernel in ("dyad_mm_blocks_q", "dyad_mm_blocks_two_q"):
+        from repro_torch import quant
+
+        M, n, d_in, d_out, qdtype, view = shape
+        x = draw(M, n * d_in)
+        x1 = x.reshape(M, n, d_in)
+        x2 = x1 if view == "ot" else x.reshape(M, d_in, n).transpose(1, 2)
+        (q1, s1), (q2, s2) = (quant.quantize_dyad_weight(
+            draw(n, d_out, d_in), qdtype) for _ in range(2))
+        assert dyad_mm.mm_q_plan(M, n, d_in, d_out,
+                                 dyad_mm.sm_count(x.device),
+                                 torch.float32)[0] == "tc"
+        ops = (x1, x2, q1, q2, s1, s2)
+        read = (True, True, False, False, False, False)
+        if kernel == "dyad_mm_blocks_q":
+            return (lambda: (dyad_mm.dyad_mm_blocks_q(*ops),),
+                    lambda *t: (dyad_mm.dyad_mm_blocks_q_plain(*t),), ops,
+                    read)
+        return (lambda: dyad_mm.dyad_mm_blocks_two_q(*ops),
+                lambda *t: dyad_mm.dyad_mm_blocks_two_q_plain(*t), ops, read)
     if kernel == "dyad_mm_blocks":
         M, n, d_in, d_out, var = shape
         ops = (draw(M, n * d_in), draw(n, d_out, d_in), draw(n, d_out, d_in))
@@ -400,6 +436,26 @@ SPLIT_CASES = [
     ("flash_prefill_grads", (2, 150, 150, 2, 2, 80, 40, 0, 0)),
     ("flash_prefill_grads", (3, 40, 100, 2, 2, 64, None, [60, 10, 0],
                              [0, 5, 20])),
+    # OPT-125m's OT and DT forward at the training rows, up and down (x2 =
+    # x1 copied, and the stride-n x2 gathered), and a ragged shape
+    ("dyad_mm_blocks_two", (4096, 4, 192, 768, "ot")),
+    ("dyad_mm_blocks_two", (4096, 4, 768, 192, "ot")),
+    ("dyad_mm_blocks_two", (4096, 4, 192, 768, "dt")),
+    ("dyad_mm_blocks_two", (4096, 4, 768, 192, "dt")),
+    ("dyad_mm_blocks_two", (77, 3, 65, 130, "dt")),
+    ("dyad_mm_blocks_two", (77, 4, 65, 130, "dt")),
+    # the quantized GEMMs on fp32 x at OPT-125m's quantized prefill rows,
+    # up and down over int8 and fp8 payloads, and a ragged shape
+    ("dyad_mm_blocks_q", (1024, 4, 192, 768, "int8", "it")),
+    ("dyad_mm_blocks_q", (1024, 4, 768, 192, "int8", "it")),
+    ("dyad_mm_blocks_q", (1024, 4, 192, 768, "fp8", "it")),
+    ("dyad_mm_blocks_q", (1024, 4, 768, 192, "fp8", "ot")),
+    ("dyad_mm_blocks_q", (77, 3, 65, 130, "int8", "it")),
+    ("dyad_mm_blocks_two_q", (1024, 4, 192, 768, "int8", "ot")),
+    ("dyad_mm_blocks_two_q", (1024, 4, 768, 192, "int8", "it")),
+    ("dyad_mm_blocks_two_q", (1024, 4, 192, 768, "fp8", "it")),
+    ("dyad_mm_blocks_two_q", (1024, 4, 768, 192, "fp8", "ot")),
+    ("dyad_mm_blocks_two_q", (77, 3, 65, 130, "fp8", "it")),
 ]
 
 
@@ -423,6 +479,25 @@ def _tf32(t):
     """t rounded to TF32 as cvt.rna.tf32.f32 rounds it."""
     i = t.float().contiguous().view(torch.int32)
     return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+def test_every_payload_value_is_a_tf32_value(qdtype):
+    """The premise of the fp32-x quantized GEMMs' two-product scheme: every
+    int8 value and every finite e4m3 value equals its TF32 rounding, so
+    the payload converted to fp32 is wgmma's tf32 operand as it is and
+    needs no low term.  For int8 also the kernel's conversion, byte ^ 0x80
+    as the low byte of 2^23's mantissa less 2^23 + 128, gives the value."""
+    b = torch.arange(256, dtype=torch.int32)
+    if qdtype == "int8":
+        v = b.to(torch.uint8).view(torch.int8).float()
+        magic = (b ^ 0x80) | 0x4B000000
+        assert torch.equal(magic.view(torch.float32) - 8388736.0, v)
+    else:
+        v = b.to(torch.uint8).view(torch.float8_e4m3fn).float()
+        v = v[torch.isfinite(v)]
+        assert v.numel() == 254
+    assert torch.equal(_tf32(v), v)
 
 
 @pytest.mark.gpu
@@ -462,6 +537,9 @@ def test_split_tf32_gives_the_same_bits_every_run(cuda, kernel, shape):
         "dyad_mm_dgrad": (9, 2, 40, 24),
         "dyad_mm_wgrad": (9, 2, 40, 24, "ot"),
         "flash_prefill_grads": (1, 70, 70, 1, 1, 64, None, 0, 0),
+        "dyad_mm_blocks_two": (9, 2, 40, 24, "dt"),
+        "dyad_mm_blocks_q": (9, 2, 40, 24, "int8", "ot"),
+        "dyad_mm_blocks_two_q": (9, 2, 40, 24, "fp8", "it"),
     }.get(kernel, (1, 70, 1, 1, 64, None, True)), draw)[0]
     first = call()
     for _ in range(4):
@@ -1045,7 +1123,9 @@ TWO_SHAPES = [
     # (M, n, d_in, d_out): Qwen3-0.6B's split-route down projection at the
     # training rows, OPT-125m's OT/DT up and down, then ragged
     (4096, 4, 768, 256), (4096, 4, 192, 768), (8, 4, 768, 192),
-    (129, 2, 13, 130), (7, 3, 5, 3)]
+    (129, 2, 13, 130), (7, 3, 5, 3),
+    # n 4 off the tiles (fp32: the four blocks' cluster writes z2)
+    (200, 4, 136, 72), (77, 4, 65, 130)]
 
 
 @pytest.mark.gpu
@@ -1609,10 +1689,11 @@ def test_cpu_quant_tensors_take_the_plain_versions():
 # (M, n, d_in_b, d_out_b): OPT-125m's up and down at decode and prefill
 # rows, Qwen3-0.6B's up, then ragged edges (odd rows, dims off the tile
 # and off a multiple of 4), then Qwen3's split-route down at decode and
-# prefill-chunk rows and its up at prefill-chunk rows
+# prefill-chunk rows and its up at prefill-chunk rows, then decode rows
+# too wide for the decode kernel's shared memory
 Q_MM_SHAPES = [(8, 4, 192, 768), (1024, 4, 768, 192), (8, 4, 256, 768),
                (77, 3, 129, 67), (5, 2, 70, 131), (8, 4, 768, 256),
-               (128, 4, 768, 256), (128, 4, 256, 768)]
+               (128, 4, 768, 256), (128, 4, 256, 768), (8, 2, 3300, 70)]
 
 
 @pytest.mark.gpu
@@ -1621,11 +1702,14 @@ Q_MM_SHAPES = [(8, 4, 192, 768), (1024, 4, 768, 192), (8, 4, 256, 768),
 @pytest.mark.parametrize("M,n,d_in,d_out", Q_MM_SHAPES)
 def test_dyad_mm_q_kernels_match_plain(cuda, M, n, d_in, d_out, qdtype,
                                        dtype):
-    # bf16 takes the tensor cores but at decode rows whose FMA decode
-    # kernel fills two waves (Qwen3's and OPT's up at M 8); fp32 takes FMA
+    # both dtypes take the tensor cores but at decode rows whose x views
+    # fit the decode kernel's shared memory: fp32 x always stays on the
+    # FMA decode kernel there, bf16 x where that kernel fills two waves
+    # (Qwen3's and OPT's up at M 8)
     sms = dyad_mm.sm_count(cuda)
     kernel = dyad_mm.mm_q_plan(M, n, d_in, d_out, sms, dtype)[0]
-    fma = dtype == torch.float32 or (M <= 8 and n * -(-d_out // 8) >= 2 * sms)
+    fma = M <= 8 and 8 * M * d_in <= 200 * 1024 and (
+        dtype == torch.float32 or n * -(-d_out // 8) >= 2 * sms)
     assert kernel == ("fma" if fma else "tc")
     for view in ("it", "ot"):
         args = _mm_q_case(cuda, M, n, d_in, d_out, dtype, qdtype, view)
@@ -1674,18 +1758,21 @@ def _pow2_scales(n, rows, c, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("qdtype", PAYLOADS)
-@pytest.mark.parametrize("M,n,d_in,d_out", [(8, 4, 768, 256),
-                                            (128, 4, 768, 256),
-                                            (128, 4, 256, 768)])
+@pytest.mark.parametrize("M,n,d_in,d_out,dtype", [
+    (8, 4, 768, 256, torch.bfloat16), (128, 4, 768, 256, torch.bfloat16),
+    (128, 4, 256, 768, torch.bfloat16), (128, 4, 768, 256, torch.float32),
+    (1024, 4, 192, 768, torch.float32), (1024, 4, 768, 192, torch.float32)])
 def test_dyad_mm_q_bf16_exact_payloads_match_bitwise(cuda, M, n, d_in,
-                                                     d_out, qdtype):
+                                                     d_out, dtype, qdtype):
     """Payloads covering every int8 or finite e4m3 value, power-of-two
-    scales and x in [-2, 2]: each component's sum stays below 2^24 of its
-    row's quantum (int8 768 x 2 x 128; fp8 one binade a row, 768 x 2 x 16)
-    and the scales within 8x, so the tensor-core route (its k split and
-    second pass included) gives the plain version's bits."""
+    scales and x in [-2, 2] (bf16 x, or fp32 x, whose tf32 hi is x and lo
+    0): each component's sum stays below 2^24 of its row's quantum (int8
+    768 x 2 x 128; fp8 one binade a row, 768 x 2 x 16) and the scales
+    within 8x, so the tensor-core route (its k split and second pass
+    included) gives the plain version's bits, at Qwen3's split-route
+    shapes and OPT-125m's quantized prefill rows."""
     gen = torch.Generator(device=cuda).manual_seed(M + d_in)
-    x = _randint(gen, M, n * d_in, device=cuda)
+    x = _randint(gen, M, n * d_in, device=cuda, dtype=dtype)
     x1 = x.reshape(M, n, d_in)
     q1 = _exact_payload((n, d_out, d_in), qdtype, cuda)[0]
     q2 = (_exact_payload((n, d_out, d_in), qdtype, cuda, 5)[0]
@@ -1693,7 +1780,7 @@ def test_dyad_mm_q_bf16_exact_payloads_match_bitwise(cuda, M, n, d_in,
           .contiguous().view(torch.float8_e4m3fn))
     s1, s2 = (_pow2_scales(n, d_out, c, cuda) for c in (0, 1))
     assert dyad_mm.mm_q_plan(M, n, d_in, d_out, dyad_mm.sm_count(cuda),
-                             torch.bfloat16)[0] == "tc"
+                             dtype)[0] == "tc"
     for x2 in (x.reshape(M, d_in, n).transpose(1, 2), x1):
         args = (x1, x2, q1, q2, s1, s2)
         assert torch.equal(dyad_mm.dyad_mm_blocks_q(*args),

@@ -45,11 +45,18 @@ measurement, its first key the label.  The sets:
   down dx at M 4096, of ``dyad_mm_wgrad`` (fp32, the IT views) for its up +
   down weight cotangents (``dyad_mm_wgrad@train``) and of ``dyad_mm_dgrad``
   (fp32, the OT cotangent views, z2 the stride-n z2bar) for its OT up +
-  down dx (``dyad_mm_dgrad@opt_ot``); ``chip_smoke.timer`` (CUDA events,
-  the L2 flushed before each run, median of 25);
+  down dx (``dyad_mm_dgrad@opt_ot``); ms of ``dyad_mm_blocks_two`` (fp32)
+  for its OT forward, up + down at M 4096 (x2 = x1;
+  ``dyad_mm_blocks_two``) and its DT forward (the stride-n x2;
+  ``dyad_mm_blocks_two@opt_dt``); ms of ``dyad_mm_blocks_q`` (fp32 x over
+  int8 payloads, the IT views: the quantized OPT-125m generate) for one
+  layer's up + down at M 1024 and at M 8 (``dyad_mm_blocks_q@M8``);
+  ``chip_smoke.timer`` (CUDA events, the L2 flushed before each run,
+  median of 25);
 * ``step``: the OPT-125m train step (fp32, B 8 x S 512 of ``SyntheticLM``)
-  with ``dyad_it_4_kernel``, ``dyad_ot_4_kernel`` and ``dense``: 2 warm-up
-  steps, then ``--steps`` timed, the median and every step in ms.
+  with ``dyad_it_4_kernel``, ``dyad_ot_4_kernel``, ``dyad_dt_4_kernel``
+  and ``dense``: 2 warm-up steps, then ``--steps`` timed, the median and
+  every step in ms.
 
 ``relu_ties`` (the CPU alone): the ReLU units that ``chip_smoke.py``
 phase 8's OPT-125m step (2 layers, ``dyad_it_4_kernel``, B 2 x S 256, on
@@ -217,10 +224,34 @@ def _fp32(torch, cs, args) -> None:
         dgrad += time_ms(lambda: dyad_mm.dyad_mm_dgrad(z1, z2, w1, w2))
     out["dyad_mm_wgrad@train"] = wgrad
     out["dyad_mm_dgrad@opt_ot"] = dgrad
+    for name, view in (("dyad_mm_blocks_two", "ot"),
+                       ("dyad_mm_blocks_two@opt_dt", "dt")):
+        total = 0.0
+        for d_in, d_out in ((d, ff), (ff, d)):
+            x = randn(4096, n * d_in)
+            x1 = x.reshape(4096, n, d_in)
+            x2 = x1 if view == "ot" else x.reshape(4096, d_in, n).transpose(
+                1, 2)
+            w1, w2 = randn(n, d_out, d_in), randn(n, d_out, d_in)
+            total += time_ms(lambda: dyad_mm.dyad_mm_blocks_two(x1, x2, w1,
+                                                                w2))
+        out[name] = total
+    for name, M in (("dyad_mm_blocks_q", 1024), ("dyad_mm_blocks_q@M8", 8)):
+        total = 0.0
+        for d_in, d_out in ((d, ff), (ff, d)):
+            x = randn(M, n * d_in)
+            x1, x2 = x.reshape(M, n, d_in), x.reshape(M, d_in, n).transpose(
+                1, 2)
+            (q1, s1), (q2, s2) = (cs._qweight(randn, (n, d_out, d_in), "int8")
+                                  for _ in range(2))
+            total += time_ms(lambda: dyad_mm.dyad_mm_blocks_q(
+                x1, x2, q1, q2, s1, s2))
+        out[name] = total
     _emit(label, "kernel", **{k: round(v, 4) for k, v in out.items()},
           device=torch.cuda.get_device_name(0))
 
-    for lin in ("dyad_it_4_kernel", "dyad_ot_4_kernel", "dense"):
+    for lin in ("dyad_it_4_kernel", "dyad_ot_4_kernel", "dyad_dt_4_kernel",
+                "dense"):
         _, trainer = build_trainer(
             "opt125m", linear=lin, steps=100, seq_len=512, batch=8,
             seed=args.seed, device=dev, log_fn=lambda *a: None)

@@ -216,7 +216,30 @@ exit and no result line):
    greedy tokens against the CPU port's, int8 and fp8 weights, fused and
    split: exactly equal; (e) ``REPRO_KERNEL_QUANT=off`` at 2 layers in
    fp32: exactly the unquantized run's tokens and launches;
-14. the ``kernels`` JSON line (every record of phase 4), then the result
+14. spans, route events and seeded faults (``repro_torch.obs``,
+   ``repro_torch.faults``): (a) the train launcher on OPT-125m at full
+   width and depth (fp32, ``dyad_it_4_kernel``, B 8 x S 512, OBS_TRAIN's
+   12 steps) with ``--trace``, ``--metrics-json`` and ``--ckpt-dir`` in a
+   temporary directory, under ``nan_loss`` at one step, ``slow_step`` at
+   another sleeping 4x phase 7's median step, and ``ckpt_io:p=0.3``: one
+   ``train_step`` span a step, one ``nonfinite_step`` instant at the armed
+   step and the checkpointed params finite, exactly one ``straggler``
+   instant, a ``ckpt_retry`` instant per ``ckpt_io`` fire, the route
+   events a step printed; (b) phase 12's continuous engine, requests and
+   weights under OBS_SERVE_FAULTS, traced: every request drains with
+   ``demoted == []``, the trace's ``decode_step`` spans, ``nan_detected``,
+   ``admit_backoff`` and ``slow_step_fault`` events match the engine's
+   counts and the fault tallies, and the tokens match phase 12's
+   unfaulted run by the bf16 tie rule; at 2 layers in fp32 the tokens
+   equal the unfaulted run's exactly and the card's tallies the CPU
+   port's; (c) ``kernel_nan:route=ff_fused`` at 2 layers: the first
+   request retires ``FAULTED``, the ``ff`` rung demotes this engine, the
+   next requests finish clean; (d) the OPT-125m IT step and Qwen3-0.6B's
+   batch decode tok/s with the tracer off and on, in turns, the route
+   events of one step and one decode step, and the ``train_step`` and
+   ``decode_step`` span medians beside the profiled device-busy ms of a
+   step (phases 7 and 12); then the whole run's seconds;
+15. the ``kernels`` JSON line (every record of phase 4), then the result
    line.
 
 Imports neither JAX nor the JAX package.
@@ -224,14 +247,17 @@ Imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -313,6 +339,17 @@ CONT = {"slots": 8, "max_len": 512, "page_size": 16, "chunk": 128,
 CONT_EXACT = {"layers": 2, "slots": 4, "max_len": 128, "page_size": 16,
               "chunk": 32, "requests": 12, "prefix": 32, "tail": (8, 40),
               "max_new": (16, 48), "cut_pages": 1 + 12, "ff_scale": 4.0}
+# phase 14's train launcher run: OPT-125m at B 8 x S 512 for ``steps``
+# steps, a checkpoint every ``ckpt_every``; the NaN strike at the trainer's
+# check ``nan_at``; the straggler at ``slow_at``, past the 8 steps the
+# watchdog needs before it judges one, sleeping 4x the IT step's median;
+# ckpt_io's stream under ``fault_seed`` fires at the first of the 3 saves
+OBS_TRAIN = {"steps": 12, "ckpt_every": 6, "nan_at": 3, "slow_at": 9,
+             "slow_x": 4.0, "fault_seed": 2}
+OBS_SERVE_FAULTS = "page_exhaustion:p=0.05;nan_logits:at_step=3;slow_step:ms=5"
+# phase 14d: tracer off and on in turns, ``turns`` of each, ``steps``
+# train steps a turn
+OBS_COST = {"turns": 3, "steps": 5}
 # int8 pools on the card against the CPU port, at 2 layers in fp32
 CONT_PARITY = {"layers": 2, "slots": 4, "max_len": 128, "page_size": 16,
                "chunk": 32, "requests": 4, "prefix": 32, "tail": (8, 40),
@@ -2284,6 +2321,7 @@ def main() -> int:
 
     import torch
 
+    t_run = time.perf_counter()
     # -- 1. the device -------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3307,7 +3345,12 @@ def main() -> int:
     if qcont is None:
         return 1
 
-    # -- 14. the kernels line ------------------------------------------------
+    # -- 14. spans, route events and seeded faults ----------------------------
+    if not run.observe():
+        return 1
+    log("run", seconds=f"{time.perf_counter() - t_run:.1f}")
+
+    # -- 15. the kernels line ------------------------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
     files = {"dyad_mm_blocks": ("dyad_mm.cu", "dyad_mm.py:286"),
              "flash_prefill": ("flash_prefill.cu", "flash_attn.py:288"),
@@ -3425,6 +3468,10 @@ class _Run:
         self.torch, self.dev, self.seed = torch, dev, seed
         self.wrappers = wrappers
         self.cpu = torch.device("cpu")
+        # read by phase 14: the timed steps' medians by (arch, linear), the
+        # profiled device-busy ms by phase, the continuous path's tokens
+        self.step_ms, self.busy_ms = {}, {}
+        self.cont_tokens = None
 
     def zero_counts(self):
         for w in self.wrappers.values():
@@ -3615,6 +3662,7 @@ class _Run:
             data_s = statistics.median(
                 trainer.metrics.histogram("data_time_s").samples[-nt:])
             step_s[lin] = statistics.median(times)
+            self.step_ms[(arch, lin)] = step_s[lin] * 1e3
             loss_vals = [float(v) for v in losses]
             finite = all(math.isfinite(v) for v in loss_vals)
             # dense: the flash kernels only, once per layer forward (twice
@@ -3651,6 +3699,8 @@ class _Run:
                     prof, step_s[lin] * 1e3,
                     phase + ("_profile" if lin == spec else
                              "_dense_profile"))
+                self.busy_ms[(arch, lin)] = sum(
+                    ms for ms, _ in per_kernel.values())
                 if (lin == spec and profile_check
                         and not profile_check(per_kernel, n_layers)):
                     return None
@@ -3864,6 +3914,10 @@ class _Run:
         if got is None:
             return None
         paged = got[0]
+        self.cont_tokens = paged["tokens"]
+        a, b = CONT["profile_steps"]
+        self.busy_ms["continuous_step"] = sum(
+            ms for ms, _ in got[2].values()) / (b - a)
 
         got = self._profiled("continuous_dense", cfg, params, prompts,
                              max_new, dict(kw, env={"REPRO_PAGED_KV": "off"}),
@@ -3905,18 +3959,8 @@ class _Run:
         tokens must equal the unpressured run's exactly, as the
         reference's contract says; the dense rings against the paged run
         by the tie rule at the fp32 bound."""
-        from repro_torch import configs
-        from repro_torch.models import model
-
-        torch, dev, ce = self.torch, self.dev, CONT_EXACT
-        cfg = configs.get("qwen3_0_6b", linear=configs.linear_cfg(QWEN_FF),
-                          n_layers=ce["layers"], compute_dtype="float32")
-        params = _scale_ff(model.init_params(
-            cfg, torch.Generator(device=dev).manual_seed(self.seed), dev),
-            ce["ff_scale"])
-        prompts, max_new = _trace(cfg.vocab_size, self.seed + 2, ce)
-        kw = dict(n_slots=ce["slots"], max_len=ce["max_len"],
-                  page_size=ce["page_size"], prefill_chunk=ce["chunk"])
+        ce = CONT_EXACT
+        cfg, params, prompts, max_new, kw = self._exact_setup()
         paged = self._serve_trace(cfg, params, prompts, max_new, **kw)
         cut = self._serve_trace(cfg, params, prompts, max_new,
                                 **dict(kw, n_pages=ce["cut_pages"]))
@@ -4097,6 +4141,317 @@ class _Run:
             rule="exact", ok=ok)
         return ok
 
+    # -- 14. spans, route events and seeded faults --------------------------
+    def observe(self):
+        """Phase 14 (the module docstring); True when every check passed.
+        The tracer and the fault schedule are off again afterwards."""
+        from repro_torch import faults, obs
+
+        t0 = time.perf_counter()
+        try:
+            ok = (self.obs_train() and self.obs_continuous()
+                  and self.obs_kernel_nan() and self.obs_cost())
+        finally:
+            obs.disable()
+            faults.reset()
+        log("observe", seconds=f"{time.perf_counter() - t0:.1f}", ok=ok)
+        return ok
+
+    def obs_train(self):
+        """14a: the train launcher under faults, its trace and metrics."""
+        import numpy as np
+
+        from repro_torch import faults, obs
+        from repro_torch.launch import train as train_launch
+
+        ot = OBS_TRAIN
+        slow_ms = round(ot["slow_x"]
+                        * self.step_ms[("opt125m", "dyad_it_4_kernel")])
+        spec = (f"nan_loss:at_step={ot['nan_at']};slow_step:at_step="
+                f"{ot['slow_at']},ms={slow_ms};ckpt_io:p=0.3")
+        handlers = {s: signal.getsignal(s)
+                    for s in (signal.SIGTERM, signal.SIGINT)}
+        with tempfile.TemporaryDirectory() as d:
+            trace, mj, ck = (os.path.join(d, n) for n in
+                             ("train.json", "metrics.json", "ck"))
+            obs.reset_route_counts()
+            t = time.perf_counter()
+            try:
+                train_launch.main([
+                    "--arch", "opt125m", "--linear", "dyad_it_4_kernel",
+                    "--steps", str(ot["steps"]), "--seq-len",
+                    str(TRAIN["S"]), "--batch", str(TRAIN["B"]),
+                    "--ckpt-dir", ck, "--ckpt-every", str(ot["ckpt_every"]),
+                    "--faults", spec, "--fault-seed", str(ot["fault_seed"]),
+                    "--trace", trace, "--metrics-json", mj,
+                    "--seed", str(self.seed), "--device", str(self.dev)])
+            finally:
+                obs.disable()
+                faults.reset()
+                for sig, h in handlers.items():
+                    signal.signal(sig, h)
+            wall = time.perf_counter() - t
+            routes = obs.routes_snapshot()
+            events = json.load(open(trace))["traceEvents"]
+            metrics = json.load(open(mj))
+            final = os.path.join(ck, f"ckpt_{ot['steps']}", "arrays.npz")
+            with np.load(final) as z:
+                finite = all(bool(np.isfinite(z[k]).all()) for k in z.files
+                             if k.startswith("params/"))
+        names = collections.Counter(e["name"] for e in events)
+        at = {n: [e["args"]["step"] for e in events if e["name"] == n]
+              for n in ("nonfinite_step", "straggler")}
+        tallies = metrics["faults"]
+        c = metrics["counters"]
+        n_routes = sum(routes.values())
+        checks = {
+            "train_step_spans": names["train_step"] == ot["steps"],
+            "nonfinite_step": at["nonfinite_step"] == [ot["nan_at"] + 1],
+            "straggler": at["straggler"] == [ot["slow_at"]],
+            "ckpt_retry": (names["ckpt_retry"]
+                           == tallies["ckpt_io"]["fired"] >= 1),
+            "params_finite": finite,
+            "counters": (c.get("nonfinite_steps") == 1
+                         and c.get("straggler_count") == 1),
+            "routes_per_step": n_routes % ot["steps"] == 0}
+        log("observe_train", arch="opt-125m", linear="dyad_it_4_kernel",
+            steps=ot["steps"], faults=repr(spec),
+            fault_seed=ot["fault_seed"], wall_s=f"{wall:.2f}",
+            tallies=json.dumps(tallies, separators=(",", ":")),
+            spans=json.dumps({k: names[k] for k in (
+                "train_step", "checkpoint", "slow_step_fault")},
+                separators=(",", ":")),
+            instants=json.dumps({k: names[k] for k in (
+                "nonfinite_step", "straggler", "ckpt_retry", "fault")},
+                separators=(",", ":")),
+            nonfinite_at=at["nonfinite_step"], straggler_at=at["straggler"],
+            route_events_per_step=n_routes / ot["steps"],
+            routes=json.dumps(routes, separators=(",", ":")),
+            **checks)
+        return all(checks.values())
+
+    def obs_continuous(self):
+        """14b: phase 12's continuous run under OBS_SERVE_FAULTS, traced,
+        against phase 12's tokens; then at 2 layers in fp32 against the
+        unfaulted run exactly and the CPU port's tallies."""
+        from repro_torch import faults, obs
+
+        cfg, params, prompts, max_new, kw = self._cont_setup()
+        faults.configure(OBS_SERVE_FAULTS, seed=self.seed)
+        obs.enable()
+        try:
+            r = self._serve_trace(cfg, params, prompts, max_new, **kw)
+        finally:
+            tracer = obs.disable()
+            faults.reset()
+        events = tracer.to_chrome_trace()["traceEvents"]
+        names = collections.Counter(e["name"] for e in events)
+        decode = sorted(e["dur"] / 1e3 for e in events
+                        if e["name"] == "decode_step")
+        tallies = r["summary"]["faults"]
+        c = r["summary"]["counters"]
+        checks = {
+            "drained": [len(t) for t in r["tokens"]] == max_new,
+            "pages_balance": r["free_pages_ok"],
+            "not_demoted": r["demoted"] == [],
+            "decode_step_spans": names["decode_step"] == r["steps"],
+            "nan_detected": (names["nan_detected"] == c.get("nan_steps")
+                             == tallies["nan_logits"]["fired"] == 1),
+            "admit_backoff": (names["admit_backoff"]
+                              == c.get("admission_backoffs", 0)
+                              == tallies["page_exhaustion"]["fired"] >= 1),
+            "slow_step": (names["slow_step_fault"]
+                          == tallies["slow_step"]["fired"]
+                          == tallies["slow_step"]["checks"])}
+        self.obs_decode_ms = statistics.median(decode)
+        log("observe_continuous", arch=cfg.name, layers=cfg.n_layers,
+            faults=repr(OBS_SERVE_FAULTS), requests=len(prompts),
+            wall_s=f"{r['wall_s']:.3f}", decode_steps=r["steps"],
+            tallies=json.dumps(tallies, separators=(",", ":")),
+            trace_events=len(events),
+            decode_step_span_ms_p50=f"{self.obs_decode_ms:.3f}",
+            **checks)
+        ok = all(checks.values()) and self._same_tokens(
+            "faulted_vs_paged", cfg, params, prompts, r["tokens"],
+            self.cont_tokens, LOGIT_TOL_BF16)
+        del params
+        self.torch.cuda.empty_cache()
+        return ok and self._obs_exact()
+
+    def _exact_setup(self):
+        """(cfg, params, prompts, max_new, kw) of CONT_EXACT: Qwen3 at
+        full width and 2 layers in fp32, as ``continuous_exact``."""
+        from repro_torch import configs
+        from repro_torch.models import model
+
+        ce = CONT_EXACT
+        cfg = configs.get("qwen3_0_6b", linear=configs.linear_cfg(QWEN_FF),
+                          n_layers=ce["layers"], compute_dtype="float32")
+        params = _scale_ff(model.init_params(
+            cfg, self.torch.Generator(device=self.dev).manual_seed(
+                self.seed), self.dev), ce["ff_scale"])
+        prompts, max_new = _trace(cfg.vocab_size, self.seed + 2, ce)
+        kw = dict(n_slots=ce["slots"], max_len=ce["max_len"],
+                  page_size=ce["page_size"], prefill_chunk=ce["chunk"])
+        return cfg, params, prompts, max_new, kw
+
+    def _obs_exact(self):
+        from repro_torch import faults
+
+        cfg, params, prompts, max_new, kw = self._exact_setup()
+        clean = self._serve_trace(cfg, params, prompts, max_new, **kw)
+        runs = {}
+        for name, p, dev in (("card", params, None),
+                             ("cpu", _tree_to(params, self.cpu), self.cpu)):
+            faults.configure(OBS_SERVE_FAULTS, seed=self.seed)
+            try:
+                runs[name] = self._serve_trace(cfg, p, prompts, max_new,
+                                               device=dev, **kw)
+            finally:
+                faults.reset()
+        card, host = runs["card"], runs["cpu"]
+        equal = sum(g == w for g, w in zip(card["tokens"], clean["tokens"]))
+        checks = {
+            "tokens_exact": equal == len(prompts),
+            "tallies_card_eq_cpu": (card["summary"]["faults"]
+                                    == host["summary"]["faults"]),
+            "not_demoted": card["demoted"] == host["demoted"] == [],
+            "drained": all([len(t) for t in r["tokens"]] == max_new
+                           for r in (card, host))}
+        log("observe_exact", arch=cfg.name, layers=cfg.n_layers,
+            dtype=cfg.compute_dtype, requests=len(prompts),
+            requests_equal=equal, tallies=json.dumps(
+                card["summary"]["faults"], separators=(",", ":")),
+            cpu_tallies=json.dumps(host["summary"]["faults"],
+                                   separators=(",", ":")), **checks)
+        return all(checks.values())
+
+    def obs_kernel_nan(self):
+        """14c: ``kernel_nan:route=ff_fused`` at 2 layers in fp32, on
+        dense rings."""
+        from repro_torch import faults, obs
+        from repro_torch.serve.engine import ContinuousBatchingEngine
+
+        cfg, params, prompts, _, kw = self._exact_setup()
+        faults.configure("kernel_nan:route=ff_fused", seed=self.seed)
+        obs.reset_route_counts()
+        try:
+            # dense rings, as the reference's test drives it: a paged pool
+            # would hand the faulted request's NaN rows to the next ones
+            # (ROADMAP C.11)
+            eng = ContinuousBatchingEngine(
+                cfg, params, n_slots=kw["n_slots"], max_len=kw["max_len"],
+                device=self.dev)
+            eng.submit(prompts[0], 8)
+            eng.run()
+            first = dict(eng.metrics_summary()["counters"])
+            demoted = list(eng.demoted)
+            uids = [eng.submit(p, 8) for p in prompts[1:4]]
+            res = eng.run()
+            tallies = faults.snapshot()
+        finally:
+            faults.reset()
+        c = eng.metrics_summary()["counters"]
+        routes = obs.routes_snapshot()
+        vocab = cfg.vocab_size
+        checks = {
+            "first_faulted": first.get("retired_faulted") == 1,
+            "ff_rung": demoted == ["quant", "ff"],
+            "env_untouched": os.environ.get("REPRO_KERNEL_FF") is None,
+            "next_clean": (all(len(res[u]) == 8 and all(0 <= t < vocab
+                                                         for t in res[u])
+                               for u in uids)
+                           and c.get("retired_max_new") == 3
+                           and c.get("retired_faulted") == 1),
+            "split_route": (routes.get("demote:ff") == 1
+                            and routes.get("ff:split", 0) > 0)}
+        log("observe_kernel_nan", arch=cfg.name, layers=cfg.n_layers,
+            route="ff_fused", demoted=demoted, tallies=json.dumps(
+                tallies, separators=(",", ":")),
+            routes=json.dumps(routes, separators=(",", ":")), **checks)
+        return all(checks.values())
+
+    def obs_cost(self):
+        """14d: the tracer off and on in turns: the OPT-125m IT step and
+        Qwen3's batch decode tok/s; route events per step and decode
+        step; span medians beside the profiled busy ms."""
+        from repro_torch import configs, obs
+        from repro_torch.launch.train import build_trainer
+        from repro_torch.models import model
+        from repro_torch.serve.engine import Engine
+
+        torch, oc = self.torch, OBS_COST
+        _, trainer = build_trainer(
+            "opt125m", linear="dyad_it_4_kernel", steps=100,
+            seq_len=TRAIN["S"], batch=TRAIN["B"], seed=self.seed,
+            device=self.dev, log_fn=lambda *a: None)
+        trainer.run(TRAIN["warmup"])
+        obs.reset_route_counts()
+        trainer.run(trainer.step + 1)
+        step_routes = obs.routes_snapshot()
+        times, spans = {"off": [], "on": []}, []
+        for mode in ("off", "on") * oc["turns"]:
+            if mode == "on":
+                obs.enable()
+            trainer.run(trainer.step + oc["steps"])
+            times[mode] += trainer.metrics.histogram(
+                "step_time_s").samples[-oc["steps"]:]
+            t = obs.disable()
+            if t is not None:
+                spans += [e["dur"] / 1e3 for e in t.to_chrome_trace()[
+                    "traceEvents"] if e["name"] == "train_step"]
+        del trainer
+        torch.cuda.empty_cache()
+        med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+        busy = self.busy_ms[("opt125m", "dyad_it_4_kernel")]
+        log("observe_cost", path="opt125m_it_train_step",
+            step_ms_off=f"{med['off']:.3f}", step_ms_on=f"{med['on']:.3f}",
+            on_over_off=f"{med['on'] / med['off']:.4f}",
+            step_ms_off_all=",".join(f"{v * 1e3:.3f}" for v in times["off"]),
+            step_ms_on_all=",".join(f"{v * 1e3:.3f}" for v in times["on"]),
+            train_step_span_ms_p50=f"{statistics.median(spans):.3f}",
+            profiled_busy_ms_per_step=f"{busy:.3f}",
+            route_events_per_step=sum(step_routes.values()),
+            routes=json.dumps(step_routes, separators=(",", ":")))
+
+        B, S, new = SMOKE["B"], SMOKE["S"], SMOKE["new"]
+        cfg = configs.get("qwen3_0_6b", linear=configs.linear_cfg(QWEN_FF))
+        gen = torch.Generator(device=self.dev).manual_seed(self.seed)
+        params = model.init_params(cfg, gen, self.dev)
+        prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                device=self.dev)
+        engine = Engine(cfg, params, max_len=S + new, device=self.dev)
+        engine.generate(prompts, new)                         # warm-up
+        per = []
+        for n in (1, 2):
+            obs.reset_route_counts()
+            engine.generate(prompts, n)
+            per.append(obs.route_counts())
+        decode_routes = {f"{op}:{r}": k - per[0].get((op, r), 0)
+                         for (op, r), k in sorted(per[1].items())}
+        rates = {"off": [], "on": []}
+        for mode in ("off", "on") * oc["turns"]:
+            if mode == "on":
+                obs.enable()
+            engine.generate(prompts, new)
+            obs.disable()
+            rates[mode].append(B * (new - 1) / engine.timings["decode_s"])
+        del engine, params
+        torch.cuda.empty_cache()
+        rmed = {k: statistics.median(v) for k, v in rates.items()}
+        log("observe_cost", path="qwen3_batch_decode",
+            decode_tok_s_off=f"{rmed['off']:.1f}",
+            decode_tok_s_on=f"{rmed['on']:.1f}",
+            on_over_off=f"{rmed['on'] / rmed['off']:.4f}",
+            decode_tok_s_off_all=",".join(f"{v:.1f}" for v in rates["off"]),
+            decode_tok_s_on_all=",".join(f"{v:.1f}" for v in rates["on"]),
+            route_events_per_decode_step=sum(decode_routes.values()),
+            routes=json.dumps(decode_routes, separators=(",", ":")),
+            continuous_decode_step_span_ms_p50=f"{self.obs_decode_ms:.3f}",
+            continuous_profiled_busy_ms_per_step=
+            f"{self.busy_ms['continuous_step']:.3f}")
+        return True
+
     def _serve_trace(self, cfg, params, prompts, max_new, env=None,
                      device=None, window=None, prof=None, **kw):
         """One run of the trace through ``ContinuousBatchingEngine``, with
@@ -4179,6 +4534,7 @@ class _Run:
                 "decode_s": steps.total, "summary": summary,
                 "paged": eng.paged, "layers": cfg.n_layers,
                 "stats": getattr(eng, "stats", {}), "device": device,
+                "demoted": list(eng.demoted),
                 "free_pages_ok": (not eng.paged or eng.pages.free_pages
                                   == eng.pages.n_pages - 1)}
 

@@ -10,8 +10,10 @@ to ``ckpt_<step>.tmp`` and are renamed into place, so a crash mid-save
 never corrupts the newest complete step.  Async saves snapshot the tree to
 host memory first, then serialize on a worker thread; a failed async save
 re-raises at the next ``wait()`` or ``save()``.  Writes retry with
-exponential backoff and raise :class:`repro_torch.errors.CheckpointIOError`
-after ``retries`` extra attempts.
+exponential backoff (transient I/O errors, and the ``ckpt_io`` fault site,
+which draws again on each attempt) and raise
+:class:`repro_torch.errors.CheckpointIOError` after ``retries`` extra
+attempts; each failed attempt marks a ``ckpt_retry`` instant in the trace.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import faults, obs
 from repro_torch import tree as tree_lib
 from repro_torch.checkpoint import bridge
 from repro_torch.errors import CheckpointIOError
@@ -66,7 +69,9 @@ class CheckpointManager:
             try:
                 self._write_once(step, host)
                 return
-            except OSError as e:
+            except (OSError, CheckpointIOError) as e:
+                obs.instant("ckpt_retry", cat="train", step=step,
+                            attempt=attempt, error=str(e))
                 if attempt == self.retries:
                     raise CheckpointIOError(
                         f"checkpoint step {step} failed after "
@@ -75,6 +80,11 @@ class CheckpointManager:
                 delay *= 2
 
     def _write_once(self, step: int, host: dict):
+        # the fault site sits inside the retry loop: each attempt draws
+        # again, so an injected transient clears as a real one would
+        if faults.active() and faults.fire("ckpt_io"):
+            raise CheckpointIOError(
+                f"checkpoint step {step} write failed (injected)")
         final = os.path.join(self.directory, f"ckpt_{step}")
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)

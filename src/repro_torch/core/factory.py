@@ -11,6 +11,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch import quant as quant_lib
 from repro_torch.core import dyad, linear
 
@@ -79,10 +80,15 @@ def init(generator: torch.Generator, f_in: int, f_out: int, cfg: LinearCfg,
 def apply(params: Params, x: torch.Tensor, cfg: LinearCfg, *,
           site: str = "ff") -> torch.Tensor:
     if "w1" in params:  # dyad params
-        if (cfg.quant and cfg.use_kernel and quant_lib.enabled()
-                and quant_lib.module_quantized(params)):
+        ready = False
+        if cfg.quant and cfg.use_kernel:
             # forward-only, over the sidecars; a tree without them (the
             # training params) keeps the fp route
+            ready = (quant_lib.module_quantized(params)
+                     and quant_lib.enabled())
+            obs.route_event("mm_quant", cfg.quant if ready else "fp_fallback",
+                            site=site)
+        if ready:
             from repro_torch.kernels import ops as kops
 
             y = kops.dyad_mm_quant(x, params["w1_q"], params["w2_q"],

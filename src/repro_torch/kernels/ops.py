@@ -54,6 +54,15 @@ Environment switches, with the reference's names and values:
   default there) and ``xla`` the plain torch lowering; forcing ``pallas``
   for CPU tensors raises.  There is no silent fallback: a kernel that
   fails to build or launch raises.
+
+Every routing decision is a route event (``repro_torch.obs``), with the
+reference's names: ``ff`` (``fused``/``split``), ``attn``
+(``flash``/``xla``), ``kernel_bwd`` (``pallas``, the CUDA backward
+kernels, or ``xla``, the plain lowering) and ``pallas_exec``, one per
+kernel dispatch: ``cuda`` for a CUDA kernel, ``plain`` for its plain
+version on CPU tensors (the reference's ``compiled``/``interpret``).  The
+port counts calls where JAX counts traces.  The ``kernel_nan`` fault site
+(routes ``ff_fused``, ``ff_split``) poisons the ff forward's output.
 """
 from __future__ import annotations
 
@@ -65,6 +74,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import faults, obs
 from repro_torch.kernels import flash_attn, ref
 from repro_torch.kernels.dyad_mm import (dyad_ff_fused, dyad_ff_fused_q,
                                          dyad_mm_blocks, dyad_mm_blocks_q,
@@ -82,10 +92,21 @@ def bwd_route(device: torch.device) -> str:
             raise RuntimeError(
                 f"REPRO_KERNEL_BWD=pallas forces the CUDA backward kernels, "
                 f"but the tensors are on {device}")
-        return "kernel"
-    if forced == "xla":
-        return "plain"
-    return "kernel" if device.type == "cuda" else "plain"
+        route = "kernel"
+    elif forced == "xla":
+        route = "plain"
+    else:
+        route = "kernel" if device.type == "cuda" else "plain"
+    obs.route_event("kernel_bwd", "pallas" if route == "kernel" else "xla",
+                    forced=forced in ("pallas", "xla"))
+    return route
+
+
+def _exec_route(device: torch.device) -> None:
+    """Count one kernel dispatch by where it runs (``pallas_exec``): the
+    CUDA kernel, or for CPU tensors its plain version."""
+    obs.route_event("pallas_exec",
+                    "cuda" if device.type == "cuda" else "plain")
 
 
 def _bwd_direct(x2d, w1, w2, g2d, variant: str):
@@ -120,6 +141,7 @@ def _bwd_direct(x2d, w1, w2, g2d, variant: str):
 
 
 def _dyad_forward(x, w1, w2, variant: str):
+    _exec_route(x.device)
     n, d_out, _ = w1.shape
     lead = x.shape[:-1]
     w1c = w1.to(x.dtype).contiguous()
@@ -163,6 +185,7 @@ class _DyadMM(torch.autograd.Function):
             dx, dw1, dw2 = _bwd_direct(x2d, w1c, w2c, g2d, variant)
             return (dx.reshape(*lead, f_in).to(x.dtype), dw1.to(w1.dtype),
                     dw2.to(w2.dtype), None, None)
+        _exec_route(x.device)
         x1, x2 = ref.block_views(x2d, n, variant)
         z1bar, z2bar = ref.split_cotangent(g2d, n, variant)
         w1c, w2c = w1c.contiguous(), w2c.contiguous()
@@ -200,7 +223,9 @@ def ff_route() -> str:
     overrides both for the calls inside it."""
     forced = _FF_FORCED.get() or os.environ.get("REPRO_KERNEL_FF",
                                                 "").lower()
-    return forced if forced in ("fused", "split") else "fused"
+    route = forced if forced in ("fused", "split") else "fused"
+    obs.route_event("ff", route, forced=route == forced)
+    return route
 
 
 @contextlib.contextmanager
@@ -251,7 +276,9 @@ def _ff_forward(x, wg, wu, wd, act: str):
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
     dt = x.dtype
-    if ff_route() == "fused":
+    _exec_route(x.device)
+    route = ff_route()
+    if route == "fused":
         # the weights go in as they are: for bf16 x the kernel rounds fp32
         # weights to bf16 as it loads them (a cast here would copy each)
         x1, x2 = ref.block_views(x2d, n, "it")
@@ -264,13 +291,18 @@ def _ff_forward(x, wg, wu, wd, act: str):
         else:
             h = ref.ACTS[act](u)
         z1, z2 = dyad_mm_blocks_two(h, h, *_cast(wd, dt))
-    return ref.combine(z1, z2, "ot").reshape(*lead, n * d_out)
+    y = ref.combine(z1, z2, "ot")
+    # the kernel_nan fault site: a numerically broken kernel on the active
+    # route (a no-op unless a schedule is armed)
+    y = faults.poison(y, "kernel_nan", route=f"ff_{route}")
+    return y.reshape(*lead, n * d_out)
 
 
 def _ff_bwd_kernel(x, wg, wu, wd, g, act: str):
     """The kernel backward: the hidden rematerialised, then the fused
     dgrad/wgrad kernels (the reference's ``ops._ff_bwd_kernel``).  Returns
     (dx, *dwg, dwu1, dwu2, dwd1, dwd2)."""
+    _exec_route(x.device)
     n = wu[0].shape[0]
     lead, f_in = x.shape[:-1], x.shape[-1]
     dt = x.dtype
@@ -423,6 +455,7 @@ def dyad_mm_quant(x, w1q, w2q, s1, s2, *, variant: str = "it"):
     """Forward-only :func:`dyad_mm` over quantized weights: (..., n * d_in)
     -> (..., n * d_out).  w1q, w2q: (n, d_out, d_in) int8/fp8 payloads;
     s1, s2: (n, d_out) fp32 scales."""
+    _exec_route(x.device)
     n, d_out, _ = w1q.shape
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
@@ -439,6 +472,7 @@ def dyad_ff_quant(params, x, *, act: str = "gelu"):
     """Forward-only :func:`dyad_ff` over quantized weights.  ``params`` is
     the ``layers.mlp`` param dict after ``quant.quantize_params`` (every
     projection carries ``w1_q``/``w1_s``/``w2_q``/``w2_s``)."""
+    _exec_route(x.device)
     up, down = params["up"], params["down"]
     n = up["w1_q"].shape[0]
     d_out = down["w1_q"].shape[1]
@@ -472,9 +506,10 @@ def attn_route(device: torch.device) -> str:
     """Which route attention takes when the config opts into flash
     (``cfg.flash_attn``) for tensors on ``device``."""
     forced = os.environ.get("REPRO_KERNEL_ATTN", "").lower()
-    if forced in ("flash", "xla"):
-        return forced
-    return "flash" if device.type == "cuda" else "xla"
+    route = (forced if forced in ("flash", "xla")
+             else "flash" if device.type == "cuda" else "xla")
+    obs.route_event("attn", route, forced=route == forced)
+    return route
 
 
 def _attn_positions(q_off, k_off, S: int, T: int, device):
@@ -490,6 +525,7 @@ def _attn_positions(q_off, k_off, S: int, T: int, device):
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, q_off, k_off, causal, window, use_kernel_bwd):
+        _exec_route(q.device)
         out, lse = flash_attn.flash_prefill(q, k, v, q_off, k_off,
                                             causal=causal, window=window,
                                             save_lse=True)
@@ -514,6 +550,7 @@ class _FlashAttention(torch.autograd.Function):
                 out = ref.sdpa_ref(*leaves, qp, kp, **kw)
                 dq, dk, dv = torch.autograd.grad(out, leaves, do)
         elif bwd_route(q.device) == "kernel":
+            _exec_route(q.device)
             dq, dk, dv = flash_attn.flash_prefill_grads(
                 q, k, v, o, lse, do, q_off, k_off, **kw)
         else:
@@ -532,12 +569,14 @@ def flash_attention(q, k, v, q_off=0, k_off=0, *, causal: bool = True,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, q_off, k_off, causal, window,
                                      use_kernel_bwd)
+    _exec_route(q.device)
     return flash_attn.flash_prefill(q, k, v, q_off, k_off, causal=causal,
                                     window=window)[0]
 
 
 def flash_decode(q, k, v, idx, *, window=None):
     """One-token ring-cache decode attention (inference only)."""
+    _exec_route(q.device)
     return flash_attn.flash_decode(q, k, v, idx, window=window)
 
 
@@ -545,6 +584,7 @@ def flash_decode_paged(q, pages_k, pages_v, block_table, idx, *,
                        l_real=None, window=None, scales_k=None,
                        scales_v=None):
     """One-token paged-cache decode attention (inference only)."""
+    _exec_route(q.device)
     return flash_attn.flash_decode_paged(
         q, pages_k, pages_v, block_table, idx, l_real=l_real, window=window,
         scales_k=scales_k, scales_v=scales_v)

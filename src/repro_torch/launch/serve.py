@@ -15,7 +15,15 @@
 ``--quant-weights int8|fp8`` quantizes the DYAD weights after they are
 built (``quant.quantize_params`` sidecars) and serves them through the
 quantized kernels; it needs a kernel-routed linear spec, and
-``REPRO_KERNEL_QUANT=off`` restores the fp routes.
+``REPRO_KERNEL_QUANT=off`` restores the fp routes.  ``--ckpt-dir`` serves
+the params of the newest checkpoint there (the train launcher's, or the
+reference's) instead of the random ones, restored before any
+quantization.
+
+``--trace`` records the engines' spans and exports Chrome-trace JSON at the
+end; ``--faults`` (or ``REPRO_FAULT``) arms a seeded fault schedule
+(``repro_torch.faults``); ``--metrics-json`` carries the route counts
+(``routes``) and the fault tallies (``faults``) beside the metrics.
 
 Runs on CUDA unless ``--device cpu``; without CUDA it exits non-zero.
 
@@ -30,6 +38,11 @@ Example:
         --quant-weights int8 --quant-kv int8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt125m \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b \
+        --smoke --device cpu --engine continuous --requests 8 --slots 4 \
+        --prompt-len 12 --new-tokens 16 --page-size 4 --n-pages 24 \
+        --faults "page_exhaustion:p=0.05;nan_logits:at_step=3;slow_step:ms=5" \
+        --metrics-json chaos_serve.json --trace serve.json
 """
 from __future__ import annotations
 
@@ -40,7 +53,8 @@ import torch
 
 from repro_torch import configs
 from repro_torch import device as device_lib
-from repro_torch import quant
+from repro_torch import faults, obs, quant
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.models import model
 from repro_torch.serve.engine import ContinuousBatchingEngine, Engine
 
@@ -74,10 +88,21 @@ def main(argv=None):
     ap.add_argument("--prefix-cache", action="store_true",
                     help="paged mode: share full prompt-prefix pages "
                          "between requests (skips re-prefill)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record the engines' spans (admission, prefill, "
+                         "decode, sync, retire) and export Chrome-trace "
+                         "JSON here; diff two runs with python -m "
+                         "repro_torch.perf.timeline")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="write the final serving metrics snapshot (TTFT/"
                          "ITL percentiles, tok/s, queue depth, page-pool "
-                         "occupancy, prefix hits) as JSON")
+                         "occupancy, prefix hits) as JSON, with the route "
+                         "counts and the fault tallies")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="fault-injection schedule, e.g. 'page_exhaustion:"
+                         "p=0.05;nan_logits:at_step=3;slow_step:ms=50' "
+                         "(overrides REPRO_FAULT; see repro_torch.faults)")
+    ap.add_argument("--fault-seed", type=int, default=0)
     ap.add_argument("--report-every", type=float, default=None,
                     metavar="SECONDS",
                     help="continuous engine: periodic one-line stats report")
@@ -96,6 +121,8 @@ def main(argv=None):
                     help="paged mode: int8 KV page pools with per-token-row "
                          "fp32 scale pools, dequantized in the paged decode "
                          "kernel")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the newest checkpoint here")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -104,6 +131,10 @@ def main(argv=None):
         dev = device_lib.resolve(args.device)
     except RuntimeError as e:
         raise SystemExit(f"[serve] {e}") from None
+    if args.trace:
+        obs.enable()
+    if args.faults:
+        faults.configure(args.faults, seed=args.fault_seed)
     linear = configs.linear_cfg(args.linear) if args.linear else None
     cfg = configs.get(args.arch, smoke=args.smoke, linear=linear)
     if args.quant_weights:
@@ -116,6 +147,12 @@ def main(argv=None):
         cfg = cfg.replace(kv_quant=args.quant_kv)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model.init_params(cfg, gen, dev)
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir)
+        if mgr.latest_step() is not None:
+            step, state = mgr.restore({"params": params})
+            params = state["params"]
+            print(f"[serve] restored checkpoint step {step}")
     if args.quant_weights:
         params = quant.quantize_params(params, args.quant_weights)
         print(f"[serve] quantized DYAD weight sidecars: {args.quant_weights}")
@@ -135,6 +172,8 @@ def main(argv=None):
           f"prefill {t['prefill_s']:.3f}s + decode {t['decode_s']:.3f}s "
           f"({tps:.1f} tok/s)")
     print(out[:, :16].cpu())
+    print(f"[serve] summary: {obs.format_serving_line(engine.metrics)}")
+    _finish(args, engine.metrics)
 
 
 def _continuous(args, cfg, params, gen, dev, max_len):
@@ -161,13 +200,27 @@ def _continuous(args, cfg, params, gen, dev, max_len):
     if engine.paged:
         print(f"[serve] paged: {engine.stats}"
               + (f" kv_quant={cfg.kv_quant}" if cfg.kv_quant else ""))
+    if faults.active():
+        print(f"[serve] faults: {faults.snapshot()} "
+              f"demoted={engine.demoted}")
     print({u: results[u][:8] for u in uids[:4]})
     print(f"[serve] summary: {engine.format_summary()} "
           f"demoted={engine.demoted}")
+    _finish(args, engine.metrics, demoted=list(engine.demoted))
+
+
+def _finish(args, metrics, **extra):
+    """Write the ``--metrics-json`` snapshot (with the route counts and the
+    fault tallies) and export the ``--trace``."""
     if args.metrics_json:
-        engine.metrics.write_json(args.metrics_json,
-                                  demoted=list(engine.demoted))
+        metrics.write_json(args.metrics_json, routes=obs.routes_snapshot(),
+                           faults=faults.snapshot(), **extra)
         print(f"[serve] metrics: {args.metrics_json}")
+    if args.trace:
+        t = obs.get_tracer()
+        n = len(t) if t else 0
+        obs.export(args.trace)
+        print(f"[serve] trace: {args.trace} ({n} events)")
 
 
 if __name__ == "__main__":

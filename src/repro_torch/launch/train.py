@@ -1,7 +1,10 @@
 """Training launcher: random weights from ``--seed``, the synthetic LM
 stream, AdamW with a warmup-cosine schedule, and the fault-tolerant
 :class:`repro_torch.train.Trainer` (resume from ``--ckpt-dir``, NaN
-rollback, SIGTERM/SIGINT save and exit 0).
+rollback, SIGTERM/SIGINT save and exit 0).  ``--trace`` records the
+trainer's spans and exports them as Chrome-trace JSON at the end;
+``--faults`` (or ``REPRO_FAULT``) arms a seeded fault schedule
+(``repro_torch.faults``), whose tallies ``--metrics-json`` carries.
 
 Runs on CUDA unless ``--device cpu``; without CUDA it exits non-zero.
 
@@ -10,6 +13,9 @@ Examples:
         --linear dyad_it_4_kernel --steps 100 --seq-len 512 --batch 8
     PYTHONPATH=src python -m repro_torch.launch.train --arch opt125m \\
         --smoke --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch opt125m \\
+        --smoke --device cpu --steps 12 --ckpt-dir /tmp/ck --ckpt-every 4 \\
+        --faults "nan_loss:at_step=5;ckpt_io:p=0.2" --trace train.json
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch import device as device_lib
+from repro_torch import faults, obs
 from repro_torch.data import SyntheticLM
 from repro_torch.optim import AdamW, Compressor, schedule
 from repro_torch.train import Trainer, init_train_state, make_train_step
@@ -63,8 +70,16 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record the train_step/checkpoint spans and export "
+                         "Chrome-trace JSON here (ui.perfetto.dev)")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="write the final training metrics snapshot as JSON")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="fault-injection schedule, e.g. "
+                         "'nan_loss:at_step=5;ckpt_io:p=0.3;slow_step:ms=20' "
+                         "(overrides REPRO_FAULT; see repro_torch.faults)")
+    ap.add_argument("--fault-seed", type=int, default=0)
     ap.add_argument("--nan-strikes", type=int, default=3,
                     help="consecutive non-finite steps before rolling back "
                          "to the last checkpoint")
@@ -80,6 +95,10 @@ def main(argv=None):
         dev = device_lib.resolve(args.device)
     except RuntimeError as e:
         raise SystemExit(f"[train] {e}") from None
+    if args.trace:
+        obs.enable()
+    if args.faults:
+        faults.configure(args.faults, seed=args.fault_seed)
     cfg, trainer = build_trainer(
         args.arch, smoke=args.smoke, linear=args.linear, steps=args.steps,
         seq_len=args.seq_len, batch=args.batch, lr=args.lr,
@@ -112,8 +131,12 @@ def main(argv=None):
               f"tok/s={tok_s:.0f} "
               f"stragglers={snap['counters'].get('straggler_count', 0)}")
     if args.metrics_json:
-        trainer.metrics.write_json(args.metrics_json)
+        trainer.metrics.write_json(args.metrics_json,
+                                   faults=faults.snapshot())
         print(f"[train] metrics: {args.metrics_json}")
+    if args.trace:
+        obs.export(args.trace)
+        print(f"[train] trace: {args.trace}")
 
 
 if __name__ == "__main__":

@@ -13,7 +13,8 @@ plain route (:func:`_naive_sdpa`):
   ``idx[b]``, and key positions become ``(B, L)``;
 * the paged pool (the continuous engine's paged mode): slot b's position
   j lives in page ``block_table[b, j // P]`` at row ``j % P``; int8 pools
-  quantize each new row with ``quant.quantize_kv_rows``.  S == 1 on the
+  quantize each new row with ``quant.quantize_kv_rows`` (a ``kv_quant``
+  route event each call).  S == 1 on the
   flash route runs ``flash_decode_paged`` over the pools; every other
   case attends a per-slot dense view gathered over ``NB * P`` rows
   (dequantized for int8).
@@ -21,7 +22,9 @@ plain route (:func:`_naive_sdpa`):
 ``chunk`` is consulted where the reference consults it, on the plain route
 only; the chunked einsum paths it selects there (``S > chunk``, or keys
 beyond ``chunk``), cross-attention and the S >= L windowed-ring prefill
-raise ``NotImplementedError``.
+raise ``NotImplementedError``.  On the flash route the ``kernel_nan``
+fault site (route ``attn_flash``) poisons the attention output; the
+reference's ``attn_tp`` route events wait for tensor parallelism (A.11).
 
 A cache is a dict: ``{"k", "v": (B, L, K, h), "idx"}`` (dense) or
 ``{"pages_k", "pages_v": (NP, P, K, h), ["scales_k", "scales_v":
@@ -38,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import faults, obs
 from repro_torch import quant as quant_lib
 from repro_torch.core import factory
 from repro_torch.kernels import ops as kops
@@ -203,6 +207,10 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
             kpos = once("kpos", lambda: _key_positions(idx, S, T, dev,
                                                        ring=not paged))
         o = _naive_sdpa(qg, k, v, qpos, kpos, causal, window)
+    if use_flash:
+        # the kernel_nan fault site: a broken flash kernel (the port has
+        # no attn rung to demote to, ROADMAP C.5)
+        o = faults.poison(o, "kernel_nan", route="attn_flash")
     o = o.reshape(B, S, n_heads * head_dim)
     return factory.apply(params["wo"], o, lin_cfg, site="attn"), new_cache
 
@@ -298,6 +306,7 @@ def _paged_write(cache, k, v, S: int, once, gather: bool):
     pid, row = once("write", lambda: _page_rows(idx, bt, S, P))
     quant_kv = "scales_k" in cache
     if quant_kv:
+        obs.route_event("kv_quant", "int8")
         kq, ksc = quant_lib.quantize_kv_rows(k)
         vq, vsc = quant_lib.quantize_kv_rows(v)
         pk[pid, row] = kq

@@ -17,16 +17,20 @@ every projection is created through the linear factory with
   projection, the forward runs over the quantized weights instead
   (``kernels.ops.dyad_ff_quant``: ``dyad_ff_fused_q``, or the split
   quantized kernels); ``REPRO_KERNEL_QUANT=off`` keeps the fp route.
+  Each decision on that route is an ``ff_quant`` route event (``off``,
+  ``fp_fallback`` or the payload dtype), and the ``kernel_nan`` fault site
+  with route ``ff_quant`` poisons its output.
 
 Not ported: tensor parallelism (A.11) has no sharding context in the
-port, so the reference's per-shard branches have nothing to dispatch on,
-and the fault-injection hook on the quantized route waits for A.12.
+port, so the reference's per-shard branches (and their ``ff_tp`` route
+events) have nothing to dispatch on.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import faults, obs
 from repro_torch import quant as quant_lib
 from repro_torch.core import dyad as dyad_lib
 from repro_torch.core import factory
@@ -73,10 +77,19 @@ def _ff_quant_ready(params, lin_cfg: factory.LinearCfg, act: str) -> bool:
     """Route this ff module through the quantized kernels?  Needs the
     ``quant`` opt-in on top of the megakernel's conditions, the quantized
     routes enabled, and the sidecars on every projection: a tree without
-    them (the training params) keeps the fp routes."""
-    return (bool(lin_cfg.quant) and lin_cfg.use_kernel
-            and lin_cfg.fuse_ff_kernel and _ff_module_ok(params, act)
-            and quant_lib.enabled() and quant_lib.ff_quantized(params))
+    them (the training params) keeps the fp routes.  Each decision past
+    the config's opt-in is an ``ff_quant`` route event."""
+    if not (lin_cfg.quant and lin_cfg.use_kernel and lin_cfg.fuse_ff_kernel
+            and _ff_module_ok(params, act)):
+        return False
+    if not quant_lib.enabled():
+        obs.route_event("ff_quant", "off", forced=True)
+        return False
+    if not quant_lib.ff_quantized(params):
+        obs.route_event("ff_quant", "fp_fallback")
+        return False
+    obs.route_event("ff_quant", lin_cfg.quant)
+    return True
 
 
 def _fused_dyad_mlp(params, x, lin_cfg: factory.LinearCfg, act: str):
@@ -95,8 +108,11 @@ def _fused_dyad_mlp(params, x, lin_cfg: factory.LinearCfg, act: str):
 
 def apply_mlp(params, x, lin_cfg: factory.LinearCfg, *, act: str = "swiglu"):
     if _ff_quant_ready(params, lin_cfg, act):
-        # forward-only: the quantized snapshot is frozen
-        return kops.dyad_ff_quant(params, x, act=act)
+        # forward-only: the quantized snapshot is frozen.  kernel_nan with
+        # route ff_quant models corrupt quantized blocks, which the
+        # serving ladder's first rung (quant -> fp) leaves
+        y = kops.dyad_ff_quant(params, x, act=act)
+        return faults.poison(y, "kernel_nan", route="ff_quant")
     if _ff_kernel_ready(params, lin_cfg, act):
         return kops.dyad_ff(params, x, act=act,
                             use_kernel_bwd=lin_cfg.use_kernel_bwd)

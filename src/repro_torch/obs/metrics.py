@@ -1,8 +1,7 @@
-"""Counters, gauges and histograms (port of ``repro.obs.metrics``, the part
-the trainer and the continuous engine read).  Each trainer and engine owns
-a :class:`MetricsRegistry`; the instruments are plain Python arithmetic
-and snapshot to plain dicts for ``--metrics-json`` and the launchers'
-summary lines.
+"""Counters, gauges and histograms (port of ``repro.obs.metrics``).  Each
+trainer and engine owns a :class:`MetricsRegistry`; the instruments are
+plain Python arithmetic and snapshot to plain dicts for
+``--metrics-json`` and the launchers' summary lines.
 
 The trainer's set: ``step_time_s`` and ``data_time_s`` (histograms),
 ``tokens_per_s`` and ``loss`` (gauges), ``tokens_trained``,
@@ -15,7 +14,7 @@ from __future__ import annotations
 
 import json
 import time
-from typing import Dict, List, Union
+from typing import Dict, List, Optional, Union
 
 Number = Union[int, float]
 
@@ -148,3 +147,17 @@ def format_serving_line(m: MetricsRegistry) -> str:
             f"rejects={c.get('admission_rejects', 0)} "
             f"preempts={c.get('preemptions', 0)} "
             f"faulted={c.get('retired_faulted', 0)}")
+
+
+def format_training_line(m: MetricsRegistry, step: int,
+                         loss: Optional[float] = None,
+                         extra: str = "") -> str:
+    """The one-line training report: step, loss, tokens/s, step ms p50."""
+    snap = m.snapshot()
+    h = snap["histograms"].get("step_time_s", {})
+    g = snap["gauges"]
+    line = (f"step {step} "
+            + (f"loss={loss:.4f} " if loss is not None else "")
+            + f"tok/s={_fmt(g.get('tokens_per_s', {}).get('value', 0.0))} "
+            f"step_ms p50={_fmt(1e3 * h.get('p50', 0.0))}")
+    return line + (f" {extra}" if extra else "")

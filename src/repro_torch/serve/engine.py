@@ -38,8 +38,19 @@
   written in place and a retried step rewrites the same rows, so the last
   tokens are committed only once a step is accepted.
 
-Not ported yet (ROADMAP A.12): the reference's fault-injection sites,
-spans, instants and route events, and ``autotune``.
+Both engines carry the reference's spans and instants (``repro_torch.obs``;
+category ``serve``): ``prefill`` and ``decode_loop`` in ``Engine``;
+``admit``, ``prefill``, ``prefill_chunk``, ``sync_control``, ``decode_step``,
+``preempt`` and ``retire`` spans and ``preempted``, ``admit_backoff``,
+``admission_reject``, ``nan_detected`` and ``nan_unrecovered`` instants in
+the continuous engine, whose demotions are ``demote`` route events.  Its
+fault sites (``repro_torch.faults``): ``page_exhaustion`` in
+:meth:`PageAllocator.alloc`, ``nan_logits`` once per decode attempt and
+``slow_step`` once per engine step.  The dense mode's ``sync_control``
+span has no twin in the reference, whose dense rings keep their write
+indices in the jitted cache (ROADMAP C.10).
+
+Not ported: the reference's ``autotune`` (ROADMAP A.12).
 """
 from __future__ import annotations
 
@@ -57,7 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch import obs
+from repro_torch import faults, obs
 from repro_torch import quant as quant_lib
 from repro_torch.errors import (AdmissionError, DeadlineExceeded,
                                 PageAccountingError, PageExhausted)
@@ -93,7 +104,9 @@ class Engine:
 
     After each ``generate``, ``timings`` holds ``prefill_s`` (prompt in to
     first token out) and ``decode_s`` (the decode loop), each measured on
-    the host clock after a device synchronisation.
+    the host clock after a device synchronisation; ``metrics`` accumulates
+    the reference's ``ttft_s`` and ``itl_s`` histograms and the
+    ``tokens_generated`` and ``requests_finished`` counters.
     """
 
     def __init__(self, cfg: ModelCfg, params, max_len: int,
@@ -102,6 +115,7 @@ class Engine:
         self.cache_dtype = cache_dtype
         self.device = device_lib.resolve(device)
         self.timings: dict = {}
+        self.metrics = obs.MetricsRegistry()
 
     @torch.no_grad()
     def generate(self, prompt_tokens: torch.Tensor, num_new: int, *,
@@ -121,21 +135,34 @@ class Engine:
         t0 = time.perf_counter()
         cache = model.init_cache(self.cfg, B, self.max_len, self.cache_dtype,
                                  self.device)
-        logits, cache = prefill(self.cfg, self.params, cache, tokens)
-        tok = sample_token(logits, temperature, generator)
-        _sync(self.device)
-        t1 = time.perf_counter()
-        out = [tok]
-        # the reference's scan also runs a last step whose token it drops
-        for _ in range(num_new - 1):
-            logits, cache = model.decode_step(self.cfg, self.params, cache,
-                                              tok)
+        with obs.span("prefill", cat="serve", batch=B, prompt_len=S):
+            logits, cache = prefill(self.cfg, self.params, cache, tokens)
             tok = sample_token(logits, temperature, generator)
-            out.append(tok)
-        toks = torch.cat(out, dim=1)
-        _sync(self.device)
+            _sync(self.device)
+        t1 = time.perf_counter()
+        toks = tok
+        if num_new > 1:
+            out = [tok]
+            with obs.span("decode_loop", cat="serve", batch=B,
+                          num_new=num_new):
+                # the reference's scan also runs a last step whose token
+                # it drops
+                for _ in range(num_new - 1):
+                    logits, cache = model.decode_step(self.cfg, self.params,
+                                                      cache, tok)
+                    tok = sample_token(logits, temperature, generator)
+                    out.append(tok)
+                toks = torch.cat(out, dim=1)
+                _sync(self.device)
         self.timings = {"prefill_s": t1 - t0,
                         "decode_s": time.perf_counter() - t1}
+        m = self.metrics
+        m.histogram("ttft_s").observe(self.timings["prefill_s"])
+        m.counter("tokens_generated").inc(B * num_new)
+        m.counter("requests_finished").inc(B)
+        if num_new > 1:
+            m.histogram("itl_s").observe(self.timings["decode_s"]
+                                         / (num_new - 1))
         return toks
 
 
@@ -237,6 +264,8 @@ class PageAllocator:
         return len(self._free)
 
     def alloc(self) -> int:
+        if faults.active() and faults.fire("page_exhaustion"):
+            raise PageExhausted("page pool exhausted (injected)")
         if not self._free:
             raise PageExhausted("page pool exhausted")
         page = self._free.pop()
@@ -381,12 +410,15 @@ class ContinuousBatchingEngine:
         return sample_token(logits, 0.0)
 
     # -- the decode step ----------------------------------------------------
-    def _batch_step(self):
+    def _batch_step(self, poison: bool = False):
         """Decode every lane one token over the shared cache (in place).
+        ``poison`` (the ``nan_logits`` fault) multiplies the logits by NaN.
         Returns (next tokens (B, 1), non-finite-lane mask (B,))."""
         with torch.no_grad(), self._routes():
             logits, _ = model.decode_step(self.cfg, self.params, self.cache,
                                           self.tokens)
+        if poison:
+            logits = logits * float("nan")
         if self.nan_guard:
             bad = ~torch.isfinite(logits).all(dim=2).all(dim=1)
         else:
@@ -446,7 +478,14 @@ class ContinuousBatchingEngine:
         S = len(seq)
         chunk = (S - pos if not self.prefill_chunk
                  else min(self.prefill_chunk, S - pos))
-        tok = self._chunk(slot, seq[pos:pos + chunk], pos)
+        with obs.span("prefill_chunk", cat="serve", slot=slot, pos=pos,
+                      chunk=chunk, prompt_len=S,
+                      resumed=req.resume_token is not None):
+            tok = self._chunk(slot, seq[pos:pos + chunk], pos)
+            if obs.enabled():
+                # only a traced run waits here: untraced chunks stay
+                # queued (the decode harvest waits once per engine step)
+                _sync(self.device)
         self.stats["prefill_chunks"] += 1
         self.stats["prefill_tokens"] += chunk
         self.metrics.counter("prefill_tokens").inc(chunk)
@@ -524,18 +563,19 @@ class ContinuousBatchingEngine:
         write index (its length) and, paged, its block table.  Free and
         mid-prefill lanes get index 0 and scratch page 0, so their padding
         writes never touch a live page."""
-        idx = self.slots.lengths.astype(np.int32)
-        live = [s in self.slots.active
-                and not (self.paged and s in self._prefilling)
-                for s in range(self.n_slots)]
-        idx[~np.asarray(live)] = 0
-        if self.paged:
-            bt = self._bt.copy()
-            bt[~np.asarray(live)] = 0
-            host = np.concatenate([bt.reshape(-1), idx])
-        else:
-            host = idx
-        self._ctl.copy_(torch.from_numpy(host))
+        with obs.span("sync_control", cat="serve"):
+            idx = self.slots.lengths.astype(np.int32)
+            live = [s in self.slots.active
+                    and not (self.paged and s in self._prefilling)
+                    for s in range(self.n_slots)]
+            idx[~np.asarray(live)] = 0
+            if self.paged:
+                bt = self._bt.copy()
+                bt[~np.asarray(live)] = 0
+                host = np.concatenate([bt.reshape(-1), idx])
+            else:
+                host = idx
+            self._ctl.copy_(torch.from_numpy(host))
 
     def _preempt(self, slot: int) -> None:
         """Evict ``slot``'s request to relieve page-pool pressure: release
@@ -544,13 +584,17 @@ class ContinuousBatchingEngine:
         under greedy decoding the resumed output equals an undisturbed
         run's."""
         req = self.slots.active[slot]
-        req.retire_reason = RetireReason.PREEMPTED
-        req.preemptions += 1
-        req.resume_token = req.tokens[-1]
-        self._release_slot_pages(slot)
-        self.slots.release(slot)
-        self.queue.append(req)
-        self.metrics.counter("preemptions").inc()
+        with obs.span("preempt", cat="serve", uid=req.uid, slot=slot,
+                      generated=len(req.tokens),
+                      pages_freed=int(self._nblk[slot])):
+            req.retire_reason = RetireReason.PREEMPTED
+            req.preemptions += 1
+            req.resume_token = req.tokens[-1]
+            self._release_slot_pages(slot)
+            self.slots.release(slot)
+            self.queue.append(req)
+            self.metrics.counter("preemptions").inc()
+            obs.instant("preempted", cat="serve", uid=req.uid)
         self._update_occupancy()
 
     def _preempt_for(self, req: Request, pages_short: int) -> bool:
@@ -600,33 +644,40 @@ class ContinuousBatchingEngine:
             self.queue.popleft()
             slot = self.slots.alloc(req, len(seq))
             req.admit_seq = next(self._admit_seq)
-            try:
-                for i, pid in enumerate(shared):
-                    self.pages.retain(pid)
-                    self._bt[slot, i] = pid
-                    self._nblk[slot] = i + 1
-                for i in range(m, nblk):
-                    self._bt[slot, i] = self.pages.alloc()
-                    self._nblk[slot] = i + 1
-            except PageExhausted:
-                self._release_slot_pages(slot)
-                self.slots.release(slot)
-                self.queue.appendleft(req)
-                self.metrics.counter("admission_backoffs").inc()
+            with obs.span("admit", cat="serve", uid=req.uid, slot=slot,
+                          pages=nblk, prefix_pages=m,
+                          resumed=req.resume_token is not None,
+                          queued=len(self.queue)):
+                try:
+                    for i, pid in enumerate(shared):
+                        self.pages.retain(pid)
+                        self._bt[slot, i] = pid
+                        self._nblk[slot] = i + 1
+                    for i in range(m, nblk):
+                        self._bt[slot, i] = self.pages.alloc()
+                        self._nblk[slot] = i + 1
+                except PageExhausted:
+                    # roll the partial reservation back; the request
+                    # returns to the head of the queue
+                    self._release_slot_pages(slot)
+                    self.slots.release(slot)
+                    self.queue.appendleft(req)
+                    self.metrics.counter("admission_backoffs").inc()
+                    obs.instant("admit_backoff", cat="serve", uid=req.uid)
+                    self._update_occupancy()
+                    return
+                if m:
+                    self.stats["prefix_hits"] += 1
+                    self.stats["prefix_pages_shared"] += m
+                    self.metrics.counter("prefix_hits").inc()
+                    self.metrics.counter("prefix_tokens_skipped").inc(
+                        m * self.page_size)
                 self._update_occupancy()
-                return
-            if m:
-                self.stats["prefix_hits"] += 1
-                self.stats["prefix_pages_shared"] += m
-                self.metrics.counter("prefix_hits").inc()
-                self.metrics.counter("prefix_tokens_skipped").inc(
-                    m * self.page_size)
-            self._update_occupancy()
-            self._prefilling[slot] = m * self.page_size
-            if not self.prefill_chunk:
-                # unchunked: the whole remaining prompt is one chunk, so
-                # admission completes the prefill as in dense mode
-                self._advance_prefill(slot)
+                self._prefilling[slot] = m * self.page_size
+                if not self.prefill_chunk:
+                    # unchunked: the whole remaining prompt is one chunk,
+                    # so admission completes the prefill as in dense mode
+                    self._advance_prefill(slot)
 
     # -- request lifecycle --------------------------------------------------
     def submit(self, prompt, max_new: int, *,
@@ -640,6 +691,8 @@ class ContinuousBatchingEngine:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size + max_new - 1 > self.max_len:
             self.metrics.counter("admission_rejects").inc()
+            obs.instant("admission_reject", cat="serve", reason="max_len",
+                        prompt_len=int(prompt.size), max_new=max_new)
             raise AdmissionError(
                 f"prompt {prompt.size} + {max_new} new tokens exceeds "
                 f"max_len {self.max_len}")
@@ -654,6 +707,8 @@ class ContinuousBatchingEngine:
             need = max(1, -(-(prompt.size + max_new - 1) // self.page_size))
             if need > self.pages.n_pages - 1:
                 self.metrics.counter("admission_rejects").inc()
+                obs.instant("admission_reject", cat="serve",
+                            reason="never_fits", pages_needed=need)
                 raise AdmissionError(
                     f"request needs {need} pages but the pool only has "
                     f"{self.pages.n_pages - 1}")
@@ -706,10 +761,15 @@ class ContinuousBatchingEngine:
         while self.queue and self.slots.free_slots:
             req = self.queue.popleft()
             slot = self.slots.alloc(req, len(req.prompt))
-            tok0, cache1 = self._prefill_one(req.prompt)
-            self._write_slot(cache1, slot)
-            self.tokens[slot] = tok0[0]
-            self._emit(req, int(tok0[0, 0]))
+            with obs.span("admit", cat="serve", uid=req.uid, slot=slot,
+                          queued=len(self.queue)):
+                with obs.span("prefill", cat="serve", slot=slot,
+                              prompt_len=len(req.prompt)):
+                    tok0, cache1 = self._prefill_one(req.prompt)
+                    self._write_slot(cache1, slot)
+                    first = int(tok0[0, 0])      # waits for the prefill
+                self.tokens[slot] = tok0[0]
+                self._emit(req, first)
 
     def _emit(self, req: Request, token: int) -> None:
         req.tokens.append(token)
@@ -729,20 +789,22 @@ class ContinuousBatchingEngine:
         pages, move the request to ``finished``.  Every exit path funnels
         through here, so the ``retired_<reason>`` counters are exact."""
         now = time.perf_counter()
-        req.retire_reason = reason
-        req.t_done = now
-        if len(req.tokens) > 1:
-            self.metrics.histogram("itl_s").observe(
-                (now - req.t_first) / (len(req.tokens) - 1))
-        self.metrics.counter("requests_finished").inc()
-        self.metrics.counter(f"retired_{reason.value}").inc()
-        if req.slot >= 0:
-            if self.paged:
-                self._prefilling.pop(req.slot, None)
-                self._release_slot_pages(req.slot)
-            self.slots.release(req.slot)
-            self._update_occupancy()
-        self.finished.append(req)
+        with obs.span("retire", cat="serve", uid=req.uid, slot=req.slot,
+                      reason=reason.value, n_tokens=len(req.tokens)):
+            req.retire_reason = reason
+            req.t_done = now
+            if len(req.tokens) > 1:
+                self.metrics.histogram("itl_s").observe(
+                    (now - req.t_first) / (len(req.tokens) - 1))
+            self.metrics.counter("requests_finished").inc()
+            self.metrics.counter(f"retired_{reason.value}").inc()
+            if req.slot >= 0:
+                if self.paged:
+                    self._prefilling.pop(req.slot, None)
+                    self._release_slot_pages(req.slot)
+                self.slots.release(req.slot)
+                self._update_occupancy()
+            self.finished.append(req)
 
     # -- NaN guard + demotion ladder ----------------------------------------
     # the demotion ladder, in the order it is walked
@@ -775,6 +837,7 @@ class ContinuousBatchingEngine:
             self.demoted.append(rung)
             if self._on_safe_route(rung):
                 continue
+            obs.route_event("demote", rung)
             self.metrics.counter("demotions").inc()
             return True
         return False
@@ -791,16 +854,24 @@ class ContinuousBatchingEngine:
         demote the ff rung on the next attempt, (3) with the ladder
         exhausted, commit the step and let the caller retire the bad lanes.
         Tokens and the bad-lane mask come back in one copy.  Returns
-        (emitted tokens, bad-lane mask) as numpy arrays."""
+        (emitted tokens, bad-lane mask) as numpy arrays.  The ``nan_logits``
+        fault site is checked once per attempt."""
         attempt = 0
         while True:
-            tok, bad = self._batch_step()
+            poison = (faults.active()
+                      and faults.fire("nan_logits") is not None)
+            tok, bad = self._batch_step(poison)
             host = torch.stack([tok[:, 0], bad.to(tok.dtype)]).cpu().numpy()
             bad_h = host[1].astype(bool)
-            if not any(bad_h[s] for s in decoding):
+            bad_slots = [s for s in decoding if bad_h[s]]
+            if not bad_slots:
                 break
             self.metrics.counter("nan_steps").inc()
+            obs.instant("nan_detected", cat="serve", attempt=attempt,
+                        slots=len(bad_slots))
             if attempt > 0 and not self._demote_next():
+                obs.instant("nan_unrecovered", cat="serve",
+                            slots=len(bad_slots))
                 break
             attempt += 1
         self.tokens = tok
@@ -815,6 +886,11 @@ class ContinuousBatchingEngine:
         as ``FAULTED``."""
         before = len(self.finished)
         self._check_deadlines()
+        if faults.active():
+            sp = faults.fire("slow_step")
+            if sp is not None and sp.ms:
+                with obs.span("slow_step_fault", cat="fault", ms=sp.ms):
+                    time.sleep(sp.ms / 1000.0)
         if self.paged and self._prefilling:
             for slot in sorted(self._prefilling):
                 self._advance_prefill(slot)
@@ -827,7 +903,8 @@ class ContinuousBatchingEngine:
             return self.finished[before:]
         self._sync_control()
         t0 = time.perf_counter()
-        emitted, bad = self._decode_once(decoding)
+        with obs.span("decode_step", cat="serve", batch=len(decoding)):
+            emitted, bad = self._decode_once(decoding)
         self.metrics.histogram("decode_step_s").observe(
             time.perf_counter() - t0)
         for slot in decoding:
@@ -864,8 +941,11 @@ class ContinuousBatchingEngine:
 
     def metrics_summary(self) -> dict:
         """JSON-ready snapshot of the serving metrics (the payload of the
-        launcher's ``--metrics-json``), with any demoted rungs."""
+        launcher's ``--metrics-json``), with the fault tallies while a
+        schedule is armed and any demoted rungs."""
         snap = self.metrics.snapshot()
+        if faults.active():
+            snap["faults"] = faults.snapshot()
         if self.demoted:
             snap["demoted"] = list(self.demoted)
         return snap

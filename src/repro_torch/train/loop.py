@@ -19,10 +19,16 @@
   device has finished it; on the CPU, where the step is done before its
   call returns, it includes the next batch), the ``data_time_s``
   histogram (host clock around each batch) and the ``tokens_per_s`` /
-  ``loss`` gauges.
+  ``loss`` gauges; the reference's spans (``resume``, ``rollback``,
+  ``train_step``, which ends after the device wait, and ``checkpoint``)
+  and instants (``nonfinite_step``, ``straggler``);
+* **fault sites** (``repro_torch.faults``): ``slow_step`` sleeps on the
+  host and ``nan_loss`` sets the ``_fault_poison`` batch key, present on
+  every step while the site is armed.
 
-The reference's fault-injection hooks and trace spans wait for ROADMAP
-A.12.
+One difference from the reference (ROADMAP C.9): the ``slow_step`` sleep
+runs inside the timed step, so the straggler watchdog sees it; the
+reference sleeps before its step clock starts.
 """
 from __future__ import annotations
 
@@ -33,10 +39,9 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch import tree
+from repro_torch import faults, obs, tree
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.errors import NumericalFault
-from repro_torch.obs import MetricsRegistry
 
 
 def _wait_for(t: torch.Tensor) -> None:
@@ -79,7 +84,7 @@ class Trainer:
         self.max_rollbacks = max_rollbacks
         self._strikes = 0             # consecutive non-finite steps
         self._rollbacks = 0
-        self.metrics = MetricsRegistry()
+        self.metrics = obs.MetricsRegistry()
 
     # -- fault tolerance ------------------------------------------------------
     def install_preemption_handler(self, signals=(signal.SIGTERM,)):
@@ -98,7 +103,8 @@ class Trainer:
 
     def maybe_resume(self):
         if self.ckpt and self.ckpt.latest_step() is not None:
-            self._restore()
+            with obs.span("resume", cat="train"):
+                self._restore()
             self.log(f"[trainer] resumed from step {self.step}")
 
     def _after_step(self, metrics) -> None:
@@ -109,6 +115,8 @@ class Trainer:
             return
         self._strikes += 1
         self.metrics.counter("nonfinite_steps").inc()
+        obs.instant("nonfinite_step", cat="train", step=self.step,
+                    strikes=self._strikes)
         self.log(f"[trainer] non-finite loss/grad at step {self.step} "
                  f"(skipped; strike {self._strikes}/{self.nan_strikes})")
         if self._strikes < self.nan_strikes:
@@ -122,8 +130,10 @@ class Trainer:
             raise NumericalFault(
                 f"still non-finite after {self.max_rollbacks} rollbacks "
                 "- the fault is not transient")
-        self.ckpt.wait()
-        self._restore()
+        with obs.span("rollback", cat="train", step=self.step,
+                      strikes=self._strikes, rollback=self._rollbacks):
+            self.ckpt.wait()
+            self._restore()
         self.metrics.counter("rollbacks").inc()
         self._strikes = 0
         self.log(f"[trainer] rolled back to checkpoint step {self.step} "
@@ -137,6 +147,9 @@ class Trainer:
             if dt > self.straggler_factor * med:
                 self.straggler_events.append((self.step, dt, med))
                 self.metrics.counter("straggler_count").inc()
+                obs.instant("straggler", cat="train", step=self.step,
+                            dt_ms=round(dt * 1e3, 2),
+                            median_ms=round(med * 1e3, 2))
                 self.log(f"[trainer] straggler at step {self.step}: "
                          f"{dt * 1e3:.1f}ms vs median {med * 1e3:.1f}ms")
                 if self.on_straggler:
@@ -162,14 +175,29 @@ class Trainer:
                 batch = ahead[1]
             else:
                 batch = self._batch(self.step)
+            slow = None
+            if faults.active():
+                slow = faults.fire("slow_step")
+                reg = faults.registry()
+                if reg is not None and "nan_loss" in reg.specs:
+                    # the key is present on every step while the site is
+                    # armed, as in the reference
+                    batch = dict(batch, _fault_poison=float(
+                        faults.fire("nan_loss") is not None))
             n_tok = int(batch["tokens"].numel())
             t0 = time.perf_counter()
-            self.state, metrics = self.train_step(self.state, batch)
-            # the step is queued on the device: build the next batch now
-            ahead = None
-            if self.step + 1 < num_steps:
-                ahead = (self.step + 1, self._batch(self.step + 1))
-            _wait_for(metrics["loss"])
+            with obs.span("train_step", cat="train", step=self.step,
+                          tokens=n_tok):
+                if slow is not None and slow.ms:
+                    with obs.span("slow_step_fault", cat="fault",
+                                  ms=slow.ms):
+                        time.sleep(slow.ms / 1000.0)
+                self.state, metrics = self.train_step(self.state, batch)
+                # the step is queued on the device: build the next batch
+                ahead = None
+                if self.step + 1 < num_steps:
+                    ahead = (self.step + 1, self._batch(self.step + 1))
+                _wait_for(metrics["loss"])
             dt = time.perf_counter() - t0
             self._watch_straggler(dt)
             m.histogram("step_time_s").observe(dt)
@@ -186,9 +214,12 @@ class Trainer:
                          f"tok/s={n_tok / max(dt, 1e-9):.0f} "
                          f"step_ms_med={med * 1e3:.1f}")
             if self.ckpt and self.step % self.ckpt_every == 0:
-                self.ckpt.save(self.step, self.state)
+                with obs.span("checkpoint", cat="train", step=self.step):
+                    self.ckpt.save(self.step, self.state)
         if self.ckpt:
-            self.ckpt.save(self.step, self.state, blocking=True)
-            self.ckpt.wait()
+            with obs.span("checkpoint", cat="train", step=self.step,
+                          final=True):
+                self.ckpt.save(self.step, self.state, blocking=True)
+                self.ckpt.wait()
         return self.state, metrics
 

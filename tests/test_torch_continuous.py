@@ -381,8 +381,8 @@ def test_transient_nan_costs_one_retry_and_no_tokens(page_size,
     eng = _port(tcfg, tp, **kw)
     real, calls = eng._batch_step, []
 
-    def flaky():
-        tok, bad = real()
+    def flaky(*args):
+        tok, bad = real(*args)
         calls.append(1)
         return tok, (bad | True) if len(calls) == 2 else bad
 

@@ -58,6 +58,15 @@ measurement, its first key the label.  The sets:
   and ``dense``: 2 warm-up steps, then ``--steps`` timed, the median and
   every step in ms.
 
+``hot`` (one CUDA card): the two paths the tracer and the fault sites
+touch, with both off, as a user runs them.
+
+* ``step``: the OPT-125m train step (fp32, ``dyad_it_4_kernel``, B 8 x
+  S 512 of ``SyntheticLM``): 2 warm-up steps, then ``--steps`` timed, the
+  median and every step in ms;
+* ``generate``: ``Engine.generate`` for Qwen3-0.6B as in ``decode``: decode
+  tok/s of each of ``--generates`` timed runs and their median.
+
 ``relu_ties`` (the CPU alone): the ReLU units that ``chip_smoke.py``
 phase 8's OPT-125m step (2 layers, ``dyad_it_4_kernel``, B 2 x S 256, on
 the card's attention route) puts on either side of zero when
@@ -101,10 +110,7 @@ def _host_us(torch, fn, calls: int = 100, bursts: int = 30):
 
 
 def _decode(torch, cs, args) -> None:
-    from repro_torch import configs
     from repro_torch.kernels import dyad_mm, flash_attn
-    from repro_torch.models import model
-    from repro_torch.serve.engine import Engine
 
     dev = torch.device("cuda")
     label = args.label
@@ -128,28 +134,7 @@ def _decode(torch, cs, args) -> None:
                             for k, v in host.items()},
           **{f"{k}_finish_us": round(v[1], 3) for k, v in host.items()})
 
-    cfg = configs.get("qwen3_0_6b", linear=configs.linear_cfg(cs.QWEN_FF))
-    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(
-        args.seed), dev)
-    B, S, new = 8, 128, 32
-    prompts = torch.randint(0, cfg.vocab_size, (B, S),
-                            generator=torch.Generator(device=dev)
-                            .manual_seed(args.seed), device=dev)
-    engine = Engine(cfg, params, max_len=S + new, device=dev)
-    engine.generate(prompts, new)                             # warm-up
-    runs = []
-    for _ in range(args.generates):
-        flash_attn.flash_decode.launches = 0
-        engine.generate(prompts, new)
-        t = engine.timings
-        runs.append({"decode_tok_s": round(B * (new - 1) / t["decode_s"], 2),
-                     "prefill_s": round(t["prefill_s"], 4),
-                     "decode_s": round(t["decode_s"], 4),
-                     "flash_decode": flash_attn.flash_decode.launches})
-    _emit(label, "generate", runs=runs, decode_tok_s_median=statistics.median(
-        r["decode_tok_s"] for r in runs))
-    del engine, params
-    torch.cuda.empty_cache()
+    _generate(torch, cs, args)
 
     run = cs._Run(torch, dev, args.seed, cs._wrappers(dyad_mm, flash_attn))
     cfg, params, prompts, max_new, kw = run._cont_setup()
@@ -169,7 +154,6 @@ def _decode(torch, cs, args) -> None:
 
 def _fp32(torch, cs, args) -> None:
     from repro_torch.kernels import dyad_mm, flash_attn
-    from repro_torch.launch.train import build_trainer
 
     dev = torch.device("cuda")
     label = args.label
@@ -252,17 +236,64 @@ def _fp32(torch, cs, args) -> None:
 
     for lin in ("dyad_it_4_kernel", "dyad_ot_4_kernel", "dyad_dt_4_kernel",
                 "dense"):
-        _, trainer = build_trainer(
-            "opt125m", linear=lin, steps=100, seq_len=512, batch=8,
-            seed=args.seed, device=dev, log_fn=lambda *a: None)
-        trainer.run(2)
-        trainer.run(2 + args.steps)
-        times = trainer.metrics.histogram("step_time_s").samples[-args.steps:]
-        _emit(label, "step", linear=lin,
-              step_ms_median=round(statistics.median(times) * 1e3, 3),
-              step_ms_all=[round(t * 1e3, 3) for t in times])
-        del trainer
-        torch.cuda.empty_cache()
+        _train_steps(torch, args, lin)
+
+
+def _train_steps(torch, args, lin: str) -> None:
+    """The OPT-125m train step with ``lin``: 2 warm-up steps, then
+    ``--steps`` timed; one JSON line."""
+    from repro_torch.launch.train import build_trainer
+
+    _, trainer = build_trainer(
+        "opt125m", linear=lin, steps=100, seq_len=512, batch=8,
+        seed=args.seed, device=torch.device("cuda"), log_fn=lambda *a: None)
+    trainer.run(2)
+    trainer.run(2 + args.steps)
+    times = trainer.metrics.histogram("step_time_s").samples[-args.steps:]
+    _emit(args.label, "step", linear=lin,
+          step_ms_median=round(statistics.median(times) * 1e3, 3),
+          step_ms_all=[round(t * 1e3, 3) for t in times])
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def _generate(torch, cs, args) -> None:
+    """Qwen3-0.6B's batch generate: a warm-up, then ``--generates`` timed
+    runs; one JSON line."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models import model
+    from repro_torch.serve.engine import Engine
+
+    dev = torch.device("cuda")
+    cfg = configs.get("qwen3_0_6b", linear=configs.linear_cfg(cs.QWEN_FF))
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed), dev)
+    B, S, new = 8, 128, 32
+    prompts = torch.randint(0, cfg.vocab_size, (B, S),
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(args.seed), device=dev)
+    engine = Engine(cfg, params, max_len=S + new, device=dev)
+    engine.generate(prompts, new)                             # warm-up
+    runs = []
+    for _ in range(args.generates):
+        flash_attn.flash_decode.launches = 0
+        engine.generate(prompts, new)
+        t = engine.timings
+        runs.append({"decode_tok_s": round(B * (new - 1) / t["decode_s"], 2),
+                     "prefill_s": round(t["prefill_s"], 4),
+                     "decode_s": round(t["decode_s"], 4),
+                     "flash_decode": flash_attn.flash_decode.launches})
+    _emit(args.label, "generate", runs=runs,
+          decode_tok_s_median=statistics.median(r["decode_tok_s"]
+                                                for r in runs))
+    del engine, params
+    torch.cuda.empty_cache()
+
+
+def _hot(torch, cs, args) -> None:
+    _train_steps(torch, args, "dyad_it_4_kernel")
+    _generate(torch, cs, args)
 
 
 def _relu_ties(torch, cs, args) -> None:
@@ -306,7 +337,8 @@ def _relu_ties(torch, cs, args) -> None:
           grad_tol=cs.GRAD_TOL)
 
 
-SETS = {"decode": _decode, "fp32": _fp32, "relu_ties": _relu_ties}
+SETS = {"decode": _decode, "fp32": _fp32, "hot": _hot,
+        "relu_ties": _relu_ties}
 
 
 def main() -> int:
@@ -318,9 +350,9 @@ def main() -> int:
     ap.add_argument("--label", required=True)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--generates", type=int, default=3,
-                    help="decode: timed generates")
+                    help="decode, hot: timed generates")
     ap.add_argument("--steps", type=int, default=5,
-                    help="fp32: timed train steps of each linear")
+                    help="fp32, hot: timed train steps of each linear")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     sys.path.insert(1, str(ROOT))

@@ -91,7 +91,14 @@ exit and no result line):
    ``dyad_ff_fused`` with relu on integer inputs at Qwen3's widths, M 4096
    and 128, bitwise; the bf16 Qwen3 ``dyad_ff_fused`` cases also on the
    FMA kernel through the C entry, the parent's route that phase 4
-   times);
+   times); and at the shapes phase 15's families give the kernels
+   (FAMILY_MM, FAMILY_FF, FAMILY_PREFILL, FAMILY_RING): ``dyad_mm_blocks``
+   on Mamba2's and Hymba's SSM in and out projections at M 8 and 1024,
+   ``dyad_ff_fused`` on Hymba's ff (blocks 400 x 1376) and the MoE's
+   shared expert (512 x 1408) with fp32 weights, ``flash_prefill`` over
+   Hymba's in-flight K/V (S 1280 past the 1024 window, and at per-batch
+   offsets; K 5 x G 5, h 64), ``flash_decode`` over Hymba's ring with the
+   window across the wrap point (G 5), fp32 and bf16;
 4. the time of each kernel, its plain version and a library yardstick
    (CUDA events around device work queued ahead, L2 flushed before each
    run, median of 25 after warm-up), under the kernel's name or, at
@@ -129,7 +136,10 @@ exit and no result line):
    (int8), at one Qwen3 ff at M 8 and 128 (``@fp32_decode``,
    ``@fp32_chunk``, on FMA, beside the torch.bmm chain); the split-TF32
    routes' bounds at a third of the TF32 rate, the FMA bound beside
-   (``fma_bound_ms``);
+   (``fma_bound_ms``); the family shapes in bf16 over fp32 params and
+   caches (``dyad_mm_blocks@mamba2``, ``@hymba``,
+   ``dyad_ff_fused@hymba``, ``@moe_shared``,
+   ``flash_prefill@hymba_window``, ``flash_decode@hymba_ring``);
 5. the OPT serving path: OPT-125m at full width with ``dyad_it_4_kernel``,
    random weights from ``--seed``, ``Engine.generate`` at batch 8, prompt
    128, 32 new tokens, with the kernels' launch counters read around it;
@@ -238,8 +248,30 @@ exit and no result line):
    batch decode tok/s with the tracer off and on, in turns, the route
    events of one step and one decode step, and the ``train_step`` and
    ``decode_step`` span medians beside the profiled device-busy ms of a
-   step (phases 7 and 12); then the whole run's seconds;
-15. the ``kernels`` JSON line (every record of phase 4), then the result
+   step (phases 7 and 12);
+15. the moe, ssm and hybrid families (FAMILY): Qwen1.5-MoE-A2.7B,
+   Mamba2-780m and Hymba-1.5B at their published widths and full depth,
+   bf16 compute over fp32 params, random weights from ``--seed``, flash
+   attention on and each config's own linear with ``use_kernel`` and
+   ``fuse_ff_kernel`` (scope ``ff``, or ``ff+ssm``): ``Engine.generate``
+   (MoE and Mamba2 at batch 8, prompt 128, 32 new; Hymba at batch 4 with
+   1280-token prompts past its 1024 window, then 32 tokens across the
+   ring's wrap), its launches exact, then a profiled generate; then
+   ``ContinuousBatchingEngine`` (MoE over paged pools with chunked
+   prefill and the prefix cache, 16 requests of phase 12's traffic;
+   Mamba2 on dense slots, the same traffic; Hymba on dense slots, 8
+   requests whose prompts alternate below and past the window), launches
+   exact, then a profiled window of engine steps.  Each run prints
+   decode tok/s, prefill seconds, ``torch.cuda.max_memory_allocated``,
+   the device-busy share and the profile's launches by kernel name; it
+   fails if a kernel its route takes shows no launch in the profile or
+   any plain version (of a kernel, or the plain attention and ff
+   dataflows) runs on the card.  Then each at full width and 2 layers
+   in fp32 on the card against the CPU port: greedy tokens equal, or
+   parting only after a step whose CPU top-2 logit margin is under
+   LOGIT_TOL, or for the MoE after a router near-tie (ROUTER_TIE, its
+   smallest gap printed); the phase's seconds, then the whole run's;
+16. the ``kernels`` JSON line (every record of phase 4), then the result
    line.
 
 Imports neither JAX nor the JAX package.
@@ -248,6 +280,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -386,6 +419,62 @@ QUANT_FF_CASES = {
     "ragged_relu_wide_out": (45, 3, 33, 200, 300, "relu")}
 # quantized serving at 2 layers (phase 13 c-e)
 QUANT_LAYERS = 2
+# phase 15: the moe, ssm and hybrid families at full width and depth, bf16
+# compute over fp32 params, flash attention on, the kernel-routed linear
+# of each config's own scope.  Per model: the batch run (B, prompt, new);
+# the kernels each layer launches in it, by wrapper (n: new tokens, s:
+# decode steps); the continuous run's engine and traffic and the kernels
+# each layer launches per prefill call and decode step (besides the
+# attention's); Qwen1.5-MoE serves from paged pools, the others from
+# dense rings
+FAMILY = {
+    "qwen2_moe_a2_7b": dict(
+        batch=(8, 128, 32),
+        per_layer=lambda n, s: {"flash_prefill": 1, "flash_decode": s,
+                                "dyad_ff_fused": n},
+        cont_route="paged", cont_ff={"dyad_ff_fused": 1}),
+    "mamba2_780m": dict(
+        batch=(8, 128, 32),
+        per_layer=lambda n, s: {"dyad_mm_blocks": 3 * n},
+        cont_route=None, cont_ff={"dyad_mm_blocks": 3}),
+    # a 1280-token prompt over the 1024 window: the S >= L ring prefill,
+    # then 32 tokens across the ring's wrap
+    "hymba_1_5b": dict(
+        batch=(4, 1280, 32),
+        per_layer=lambda n, s: {"flash_prefill": 1, "flash_decode": s,
+                                "dyad_ff_fused": n, "dyad_mm_blocks": 3 * n},
+        cont_route="dense", cont_ff={"dyad_ff_fused": 1,
+                                     "dyad_mm_blocks": 3}),
+}
+# the new tokens of phase 15's profiled batch generate
+FAMILY_PROFILE_NEW = 8
+# the CUDA kernels each wrapper launches, as the profiler names them
+KERNEL_NAMES = {
+    "flash_prefill": r"flash_fwd_(tc|tf32)_kernel",
+    "flash_decode": r"flash_decode_ring_kernel",
+    "flash_decode_paged": r"flash_decode_paged_kernel",
+    "dyad_ff_fused": r"dyad_ff(_tc)?_kernel",
+    "dyad_mm_blocks": r"dyad_gemm_tc_kernel|dyad_mv_kernel"}
+# the continuous runs: Qwen1.5-MoE and Mamba2 on 16 requests of phase 12's
+# traffic; Hymba on 8 requests whose prompts alternate below the 1024
+# window and past it (a shared 64-token prefix and a tail from ``tail``,
+# then one from ``tail_long``), 4 slots of 1536 tokens; engine steps
+# [a, b) of each profiled
+FAM_CONT = dict(CONT, requests=16, profile_steps=(8, 16))
+HYMBA_CONT = {"slots": 4, "max_len": 1536, "requests": 8, "prefix": 64,
+              "tail": (200, 900), "tail_long": (1000, 1400),
+              "max_new": (16, 32), "profile_steps": (8, 16)}
+# card vs CPU at 2 layers and full width in fp32 (the ff and expert
+# weights x 4, so that greedy tokens vary); Hymba's prompt past its window
+FAM_PARITY = {"layers": 2, "B": 2, "S": 32, "S_hymba": 1040, "new": 8,
+              "ff_scale": 4.0}
+# a MoE layer's routing is discontinuous: where a token's k-th and
+# (k+1)-th router probabilities lie within ROUTER_TIE, fp32 sums in
+# another order (the router's 2048-term product, then the softmax over 60
+# experts, each good to about 1e-7 relative) may pick the other expert.
+# The card and the CPU may then part, without a small top-2 logit margin,
+# at the next token or any later one
+ROUTER_TIE = 1e-5
 
 
 _T0 = time.perf_counter()
@@ -708,6 +797,290 @@ def _time_qwen3_fp32_cache(torch, randn, record, time_ms):
            nbytes, 4.0 * h * pairs, f"B{B}_S{S}_T{L}_K{K}_G{G}_h{h}_q_bf16",
            SPLIT_TF32_FLOPS,
            fma_bound_ms=_bound_ms(nbytes, 4.0 * h * pairs, FP32_FLOPS)[0])
+
+
+# phase 3's and 4's cases at the shapes phase 15's families give the
+# kernels: B.1 on Mamba2's and Hymba's SSM in projections (wz, wx) and out
+# projection (wo), (M, n, d_in_b, d_out_b), at decode and prefill rows;
+# B.8 on Hymba's ff (blocks 400 x 1376, off the 64-column tiles) and
+# Qwen1.5-MoE's shared expert (2048 -> 5632), (M, n, d_in, d_ff, d_out);
+# B.4 windowed over Hymba's in-flight K/V (S >= the window: queries and
+# keys at the same per-batch offsets), K 5 x G 5, h 64; B.9 over Hymba's
+# ring with the window across the wrap point
+FAMILY_MM = {
+    "mamba2_in_M8": (8, 4, 384, 768), "mamba2_out_M8": (8, 4, 768, 384),
+    "mamba2_in_M1024": (1024, 4, 384, 768),
+    "mamba2_out_M1024": (1024, 4, 768, 384),
+    "hymba_in_M8": (8, 4, 400, 800), "hymba_out_M8": (8, 4, 800, 400),
+    "hymba_in_M1024": (1024, 4, 400, 800),
+    "hymba_out_M1024": (1024, 4, 800, 400)}
+FAMILY_FF = {
+    "hymba_M8": (8, 4, 400, 1376, 400), "hymba_M1024": (1024, 4, 400, 1376,
+                                                      400),
+    "moe_shared_M8": (8, 4, 512, 1408, 512),
+    "moe_shared_M1024": (1024, 4, 512, 1408, 512)}
+FAMILY_PREFILL = {
+    # Hymba's prefill of 1280-token prompts over the 1024 window, at the
+    # per-slot offsets of a re-prefill (phase 4 times it at offset 0, the
+    # batch prefill)
+    "hymba_S1280": dict(B=4, S=1280, K=5, G=5, h=64, window=1024,
+                        off=[0, 17, 600, 1290]),
+    # a smaller window than the prompt's reach, at offsets
+    "hymba_offsets": dict(B=3, S=300, K=5, G=5, h=64, window=256,
+                          off=[0, 17, 600])}
+FAMILY_RING = {
+    # Hymba's batch decode: 4 rings of 1024 slots, 1280 + 16 tokens written
+    "hymba_batch": dict(B=4, L=1024, K=5, G=5, h=64, idx=1295, window=1024),
+    # a ring smaller than its reach: the window across the wrap point
+    "wrap_window": dict(B=4, L=64, K=5, G=5, h=64, idx=[70, 150, 64, 200],
+                        window=48)}
+
+
+def _check_families(torch, gen, dyad_mm, flash_attn, check, max_err):
+    """Phase 3 at the family shapes (FAMILY_*), fp32 and bf16, each kernel
+    against its plain version on the card; ``gen`` draws the inputs, so
+    the earlier cases keep theirs."""
+    dev = torch.device("cuda")
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).split(".")[1]
+
+        def note(name, err):
+            if dt == torch.float32:
+                max_err[name] = max(max_err[name], err)
+        for label, (M, n, d_in, d_out) in FAMILY_MM.items():
+            x = randn(M, n * d_in, dtype=dt)
+            w1, w2 = ((randn(n, d_out, d_in) / (n * d_in) ** 0.5).to(dt)
+                      for _ in range(2))
+            note("dyad_mm_blocks", check(
+                f"dyad_mm_blocks/{label}",
+                dyad_mm.dyad_mm_blocks(x, w1, w2),
+                dyad_mm.dyad_mm_blocks_plain(x, w1, w2), dn))
+        for label, (M, n, d_in, d_ff, d_out) in FAMILY_FF.items():
+            # the models' fp32 params under either compute dtype
+            args = _ff_args(randn, M, n, d_in, d_ff, d_out, "swiglu", dt,
+                            torch.float32)
+            got = dyad_mm.dyad_ff_fused(*args, act="swiglu")
+            want = dyad_mm.dyad_ff_fused_plain(*args, act="swiglu")
+            note("dyad_ff_fused", max(
+                check(f"dyad_ff_fused/{label}/{c}", g, w, dn)
+                for c, g, w in zip(("z1", "z2"), got, want)))
+        for label, c in FAMILY_PREFILL.items():
+            B, S, K, G, h = c["B"], c["S"], c["K"], c["G"], c["h"]
+            q = randn(B, S, K, G, h, dtype=dt)
+            k, v = randn(B, S, K, h, dtype=dt), randn(B, S, K, h, dtype=dt)
+            off = torch.tensor(c["off"], device=dev)
+            kw = dict(causal=True, window=c["window"])
+            note("flash_prefill", check(
+                f"flash_prefill/{label}",
+                flash_attn.flash_prefill(q, k, v, off, off, **kw)[0],
+                flash_attn.flash_prefill_plain(q, k, v, off, off, **kw)[0],
+                dn))
+        for label, c in FAMILY_RING.items():
+            B, L, K, G, h = c["B"], c["L"], c["K"], c["G"], c["h"]
+            # bf16 q over the engines' fp32 cache, or fp32 both
+            q = randn(B, 1, K, G, h, dtype=dt)
+            kc, vc = randn(B, L, K, h), randn(B, L, K, h)
+            idx = (c["idx"] if isinstance(c["idx"], int)
+                   else torch.tensor(c["idx"], dtype=torch.int32,
+                                     device=dev))
+            note("flash_decode", check(
+                f"flash_decode/{label}",
+                flash_attn.flash_decode(q, kc, vc, idx, window=c["window"]),
+                flash_attn.flash_decode_plain(q, kc, vc, idx,
+                                              window=c["window"]), dn))
+
+
+def _time_families(torch, randn, record, time_ms):
+    """Phase 4 at the family shapes, bf16 compute over fp32 params and
+    caches as phase 15 serves them: ``dyad_mm_blocks@mamba2`` and
+    ``@hymba`` (the SSM in and out projections at M 1024 and 8; yardstick
+    torch.bmm over the -CAT operands), ``dyad_ff_fused@hymba`` and
+    ``@moe_shared`` (M 1024 and 8; no single call: the torch.bmm chain
+    beside, ``bmm_chain_ms``), ``flash_prefill@hymba_window`` (Hymba's
+    S 1280 prefill over its in-flight K/V, window 1024; yardstick SDPA
+    with the band mask, k and v expanded to the 25 query heads) and
+    ``flash_decode@hymba_ring`` (its decode step over the wrapped ring;
+    yardstick SDPA over the ring's live slots)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import dyad_mm, flash_attn
+
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    for model in ("mamba2", "hymba"):
+        for label in (f"{model}_in_M1024", f"{model}_out_M1024",
+                      f"{model}_in_M8", f"{model}_out_M8"):
+            M, n, d_in, d_out = FAMILY_MM[label]
+            x = randn(M, n * d_in, dtype=bf16)
+            w1, w2 = (randn(n, d_out, d_in).to(bf16) for _ in range(2))
+            x1 = x.reshape(M, n, d_in)
+            x2 = x.reshape(M, d_in, n).transpose(1, 2)
+            xc = torch.cat([x1, x2], dim=-1).transpose(0, 1).contiguous()
+            wc = torch.cat([w1, w2], dim=-1).transpose(1, 2).contiguous()
+            record(f"dyad_mm_blocks@{model}",
+                   time_ms(lambda: dyad_mm.dyad_mm_blocks(x, w1, w2)),
+                   time_ms(lambda: dyad_mm.dyad_mm_blocks_plain(x, w1, w2)),
+                   time_ms(lambda: torch.bmm(xc, wc)),
+                   2 * (M * n * d_in + 2 * n * d_out * d_in + M * n * d_out),
+                   4.0 * M * n * d_out * d_in, label, BF16_FLOPS, "bfloat16")
+    for model in ("hymba", "moe_shared"):
+        for label in (f"{model}_M1024", f"{model}_M8"):
+            M, n, d_in, d_ff, d_out = FAMILY_FF[label]
+            args = _ff_args(randn, M, n, d_in, d_ff, d_out, "swiglu", bf16,
+                            f32)
+            x1, x2 = args[0], args[1]
+            wb = [a.to(bf16) for a in args[2:]]
+            xc = torch.cat([x1, x2], dim=2).transpose(0, 1).contiguous()
+            wuc = torch.cat([wb[0], wb[1]], dim=2).transpose(1,
+                                                             2).contiguous()
+            wgc = torch.cat([wb[4], wb[5]], dim=2).transpose(1,
+                                                             2).contiguous()
+            wdc = torch.cat([wb[2], wb[3]], dim=1).transpose(1,
+                                                             2).contiguous()
+
+            def chain():
+                h = F.silu(torch.bmm(xc, wgc)) * torch.bmm(xc, wuc)
+                return torch.bmm(h, wdc)
+            record(f"dyad_ff_fused@{model}",
+                   time_ms(lambda: dyad_mm.dyad_ff_fused(*args,
+                                                         act="swiglu")),
+                   time_ms(lambda: dyad_mm.dyad_ff_fused_plain(
+                       *args, act="swiglu")), None,
+                   # x (bf16), the fp32 weights, z1 and z2 (bf16)
+                   (2 * M * n * d_in + 4 * (4 * n * d_ff * d_in
+                                            + 2 * n * d_out * d_ff)
+                    + 2 * 2 * M * n * d_out),
+                   2.0 * M * n * (4 * d_ff * d_in + 2 * d_out * d_ff), label,
+                   BF16_FLOPS, "bfloat16", bmm_chain_ms=time_ms(chain))
+
+    c = FAMILY_PREFILL["hymba_S1280"]
+    B, S, K, G, h, W = c["B"], c["S"], c["K"], c["G"], c["h"], c["window"]
+    q = randn(B, S, K, G, h, dtype=bf16)
+    k, v = randn(B, S, K, h, dtype=bf16), randn(B, S, K, h, dtype=bf16)
+    pos = torch.arange(S, device=dev)
+    band = ((pos[None, :] <= pos[:, None])
+            & (pos[:, None] - pos[None, :] < W))
+    qt = q.reshape(B, S, K * G, h).transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1) for t in (k, v))
+    pairs = B * K * G * int(band.sum())
+    record("flash_prefill@hymba_window",
+           time_ms(lambda: flash_attn.flash_prefill(q, k, v, 0, 0,
+                                                    window=W)),
+           time_ms(lambda: flash_attn.flash_prefill_plain(q, k, v, 0, 0,
+                                                          window=W)),
+           time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=band)),
+           2 * (2 * B * S * K * G * h + 2 * B * S * K * h),
+           4.0 * h * pairs, f"B{B}_S{S}_K{K}_G{G}_h{h}_window{W}",
+           BF16_FLOPS, "bfloat16")
+
+    c = FAMILY_RING["hymba_batch"]
+    B, L, K, G, h, idx = c["B"], c["L"], c["K"], c["G"], c["h"], c["idx"]
+    q = randn(B, 1, K, G, h, dtype=bf16)
+    kc, vc = randn(B, L, K, h), randn(B, L, K, h)
+    amask = _ring_mask(torch, idx, B, L, dev)
+    live = int(amask.sum())
+    q4 = q[:, 0]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q4.float(), kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=amask)
+    record("flash_decode@hymba_ring",
+           time_ms(lambda: flash_attn.flash_decode(q, kc, vc, idx,
+                                                   window=c["window"])),
+           time_ms(lambda: flash_attn.flash_decode_plain(
+               q, kc, vc, idx, window=c["window"])),
+           time_ms(library), 2 * live * K * h * 4 + 2 * 2 * B * K * G * h,
+           4.0 * h * G * K * live, f"B{B}_L{L}_K{K}_G{G}_h{h}_idx{idx}",
+           FP32_FLOPS, "bfloat16 q, float32 cache")
+
+
+@contextlib.contextmanager
+def _plain_watch(torch):
+    """Counts the calls of every plain version of a kernel, and of the
+    port's plain attention and ff dataflows, made with a tensor on the
+    card (a CPU call is the CPU route, not counted).  Yields the
+    Counter."""
+    from repro_torch.core import dyad
+    from repro_torch.kernels import dyad_mm, flash_attn
+    from repro_torch.layers import attention, mlp
+
+    calls = collections.Counter()
+    targets = [(mod, name) for mod in (dyad_mm, flash_attn)
+               for name in dir(mod) if name.endswith("_plain")]
+    targets += [(attention, "_naive_sdpa"), (mlp, "_fused_dyad_mlp"),
+                (dyad, "_bmm")]
+    saved = []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+
+        def watched(*a, _fn=fn, _name=f"{mod.__name__}.{name}", **kw):
+            if any(torch.is_tensor(t) and t.is_cuda
+                   for t in (*a, *kw.values())):
+                calls[_name] += 1
+            return _fn(*a, **kw)
+        saved.append((mod, name, fn))
+        setattr(mod, name, watched)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _family_cfg(arch, **over):
+    """``arch``'s published config served on the card: flash attention on
+    (the reference's configs leave it off, which serves through plain
+    torch attention) and the kernel-routed linear of the config's own
+    scope (``ff+ssm`` for Mamba2 and Hymba)."""
+    from repro_torch import configs
+
+    cfg = configs.get(arch, **over)
+    return cfg.replace(flash_attn=True, linear=cfg.linear.replace(
+        use_kernel=True, fuse_ff_kernel=True))
+
+
+def _kernel_launches(per_kernel: dict) -> dict:
+    """The profile's launches by kernel name, for each wrapper of
+    KERNEL_NAMES."""
+    return {w: sum(n for name, (_, n) in per_kernel.items()
+                   if re.search(rf"\b({pat})\b", name))
+            for w, pat in KERNEL_NAMES.items()}
+
+
+def _router_margin(torch, model, cfg, params, prompts, toks, steps: int,
+                   max_len: int) -> float:
+    """The smallest gap between a token's k-th and (k+1)-th router
+    probabilities (the real experts') over every MoE layer of the CPU's
+    teacher-forced prefill and its first ``steps`` decode steps, on the
+    CPU's own tokens."""
+    from repro_torch.layers import moe
+
+    route, gaps = moe._route, []
+
+    def recorded(params_, x, n_experts, top_k):
+        out = route(params_, x, n_experts, top_k)
+        vals = out[2][..., :n_experts].sort(dim=-1, descending=True).values
+        gaps.append(float((vals[..., top_k - 1] - vals[..., top_k]).min()))
+        return out
+
+    moe._route = recorded
+    try:
+        with torch.no_grad():
+            cache = model.init_cache(cfg, prompts.shape[0], max_len,
+                                     torch.float32, torch.device("cpu"))
+            _, cache = model.prefill(cfg, params, cache, prompts)
+            for i in range(steps):
+                _, cache = model.decode_step(cfg, params, cache,
+                                             toks[:, i:i + 1])
+    finally:
+        moe._route = route
+    return min(gaps)
 
 
 def _check_integer_tc(torch, gen, dyad_mm, dyad_cases, bwd_cases, failures):
@@ -1139,13 +1512,14 @@ def _split_key(mangled: str):
                  if re.search(pat, mangled)), None)
 
 
-def _sass_split(build) -> bool:
+def _sass_split(build, dumps: dict) -> bool:
     """Phase 2 for the split-TF32 routes (dyad_mm_blocks past the decode
     rows, dyad_mm_blocks_two, dyad_mm_dgrad_two, dyad_mm_dgrad,
     dyad_mm_wgrad, flash_prefill and flash_prefill_grads in fp32), the
     quantized GEMMs' fp32-x route (two tf32 products a pair) and their
-    bf16 twins: each instantiation's HGMMA and FFMA in the SASS and
-    ptxas's registers, spills and wgmma serialisation, one line.
+    bf16 twins: each instantiation's HGMMA and FFMA in the SASS (``dumps``:
+    each library's, by source) and ptxas's registers, spills and wgmma
+    serialisation, one line.
     Fails without HGMMA in each, with a spill or a serialised wgmma, with
     any FFMA in the fp32 GEMMs (their partial sums are added with FADD,
     the quantized one's scales multiply with FMUL),
@@ -1159,7 +1533,7 @@ def _sass_split(build) -> bool:
     for source in ("dyad_mm", "flash_prefill", "dyad_dgrad", "flash_bwd",
                    "dyad_dgrad_fused", "dyad_wgrad", "dyad_mm_two",
                    "dyad_mm_q"):
-        for chunk in build.sass(source).split("Function : ")[1:]:
+        for chunk in dumps[source].split("Function : ")[1:]:
             key = _split_key(chunk.split(None, 1)[0])
             if key:
                 got[key] = (len(re.findall(r"\bHGMMA\.", chunk)),
@@ -2354,11 +2728,16 @@ def main() -> int:
     # routes on the tensor cores (HGMMA is wgmma's SASS), their fp32 routes
     # on FMA but those of SPLIT_SOURCES (split TF32, HGMMA too; dyad_mm's
     # decode rows keep FMA)
-    sass = {name: tuple(len(re.findall(op, build.sass(name)))
+    # each library's SASS, dumped once, all at a time (cuobjdump is one
+    # process a library, some seconds each)
+    names = ("dyad_mm", "dyad_mm_two", "dyad_dgrad", "dyad_dgrad_fused",
+             "dyad_wgrad", "dyad_ff", "dyad_mm_q", "flash_prefill",
+             "flash_bwd")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        dumps = dict(zip(names, pool.map(build.sass, names)))
+    sass = {name: tuple(len(re.findall(op, dumps[name]))
                         for op in (r"\bHGMMA\.", r"\bFFMA\b"))
-            for name in ("dyad_mm", "dyad_mm_two", "dyad_dgrad",
-                         "dyad_dgrad_fused", "dyad_wgrad", "dyad_ff",
-                         "dyad_mm_q", "flash_prefill", "flash_bwd")}
+            for name in names}
     bad = [name for name, (hgmma, ffma) in sass.items()
            if not hgmma or not (ffma or name in SPLIT_SOURCES)]
     log("sass", **{name: f"HGMMA:{h},FFMA:{f}"
@@ -2399,13 +2778,13 @@ def main() -> int:
             return 1
     if not _decode_occupancy(torch, build, flash_attn):
         return 1
-    if not _sass_split(build):
+    if not _sass_split(build, dumps):
         return 1
     per_fn = {}
     for source, kernel in (("dyad_ff", "dyad_ff_tc_kernel"),
                            ("dyad_mm_q", "dyad_mm_q_tc_kernel"),
                            ("dyad_mm_q", "dyad_mm_q_tf32_kernel")):
-        per_fn.update(_sass_by_function(build.sass(source), kernel))
+        per_fn.update(_sass_by_function(dumps[source], kernel))
     missing = [k for k, c in per_fn.items() if not c] or (
         [] if len(per_fn) == 10 else ["instantiations"])
     log("sass_tc", **{k: f"HGMMA:{c}" for k, c in per_fn.items()},
@@ -3062,6 +3441,8 @@ def main() -> int:
     _check_ring_decode(torch, aside_ring, flash_attn, failures, max_err)
     _check_prefill_views_fp32(torch, aside_split, flash_attn, check, failures)
     _check_split_precision(torch, aside_split, dyad_mm, flash_attn, failures)
+    _check_families(torch, torch.Generator(device=dev).manual_seed(
+        args.seed + 7), dyad_mm, flash_attn, check, max_err)
     log("check", split_tf32_f64_ratio_max=json.dumps(
         {k: round(v, 3) for k, v in f64_ratio.items()},
         separators=(",", ":")), gate=F64_GATE)
@@ -3245,6 +3626,7 @@ def main() -> int:
     _time_quant(torch, randn, record, time_ms)
     _time_ff_fp32(torch, randn, record, time_ms)
     _time_qwen3_attn(torch, randn, record, time_ms)
+    _time_families(torch, randn, record, time_ms)
     del flush, sout
 
     # -- 5. the OPT serving path ---------------------------------------------
@@ -3348,9 +3730,14 @@ def main() -> int:
     # -- 14. spans, route events and seeded faults ----------------------------
     if not run.observe():
         return 1
+
+    # -- 15. the moe, ssm and hybrid families --------------------------------
+    fam = run.families()
+    if fam is None:
+        return 1
     log("run", seconds=f"{time.perf_counter() - t_run:.1f}")
 
-    # -- 15. the kernels line ------------------------------------------------
+    # -- 16. the kernels line ------------------------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
     files = {"dyad_mm_blocks": ("dyad_mm.cu", "dyad_mm.py:286"),
              "flash_prefill": ("flash_prefill.cu", "flash_attn.py:288"),
@@ -3394,7 +3781,13 @@ def main() -> int:
                  "dyad_mm_blocks_q": qopt,
                  "dyad_mm_blocks_q@split_up": qcont["split"],
                  "dyad_ff_fused_q": qcont["continuous"],
-                 "dyad_mm_blocks_two_q": qcont["split"]}
+                 "dyad_mm_blocks_two_q": qcont["split"],
+                 "dyad_mm_blocks@mamba2": fam["mamba2_780m_batch"],
+                 "dyad_mm_blocks@hymba": fam["hymba_1_5b_batch"],
+                 "dyad_ff_fused@hymba": fam["hymba_1_5b_batch"],
+                 "dyad_ff_fused@moe_shared": fam["qwen2_moe_a2_7b_batch"],
+                 "flash_prefill@hymba_window": fam["hymba_1_5b_batch"],
+                 "flash_decode@hymba_ring": fam["hymba_1_5b_batch"]}
     line = []
     # every timed record, under its kernel's name or a shape's
     # (``name@shape``); a record at OPT's training rows counts the OPT
@@ -3424,6 +3817,8 @@ def main() -> int:
             "launches_opt_quant_serve": qopt[base],
             "launches_qwen3_quant_continuous": qcont["continuous"][base],
             "launches_qwen3_quant_split_2_layers": qcont["split"][base],
+            **{f"launches_{run_name}": counts[base]
+               for run_name, counts in fam.items()},
             "max_abs_err": max_err[base], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": by, "library_ms": tm["library_ms"],
@@ -3852,16 +4247,17 @@ class _Run:
     def _profiled(self, phase, cfg, params, prompts, max_new, kw, route,
                   ff=None, whole=None):
         """A warm-up, the trace with its launch counts checked, then a
-        profiled rerun over CONT's window of engine steps.  The whole run
-        launches some 700,000 kernels, which the profiler takes minutes to
-        record and sort: it traces the window, device activity only,
-        against the same window's wall time in the unprofiled run (the
-        engine schedules both runs alike).  The profiler drops a few kernel
-        records in some windows, as out of its time range, whatever its
-        buffer size (fewer with PROFILE_MARGIN_S idle at each end of the
-        window); so a profile counts only if its decode kernel's launches
-        (``route``: paged, int8 or dense), and those of each kernel name of
-        ``whole`` ({name: wrapper}), equal the window's counted calls.  It is taken again up to PROFILE_TRIES
+        profiled rerun over CONT's window of engine steps, ended there.
+        The whole run launches some 700,000 kernels, which the profiler
+        takes minutes to record and sort: it traces the window, device
+        activity only, against the same window's wall time in the
+        unprofiled run (the engine schedules both runs alike).  The
+        profiler drops a few kernel records in some windows, as out of its
+        time range, whatever its buffer size (fewer with PROFILE_MARGIN_S
+        idle at each end of the window); so a profile counts only if its
+        decode kernel's launches (``route``: paged, int8 or dense), and
+        those of each kernel name of ``whole`` ({name: wrapper}), equal the
+        window's counted calls.  It is taken again up to PROFILE_TRIES
         times, and the phase fails if none is whole.  Returns (run,
         profiled run, {kernel: (ms, launches)}), None on a failure."""
         from torch.profiler import ProfilerActivity, profile
@@ -3881,7 +4277,8 @@ class _Run:
         for attempt in range(1, PROFILE_TRIES + 1):
             prof = profile(activities=[ProfilerActivity.CUDA])
             traced = self._serve_trace(cfg, params, prompts, max_new,
-                                       window=window, prof=prof, **kw)
+                                       window=window, prof=prof,
+                                       window_only=True, **kw)
             per_kernel = _log_profile(prof, run["window_s"] * 1e3,
                                       phase + "_profile")
             seen = {k: sum(n for name, (_, n) in per_kernel.items()
@@ -4007,6 +4404,237 @@ class _Run:
                                       prompts, card["tokens"],
                                       host["tokens"], LOGIT_TOL_INT8,
                                       device=self.cpu))
+
+    # -- 15. the moe, ssm and hybrid families --------------------------------
+    def _busy(self, prof, wall_ms, phase, counted):
+        """Log a profile's busy share and its launches by kernel name; a
+        wrapper the run counted must show launches of its kernels.
+        Returns (ok, device-busy ms, launches by wrapper)."""
+        per_kernel = _log_profile(prof, wall_ms, phase)
+        seen = _kernel_launches(per_kernel)
+        busy = sum(ms for ms, _ in per_kernel.values())
+        missing = [w for w, n in counted.items()
+                   if n and w in seen and not seen[w]]
+        log(phase, kernel_launches=json.dumps(seen, separators=(",", ":")),
+            counted=json.dumps({k: v for k, v in counted.items() if v},
+                               separators=(",", ":")),
+            missing=",".join(missing) or "none", ok=bool(per_kernel)
+            and not missing)
+        return bool(per_kernel) and not missing, busy, seen
+
+    def family_serve(self, arch, plain):
+        """``Engine.generate`` at full width and depth, counted (the
+        kernels FAMILY gives the route, exactly; no plain version on the
+        card, ``plain`` the watch's counter), then a profiled generate of
+        FAMILY_PROFILE_NEW tokens.  Returns (launches, params), None on a
+        failure."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.models import model
+        from repro_torch.serve.engine import Engine
+
+        torch, dev = self.torch, self.dev
+        fam = FAMILY[arch]
+        B, S, new = fam["batch"]
+        cfg = _family_cfg(arch)
+        pgen = torch.Generator(device=dev).manual_seed(self.seed)
+        params = model.init_params(cfg, pgen, dev)
+        prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=pgen,
+                                device=dev)
+        engine = Engine(cfg, params, max_len=S + new, device=dev)
+        engine.generate(prompts, 2)           # warm-up: prefill and decode
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        plain.clear()
+        self.zero_counts()
+        toks = engine.generate(prompts, new)
+        launches = self.counts()
+        t = engine.timings
+        want = self.want(fam["per_layer"](new, new - 1), cfg.n_layers)
+        shape_ok = (tuple(toks.shape) == (B, new) and int(toks.min()) >= 0
+                    and int(toks.max()) < cfg.vocab_size)
+        # the profile: a generate of FAMILY_PROFILE_NEW tokens, against
+        # the wall of the same generate unprofiled (the whole one's 100,000
+        # to 150,000 kernel records take the profiler tens of seconds)
+        pnew = min(FAMILY_PROFILE_NEW, new)
+        engine.generate(prompts, pnew)
+        wall_ms = (engine.timings["prefill_s"]
+                   + engine.timings["decode_s"]) * 1e3
+        self.zero_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            engine.generate(prompts, pnew)
+            time.sleep(PROFILE_MARGIN_S)
+        ok, busy, _ = self._busy(prof, wall_ms, f"{arch}_profile",
+                                 self.counts())
+        log(f"{arch}_batch", arch=cfg.name, layers=cfg.n_layers,
+            d_model=cfg.d_model, dtype=cfg.compute_dtype,
+            scope=cfg.linear.scope, batch=B, prompt=S, new=new,
+            profiled_new=pnew,
+            window=cfg.window, prefill_s=f"{t['prefill_s']:.4f}",
+            decode_s=f"{t['decode_s']:.4f}",
+            decode_tok_s=f"{B * (new - 1) / t['decode_s']:.1f}",
+            max_memory_allocated_gb=
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+            device_busy_share=f"{busy / wall_ms:.3f}",
+            distinct_tokens=len(set(toks.flatten().tolist())),
+            launches=json.dumps({k: v for k, v in launches.items() if v},
+                                separators=(",", ":")),
+            plain_on_card=json.dumps(dict(plain)), tokens_ok=shape_ok)
+        if launches != want or not shape_ok or plain or not ok:
+            log(f"{arch}_batch", failed=f"launches {launches} want {want}, "
+                f"plain on the card {dict(plain)}")
+            return None
+        del engine
+        return launches, params
+
+    def family_continuous(self, arch, params, plain):
+        """The continuous engine at full width and depth on FAM_CONT's (or
+        HYMBA_CONT's) traffic, launch counts exact, no plain version on the
+        card, then a profiled window of engine steps.  Returns the launch
+        counts, None on a failure."""
+        import numpy as np
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        fam = FAMILY[arch]
+        cfg = _family_cfg(arch)
+        if arch == "hymba_1_5b":
+            spec = HYMBA_CONT
+            prompts, max_new = _trace(cfg.vocab_size, self.seed, spec)
+            rng = np.random.default_rng(self.seed + 1)
+            lo, hi = spec["tail_long"]
+            # every other prompt past the window
+            prompts = [p if i % 2 == 0 else np.concatenate(
+                [p[:spec["prefix"]], rng.integers(
+                    0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))])
+                .astype(np.int32) for i, p in enumerate(prompts)]
+            kw = dict(n_slots=spec["slots"], max_len=spec["max_len"])
+        else:
+            spec = FAM_CONT
+            prompts, max_new = _trace(cfg.vocab_size, self.seed, spec)
+            kw = dict(n_slots=spec["slots"], max_len=spec["max_len"])
+            if fam["cont_route"] == "paged":
+                kw.update(page_size=spec["page_size"],
+                          prefill_chunk=spec["chunk"], prefix_cache=True)
+        self._serve_trace(cfg, params, prompts[:2], [4, 4], **kw)  # warm-up
+        plain.clear()
+        torch.cuda.reset_peak_memory_stats()
+        window = spec["profile_steps"]
+        run = self._serve_trace(cfg, params, prompts, max_new, window=window,
+                                **kw)
+        ok = self._check_trace(f"{arch}_continuous", cfg, run,
+                               fam["cont_route"], ff=fam["cont_ff"])
+        lengths = sorted(len(p) for p in prompts)
+        log(f"{arch}_continuous", prompt_lengths=",".join(map(str, lengths)),
+            max_memory_allocated_gb=
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+            plain_on_card=json.dumps(dict(plain)))
+        if not ok or plain:
+            return None
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        traced = self._serve_trace(cfg, params, prompts, max_new,
+                                   window=window, prof=prof,
+                                   window_only=True, **kw)
+        ok, busy, _ = self._busy(prof, run["window_s"] * 1e3,
+                                 f"{arch}_continuous_profile",
+                                 traced["window_launches"])
+        log(f"{arch}_continuous_profile",
+            steps=f"{window[0]}-{window[1] - 1}",
+            of_steps=run["engine_steps"],
+            window_wall_ms=f"{run['window_s'] * 1e3:.3f}",
+            device_busy_share=f"{busy / (run['window_s'] * 1e3):.3f}")
+        return run["launches"] if ok else None
+
+    def family_parity(self, arch):
+        """Greedy tokens on the card against the CPU port at full width and
+        FAM_PARITY's 2 layers in fp32, the same params (ff and expert
+        weights x 4) and prompts: equal, or parting only after a step
+        whose CPU top-2 logit margin is below LOGIT_TOL x max(|logits|, 1)
+        or, for a MoE model, after a router tie (a token's k-th and
+        (k+1)-th probabilities within ROUTER_TIE) at that step or before.
+        The router's smallest gap is printed either way."""
+        from repro_torch.models import model
+        from repro_torch.serve.engine import Engine
+
+        torch, dev, cpu, fp = self.torch, self.dev, self.cpu, FAM_PARITY
+        # the chunked einsum attention is the reference's CPU route past
+        # attn_chunk keys, not ported (ROADMAP A.4); the card's flash
+        # route never reads the chunk
+        cfg = _family_cfg(arch, n_layers=fp["layers"],
+                          compute_dtype="float32", attn_chunk=None)
+        S = fp["S_hymba"] if arch == "hymba_1_5b" else fp["S"]
+        B, new = fp["B"], fp["new"]
+        pgen = torch.Generator(device=dev).manual_seed(self.seed)
+        params = _scale_ff(model.init_params(cfg, pgen, dev),
+                           fp["ff_scale"])
+        prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=pgen,
+                                device=dev)
+        params_cpu = _tree_to(params, cpu)
+        with torch.no_grad():
+            gl, _ = model.prefill(cfg, params, model.init_cache(
+                cfg, B, S + new, torch.float32, dev), prompts,
+                last_only=False)
+            cl, _ = model.prefill(cfg, params_cpu, model.init_cache(
+                cfg, B, S + new, torch.float32, cpu), prompts.cpu(),
+                last_only=False)
+        finite = bool(torch.isfinite(gl).all())
+        logits_ok, err, bound = _close(gl.cpu(), cl, LOGIT_TOL)
+        gt = Engine(cfg, params, max_len=S + new, device=dev).generate(
+            prompts, new).cpu()
+        ct = Engine(cfg, params_cpu, max_len=S + new, device=cpu).generate(
+            prompts.cpu(), new)
+        same = bool((gt == ct).all())
+        step = None if same else int((gt != ct).any(dim=0).nonzero()[0])
+        margin = router = None
+        if not same:
+            margin = _top2_margin(model, cfg, params_cpu, prompts.cpu(), ct,
+                                  step, S + new)
+        if cfg.family == "moe":
+            router = _router_margin(torch, model, cfg, params_cpu,
+                                    prompts.cpu(), ct,
+                                    new - 1 if same else step, S + new)
+        tie_ok = same or (margin is not None and margin < bound) or (
+            router is not None and router < ROUTER_TIE)
+        ok = logits_ok and finite and tie_ok
+        log(f"{arch}_parity", arch=cfg.name, layers=cfg.n_layers,
+            dtype=cfg.compute_dtype, batch=B, prompt=S, new=new,
+            logits_max_abs_err=f"{err:.3e}", tol=f"{bound:.3e}",
+            finite=finite, tokens_equal=same, first_parting_step=step,
+            top2_margin=margin, router_min_gap=router,
+            router_tie=ROUTER_TIE if cfg.family == "moe" else None,
+            distinct_tokens=len(set(ct.flatten().tolist())), ok=ok)
+        return ok
+
+    def families(self):
+        """Phase 15: Qwen1.5-MoE-A2.7B, Mamba2-780m and Hymba-1.5B served
+        at full width and depth (batch and continuous), then each at 2
+        layers on the card against the CPU port.  Returns {run: launch
+        counts}, None on a failure."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        out = {}
+        with _plain_watch(torch) as plain:
+            for arch in FAMILY:
+                got = self.family_serve(arch, plain)
+                if got is None:
+                    return None
+                # no reference to one model's params outlives its runs, so
+                # the next model's peak memory is its own
+                out[f"{arch}_batch"], params = got
+                got = None
+                cont = self.family_continuous(arch, params, plain)
+                if cont is None:
+                    return None
+                out[f"{arch}_continuous"] = cont
+                del params
+                torch.cuda.empty_cache()
+        for arch in FAMILY:
+            if not self.family_parity(arch):
+                return None
+            torch.cuda.empty_cache()
+        log("families", seconds=f"{time.perf_counter() - t0:.1f}")
+        return out
 
     # -- 13. quantized serving ---------------------------------------------
     def _quant_setup(self, spec, qdtype, **over):
@@ -4453,14 +5081,16 @@ class _Run:
         return True
 
     def _serve_trace(self, cfg, params, prompts, max_new, env=None,
-                     device=None, window=None, prof=None, **kw):
+                     device=None, window=None, prof=None, window_only=False,
+                     **kw):
         """One run of the trace through ``ContinuousBatchingEngine``, with
         the launch counters set to 0 just before the first submit and read
         after the drain.  Prefill time is the host clock around each
         prefill call, synchronised; decode time the engine's
         ``decode_step_s`` samples (each ends in the step's token copy).
         ``window`` (a, b): the wall time of engine steps a to b - 1,
-        synchronised at both ends, with ``prof`` running over them."""
+        synchronised at both ends, with ``prof`` running over them;
+        ``window_only`` ends the run there (no tokens: None)."""
         from repro_torch.serve.engine import ContinuousBatchingEngine
 
         torch = self.torch
@@ -4505,9 +5135,12 @@ class _Run:
                     elif prof is not None:
                         time.sleep(PROFILE_MARGIN_S)
                         prof.stop()
+                    if window_only and n_steps == window[1]:
+                        break
                 eng.step()
                 n_steps += 1
-            res = eng.run()                   # drained: collects the tokens
+            # drained: collects the tokens
+            res = None if window_only else eng.run()
             if device.type == "cuda":
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -4523,7 +5156,8 @@ class _Run:
         if window and len(bounds) != 2:
             raise RuntimeError(f"the run took {n_steps} engine steps, fewer "
                                f"than the profiled window {window}")
-        return {"tokens": [res[u] for u in uids], "launches": launches,
+        return {"tokens": res and [res[u] for u in uids],
+                "launches": launches,
                 "wall_s": wall, "prefill": prefill, "steps": steps.count,
                 "engine_steps": n_steps,
                 "window_s": (bounds[window[1]] - bounds[window[0]]
@@ -4548,11 +5182,13 @@ class _Run:
         counted = r["device"].type == "cuda"
         want = dict.fromkeys(self.wrappers, 0)
         if counted:
-            decode = {"paged": "flash_decode_paged", "dense": "flash_decode",
-                      "int8": "flash_decode_paged_int8"}[route]
             calls = r["steps"] + pf["one"] + pf["many"]
-            want.update({decode: n * (r["steps"] + pf["one"]),
-                         "flash_prefill": n * pf["many"]})
+            if route is not None:        # None: a model without attention
+                decode = {"paged": "flash_decode_paged",
+                          "dense": "flash_decode",
+                          "int8": "flash_decode_paged_int8"}[route]
+                want.update({decode: n * (r["steps"] + pf["one"]),
+                             "flash_prefill": n * pf["many"]})
             want.update({k: v * n * calls for k, v in
                          (ff or {"dyad_ff_fused": 1}).items()})
         toks = r["tokens"]
@@ -4564,7 +5200,8 @@ class _Run:
                                               "histograms"))
         decode_tok = n_tok - len(toks)         # first tokens come from prefill
         log(phase, arch=cfg.name, layers=n, dtype=cfg.compute_dtype,
-            kv=route, device=r["device"].type, requests=len(toks),
+            kv=route or "none", device=r["device"].type,
+            requests=len(toks),
             tokens=n_tok, distinct_tokens=len({x for t in toks for x in t}),
             wall_s=f"{r['wall_s']:.3f}",
             tok_s=f"{n_tok / r['wall_s']:.1f}",
@@ -4765,11 +5402,14 @@ def _tree_to(tree, device):
 
 
 def _scale_ff(params, scale: float):
-    """``params`` with every ff weight (w1, w2) multiplied by ``scale``."""
-    layers = [dict(lp, mlp={name: {k: v * scale if k in ("w1", "w2") else v
-                                   for k, v in proj.items()}
-                            for name, proj in lp["mlp"].items()})
-              for lp in params["layers"]]
+    """``params`` with every DYAD weight (w1, w2) of the ff modules, the
+    routed experts and the shared expert multiplied by ``scale``."""
+    def walk(node):
+        return {k: (walk(v) if isinstance(v, dict)
+                    else v * scale if k in ("w1", "w2") else v)
+                for k, v in node.items()}
+    layers = [{k: walk(v) if k in ("mlp", "moe") else v
+               for k, v in lp.items()} for lp in params["layers"]]
     return dict(params, layers=layers)
 
 

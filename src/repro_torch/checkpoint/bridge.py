@@ -8,7 +8,13 @@ dict keys such as ``layers/mlp/up/w1`` ``(n_layers, n, d_out, d_in)``,
 ``pos/table`` and ``final_norm/scale`` for params, and
 ``params/layers/...``, ``opt/m/layers/...``, ``opt/v/...``, ``opt/step``
 and ``opt/master/...`` for a train state.  The port keeps every ``layers``
-subtree as a list of per-layer dicts.  :func:`to_flat` turns any port tree
+subtree as a list of per-layer dicts; any other axis stays a tensor axis,
+so a MoE layer's routed experts keep their leading expert axis
+(``layers/moe/experts/up/w1`` is ``(n_layers, E, n, d_out, d_in)`` in the
+reference and ``(E, n, d_out, d_in)`` in each port layer), beside the
+router, the shared expert and its gate, and the SSM mixer's ``A_log``,
+``dt_bias``, ``D``, ``conv``, ``norm``, ``wbc`` and ``wdt``.
+:func:`to_flat` turns any port tree
 into that flat dict of numpy arrays (each list stacked on a leading axis;
 bf16 and fp8 leaves are written as fp32, which numpy can hold exactly, and
 cast back by the reader); :func:`from_flat` is its inverse, onto a device.

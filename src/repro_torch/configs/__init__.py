@@ -1,5 +1,6 @@
 """Architecture configs the port runs: the paper's OPT and Pythia models,
-and Qwen3-0.6B."""
+Qwen3-0.6B, and the moe (Qwen1.5-MoE-A2.7B, Llama-4 Maverick), ssm
+(Mamba2-780m) and hybrid (Hymba-1.5B) families."""
 from repro_torch.configs.base import (  # noqa: F401
     DENSE,
     DYAD_DEFAULT,

@@ -16,9 +16,12 @@ DENSE = factory.DENSE
 
 # the paper's architectures
 PAPER_ARCHS = ["opt125m", "opt350m", "pythia160m"]
-# every architecture the port runs: the paper's, and the bias-free lm
-# config whose ff takes the megakernel
-PORTED_ARCHS = PAPER_ARCHS + ["qwen3_0_6b"]
+# every architecture the port runs: the paper's, the bias-free lm config
+# whose ff takes the megakernel, and the moe, ssm and hybrid families'
+# (Maverick at smoke size only: its 400 B parameters need several cards)
+PORTED_ARCHS = PAPER_ARCHS + ["qwen3_0_6b", "qwen2_moe_a2_7b",
+                              "llama4_maverick_400b_a17b", "mamba2_780m",
+                              "hymba_1_5b"]
 
 
 def linear_cfg(spec: str) -> factory.LinearCfg:
@@ -26,7 +29,10 @@ def linear_cfg(spec: str) -> factory.LinearCfg:
     "dyad_it_4_kernel" (route forward and backward through the
     hand-written kernels) | "dyad_it_4_kernel_einsumbwd" (kernel forward,
     einsum-VJP oracle backward) | the fused and quantized tokens ("fused",
-    "ffused", "w8", "wfp8"), which parse as in the reference."""
+    "ffused", "w8", "wfp8"), which parse as in the reference.  Every
+    spec gets scope ``ff``, as the reference's parser gives it: a config
+    whose own linear has scope ``ff+ssm`` (Mamba2, Hymba) loses its SSM
+    projections' DYAD under ``--linear`` (ROADMAP C.12)."""
     if spec == "dense":
         return DENSE
     parts = spec.split("_")

@@ -19,12 +19,15 @@ plain route (:func:`_naive_sdpa`):
   case attends a per-slot dense view gathered over ``NB * P`` rows
   (dequantized for int8).
 
+A prompt that fills a window-bounded dense ring (S > 1 and S >= L, the
+batch and per-slot forms) attends its own in-flight K/V at ``idx +
+arange(S)`` and leaves the last L rows in the ring at their slots.
 ``chunk`` is consulted where the reference consults it, on the plain route
 only; the chunked einsum paths it selects there (``S > chunk``, or keys
-beyond ``chunk``), cross-attention and the S >= L windowed-ring prefill
-raise ``NotImplementedError``.  On the flash route the ``kernel_nan``
-fault site (route ``attn_flash``) poisons the attention output; the
-reference's ``attn_tp`` route events wait for tensor parallelism (A.11).
+beyond ``chunk``) and cross-attention raise ``NotImplementedError``.  On
+the flash route the ``kernel_nan`` fault site (route ``attn_flash``)
+poisons the attention output; the reference's ``attn_tp`` route events
+wait for tensor parallelism (A.11).
 
 A cache is a dict: ``{"k", "v": (B, L, K, h), "idx"}`` (dense) or
 ``{"pages_k", "pages_v": (NP, P, K, h), ["scales_k", "scales_v":
@@ -152,6 +155,10 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
 
     new_cache = None
     paged = cache is not None and "block_table" in cache
+    # a prompt that fills a window-bounded ring (S >= L) attends its own
+    # in-flight roped K/V, keys at idx + arange(S), not the ring
+    inflight = (cache is not None and not paged and S > 1
+                and S >= cache["k"].shape[1])
     if paged:
         new_cache, k, v = _paged_write(cache, k, v, S, once,
                                        gather=not (use_flash and S == 1))
@@ -181,6 +188,9 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
             "per-batch (B, S) positions without a cache: the reference "
             "takes its einsum path here, which the flash route does not "
             "(ROADMAP A.9)")
+    elif use_flash and inflight and causal:
+        o = kops.flash_attention(qg, k, v, idx, idx, causal=True,
+                                 window=window)
     elif use_flash and cache is not None and causal:
         # S < L cache prefill over the post-write cache (or the gathered
         # paged view): slot j holds position j, queries sit at
@@ -203,6 +213,8 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
         T = k.shape[1]
         if cache is None:
             kpos = torch.arange(T, device=dev)
+        elif inflight:
+            kpos = offset_positions(idx, S, dev)
         else:
             kpos = once("kpos", lambda: _key_positions(idx, S, T, dev,
                                                        ring=not paged))
@@ -240,15 +252,25 @@ def _key_positions(idx, S: int, T: int, device, ring: bool):
 
 def _dense_write(cache, k, v, S: int, once):
     """Write the new rows into a dense ring.  Returns (new cache, keys,
-    values): the post-write ring."""
+    values): the post-write ring, or for a prompt that fills it (S > 1 and
+    S >= L) the in-flight rows, of which the ring keeps the last L at
+    their slots (position % L), so decode goes on across the wrap.  That
+    prefill assumes a fresh stream: its queries reach no key written
+    before ``idx``."""
     idx = cache["idx"]
     ck, cv = cache["k"], cache["v"]
     B, L = ck.shape[0], ck.shape[1]
     dev = ck.device
-    if S >= L:
-        raise NotImplementedError(
-            "the S >= L windowed-ring prefill is not ported yet "
-            "(ROADMAP A.8)")
+    if S > 1 and S >= L:
+        sel = once("ring_sel", lambda: _ring_select(idx, S, L, dev))
+        if isinstance(idx, int):
+            ck.copy_(k[:, sel])
+            cv.copy_(v[:, sel])
+        else:
+            rows = torch.arange(B, device=dev)[:, None]
+            ck.copy_(k[rows, sel])
+            cv.copy_(v[rows, sel])
+        return {"k": ck, "v": cv, "idx": idx + S}, k, v
     if isinstance(idx, int):
         # one write offset for the whole batch (the batch Engine)
         if S == 1:
@@ -268,6 +290,17 @@ def _dense_write(cache, k, v, S: int, once):
         ck[rows, cols] = k.to(ck.dtype)
         cv[rows, cols] = v.to(cv.dtype)
     return {"k": ck, "v": cv, "idx": idx + S}, ck, cv
+
+
+def _ring_select(idx, S: int, L: int, device):
+    """The in-flight rows a ring of L slots keeps after a prefill of
+    S >= L rows at ``idx``: slot j holds row ``S - L + (j - idx - S) mod
+    L``, the last L positions each at its ``position % L``.  ``(L,)`` for a
+    host int, ``(B, L)`` for a per-slot ``(B,)`` tensor."""
+    j = torch.arange(L, device=device)
+    if isinstance(idx, int):
+        return S - L + (j - idx - S) % L
+    return S - L + torch.remainder(j - idx.to(torch.int64)[:, None] - S, L)
 
 
 def _ring_rows(idx, S: int, B: int, L: int, device):

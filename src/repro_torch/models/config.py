@@ -1,4 +1,6 @@
-"""Model configuration (the ``lm`` family fields of ``repro.models.config``)."""
+"""Model configuration (port of ``repro.models.config``: the ``lm``, ``moe``,
+``ssm`` and ``hybrid`` families' fields; the encoder-decoder and vlm
+fields wait for ROADMAP A.13)."""
 from __future__ import annotations
 
 import dataclasses
@@ -42,6 +44,22 @@ class ModelCfg:
     max_position: int = 1 << 20
     tie_embeddings: bool = False
     iota_embed: bool = False
+    # moe
+    n_experts: int = 0
+    n_experts_padded: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    expert_d_ff: int = 0
+    capacity_factor: float = 1.25
+    moe_chunk: Optional[int] = None
+    router_aux_coef: float = 0.01
+    # ssm (mamba2 / hybrid)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_groups: int = 1
+    conv_width: int = 4
+    ssd_chunk: int = 256
     # the paper's knob
     linear: factory.LinearCfg = factory.DENSE
     # precision & memory
@@ -69,6 +87,10 @@ class ModelCfg:
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def e_pad(self) -> int:
+        return self.n_experts_padded or self.n_experts
 
     def replace(self, **kw) -> "ModelCfg":
         return dataclasses.replace(self, **kw)

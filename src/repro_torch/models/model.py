@@ -1,9 +1,11 @@
-"""The ``lm`` model: init / forward / loss / cache / prefill / decode_step
-(port of ``repro.models.model``).  Parameters are nested dicts of tensors
+"""The decoder-only model: init / forward / loss / cache / prefill /
+decode_step (port of ``repro.models.model`` for the families ``lm``,
+``moe``, ``ssm`` and ``hybrid``).  Parameters are nested dicts of tensors
 with ``layers`` a list of per-layer dicts; the cache is a list of per-layer
 dicts.  ``cfg.remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` with
-``nothing_saveable``)."""
+``nothing_saveable``).  The families ``encdec`` and ``vlm`` wait for
+ROADMAP A.13."""
 from __future__ import annotations
 
 import torch
@@ -17,10 +19,11 @@ from repro_torch.models.config import ModelCfg
 
 
 def _kind(cfg: ModelCfg) -> str:
-    if cfg.family != "lm":
+    """The block kind of a ported family: the family's own name."""
+    if cfg.family not in blocks.KINDS:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP A.13)")
-    return "lm"
+    return cfg.family
 
 
 def init_params(cfg: ModelCfg, generator: torch.Generator,
@@ -63,37 +66,50 @@ def _logits(cfg: ModelCfg, params, x):
     return embed_lib.unembed(params.get("head", params["embed"]), x)
 
 
-def forward(cfg: ModelCfg, params, tokens, *, last_only: bool = False):
+def forward(cfg: ModelCfg, params, tokens, *, last_only: bool = False,
+            with_aux: bool = False):
     """Full-sequence forward without a cache.  tokens: (B, S) int.
-    Returns fp32 logits (B, S, V), or (B, 1, V) with ``last_only``."""
+    Returns fp32 logits (B, S, V), or (B, 1, V) with ``last_only``; with
+    ``with_aux`` (logits, aux): the MoE layers' load-balance terms summed
+    (a 0-dim fp32 tensor, 0 for a model without a router)."""
     kind = _kind(cfg)
     x, _ = _embed_inputs(cfg, params, tokens)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = None
     for lp in params["layers"]:
         if remat:
-            x = checkpoint(lambda h, lp=lp: blocks.apply_block(
-                lp, h, cfg, kind)[0], x, use_reentrant=False)
+            x, a = checkpoint(lambda h, lp=lp: blocks.apply_block(
+                lp, h, cfg, kind)[::2], x, use_reentrant=False)
         else:
-            x, _ = blocks.apply_block(lp, x, cfg, kind)
+            x, _, a = blocks.apply_block(lp, x, cfg, kind)
+        if a is not None:                 # the MoE router's term
+            aux = a if aux is None else aux + a
     if last_only:
         x = x[:, -1:]
-    return _logits(cfg, params, x)
+    logits = _logits(cfg, params, x)
+    if not with_aux:
+        return logits
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, aux
 
 
 def loss_fn(cfg: ModelCfg, params, batch):
     """Next-token cross-entropy over ``batch = {"tokens", "labels"}``
-    (labels < 0 are masked), in the reference's logsumexp - gold form.
-    Returns (loss, metrics) with detached 0-dim ``loss``, ``aux`` (0 for
-    the ``lm`` family, which has no router) and ``ppl_proxy``."""
-    logits = forward(cfg, params, batch["tokens"])
+    (labels < 0 are masked), in the reference's logsumexp - gold form,
+    plus ``cfg.router_aux_coef`` times the router's aux term.  Returns
+    (total, metrics) with detached 0-dim ``loss`` (the cross-entropy),
+    ``aux`` (0 for a model without a router) and ``ppl_proxy``."""
+    logits, aux = forward(cfg, params, batch["tokens"], with_aux=True)
     labels = batch["labels"].long()
     mask = (labels >= 0).float()
     gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     nll = torch.logsumexp(logits, dim=-1) - gold
     loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    total = loss + cfg.router_aux_coef * aux if cfg.family == "moe" else loss
     ld = loss.detach()
-    return loss, {"loss": ld, "aux": torch.zeros_like(ld),
-                  "ppl_proxy": torch.exp(ld.clamp_max(20.0))}
+    return total, {"loss": ld, "aux": aux.detach(),
+                   "ppl_proxy": torch.exp(ld.clamp_max(20.0))}
 
 
 def init_cache(cfg: ModelCfg, batch: int, max_len: int,
@@ -112,31 +128,34 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int,
                                      per_slot=per_slot, page_size=page_size,
                                      n_pages=n_pages)
              for _ in range(cfg.n_layers)]
-    for name in ("block_table", "idx"):
-        first = cache[0]["kv"].get(name)
-        if torch.is_tensor(first):
-            for lc in cache[1:]:
-                lc["kv"][name] = first
+    if "kv" in cache[0]:
+        for name in ("block_table", "idx"):
+            first = cache[0]["kv"].get(name)
+            if torch.is_tensor(first):
+                for lc in cache[1:]:
+                    lc["kv"][name] = first
     return cache
 
 
-def _run_cached(cfg: ModelCfg, params, cache, tokens):
+def _run_cached(cfg: ModelCfg, params, cache, tokens, prefill: bool):
     kind = _kind(cfg)
     x, positions = _embed_inputs(cfg, params, tokens, offset=cache_pos(cache))
     # the cache's index tensors, built by the first layer for all of them
     shared = {}
     new_cache = []
     for lp, lc in zip(params["layers"], cache):
-        x, nc = blocks.apply_block(lp, x, cfg, kind, cache=lc,
-                                   positions=positions, shared=shared)
+        x, nc, _ = blocks.apply_block(lp, x, cfg, kind, cache=lc,
+                                      positions=positions, shared=shared,
+                                      prefill=prefill)
         new_cache.append(nc)
     return x, new_cache
 
 
 def prefill(cfg: ModelCfg, params, cache, tokens, *, last_only: bool = True):
-    """Single-pass prefill: one full-sequence forward with cache writes.
-    Returns (fp32 logits (B, 1, V) or (B, S, V), cache positioned at S)."""
-    x, new_cache = _run_cached(cfg, params, cache, tokens)
+    """Single-pass prefill: one full-sequence forward with cache writes
+    (the SSM layers' chunked form hands on their state).  Returns (fp32
+    logits (B, 1, V) or (B, S, V), cache positioned at S)."""
+    x, new_cache = _run_cached(cfg, params, cache, tokens, prefill=True)
     if last_only:
         x = x[:, -1:]
     return _logits(cfg, params, x), new_cache
@@ -144,13 +163,15 @@ def prefill(cfg: ModelCfg, params, cache, tokens, *, last_only: bool = True):
 
 def decode_step(cfg: ModelCfg, params, cache, tokens):
     """One-token decode.  tokens: (B, 1).  Returns (logits, new_cache)."""
-    x, new_cache = _run_cached(cfg, params, cache, tokens)
+    x, new_cache = _run_cached(cfg, params, cache, tokens, prefill=False)
     return _logits(cfg, params, x), new_cache
 
 
 def cache_pos(cache):
-    """The write index: a host int, or a per-slot ``(B,)`` tensor."""
-    return cache[0]["kv"]["idx"]
+    """The write index: a host int, or a per-slot ``(B,)`` tensor; 0 for
+    a cache without attention (Mamba2 has no position embedding)."""
+    kv = cache[0].get("kv")
+    return 0 if kv is None else kv["idx"]
 
 
 def _leaves(tree):

@@ -11,7 +11,9 @@
   fault) and queued requests back-fill freed slots.  Two cache modes:
 
   - dense per-slot rings (``init_cache(..., per_slot=True)``): admission
-    prefills the prompt on a B=1 cache and copies it into the slot's row;
+    prefills the prompt on a B=1 cache and copies every leaf of it (the
+    SSM layers' conv tails and states too) into the slot's row; the SSM
+    and hybrid families serve in this mode only;
   - paged (``page_size=``): per-layer page pools addressed through
     per-slot block tables.  A :class:`PageAllocator` owns pages ``1 ..
     n_pages - 1`` with refcounts (page 0 is the scratch page); admission
@@ -35,8 +37,9 @@
   still non-finite retire ``FAULTED``.  The reference's third rung,
   ``attn`` (flash -> einsum), is not taken: on the card the port never
   gives way to plain torch attention (ROADMAP C.5).  The caches are
-  written in place and a retried step rewrites the same rows, so the last
-  tokens are committed only once a step is accepted.
+  written in place and a retried step rewrites the same rows; the SSM
+  layers' states are taken only once a step is accepted, so a retry
+  starts again from the same state, and so are the last tokens.
 
 Both engines carry the reference's spans and instants (``repro_torch.obs``;
 category ``serve``): ``prefill`` and ``decode_loop`` in ``Engine``;
@@ -382,16 +385,21 @@ class ContinuousBatchingEngine:
         # ``quant`` ignores the weight sidecars, ``ff`` forces the ff
         # forward to ``split``
         self.demoted: List[str] = []
+        # the SSM states of the last decode step, until it is accepted
+        self._pending: list = []
         self._sidecars = any(quant_lib.ff_quantized(lp.get("mlp"))
                              for lp in params["layers"])
 
     def _ctl_views(self, cache, ctl, batch: int) -> None:
-        """Point every layer's block table and write index at views of the
-        control buffer ``ctl`` (block tables first, then the indices)."""
+        """Point every attention layer's block table and write index at
+        views of the control buffer ``ctl`` (block tables first, then the
+        indices)."""
         n_bt = ctl.numel() - batch
         idx = ctl[n_bt:]
         bt = ctl[:n_bt].view(batch, -1) if n_bt else None
         for lc in cache:
+            if "kv" not in lc:
+                continue
             lc["kv"]["idx"] = idx
             if bt is not None:
                 lc["kv"]["block_table"] = bt
@@ -411,12 +419,15 @@ class ContinuousBatchingEngine:
 
     # -- the decode step ----------------------------------------------------
     def _batch_step(self, poison: bool = False):
-        """Decode every lane one token over the shared cache (in place).
-        ``poison`` (the ``nan_logits`` fault) multiplies the logits by NaN.
-        Returns (next tokens (B, 1), non-finite-lane mask (B,))."""
+        """Decode every lane one token over the shared cache: attention
+        rows in place, the SSM layers' new states held in ``_pending``
+        until :meth:`_decode_once` accepts the step.  ``poison`` (the
+        ``nan_logits`` fault) multiplies the logits by NaN.  Returns (next
+        tokens (B, 1), non-finite-lane mask (B,))."""
         with torch.no_grad(), self._routes():
-            logits, _ = model.decode_step(self.cfg, self.params, self.cache,
-                                          self.tokens)
+            logits, new_cache = model.decode_step(
+                self.cfg, self.params, self.cache, self.tokens)
+        self._pending = [nc.get("ssm") for nc in new_cache]
         if poison:
             logits = logits * float("nan")
         if self.nan_guard:
@@ -438,11 +449,15 @@ class ContinuousBatchingEngine:
         return self._sample(logits), cache1
 
     def _write_slot(self, cache1, slot: int) -> None:
-        """Copy a B=1 cache's rings into row ``slot`` of the slot cache
-        (the write index is the host's, pushed before every step)."""
+        """Copy every leaf of a B=1 cache (rings, SSM conv tails and
+        states) into row ``slot`` of the slot cache, so that admission
+        leaves nothing of the slot's last request; the write index is the
+        host's, pushed before every step."""
         for full, one in zip(self.cache, cache1):
-            full["kv"]["k"][slot] = one["kv"]["k"][0]
-            full["kv"]["v"][slot] = one["kv"]["v"][0]
+            for part, leaves in one.items():
+                for name, t in leaves.items():
+                    if name != "idx":
+                        full[part][name][slot] = t[0]
 
     # -- paged machinery ----------------------------------------------------
     def _chunk(self, slot: int, seq, pos: int) -> torch.Tensor:
@@ -875,6 +890,11 @@ class ContinuousBatchingEngine:
                 break
             attempt += 1
         self.tokens = tok
+        # the step is accepted: the SSM layers take their new states (a
+        # retry above started again from the old ones)
+        for lc, state in zip(self.cache, self._pending):
+            if state is not None:
+                lc["ssm"] = state
         return host[0], bad_h
 
     def step(self) -> List[Request]:

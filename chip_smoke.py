@@ -91,14 +91,19 @@ exit and no result line):
    ``dyad_ff_fused`` with relu on integer inputs at Qwen3's widths, M 4096
    and 128, bitwise; the bf16 Qwen3 ``dyad_ff_fused`` cases also on the
    FMA kernel through the C entry, the parent's route that phase 4
-   times); and at the shapes phase 15's families give the kernels
-   (FAMILY_MM, FAMILY_FF, FAMILY_PREFILL, FAMILY_RING): ``dyad_mm_blocks``
-   on Mamba2's and Hymba's SSM in and out projections at M 8 and 1024,
-   ``dyad_ff_fused`` on Hymba's ff (blocks 400 x 1376) and the MoE's
-   shared expert (512 x 1408) with fp32 weights, ``flash_prefill`` over
-   Hymba's in-flight K/V (S 1280 past the 1024 window, and at per-batch
-   offsets; K 5 x G 5, h 64), ``flash_decode`` over Hymba's ring with the
-   window across the wrap point (G 5), fp32 and bf16;
+   times); and at the shapes phases 15's and 16's families give the
+   kernels (FAMILY_MM, FAMILY_FF, FAMILY_PREFILL, FAMILY_RING):
+   ``dyad_mm_blocks`` on Mamba2's and Hymba's SSM in and out projections
+   at M 8 and 1024 and on Whisper's ff up and down at M 8 x 1500 and 8,
+   ``dyad_ff_fused`` on Hymba's ff (blocks 400 x 1376), the MoE's shared
+   expert (512 x 1408) and Phi-3-vision's ff (768 x 2048) with fp32
+   weights, ``flash_prefill`` over Hymba's in-flight K/V (S 1280 past the
+   1024 window, and at per-batch offsets; K 5 x G 5, h 64), non-causal
+   over Whisper's 1500 frames (h 64, a ragged last key tile) and causal
+   at h 96 (Phi-3-vision's 576 patches + 128 text tokens, and its prefill
+   over a 160-slot cache), ``flash_decode`` over Hymba's ring with the
+   window across the wrap point (G 5) and at h 96 over Phi-3-vision's
+   ring (one index, and one a slot), fp32 and bf16;
 4. the time of each kernel, its plain version and a library yardstick
    (CUDA events around device work queued ahead, L2 flushed before each
    run, median of 25 after warm-up), under the kernel's name or, at
@@ -137,9 +142,10 @@ exit and no result line):
    ``@fp32_chunk``, on FMA, beside the torch.bmm chain); the split-TF32
    routes' bounds at a third of the TF32 rate, the FMA bound beside
    (``fma_bound_ms``); the family shapes in bf16 over fp32 params and
-   caches (``dyad_mm_blocks@mamba2``, ``@hymba``,
-   ``dyad_ff_fused@hymba``, ``@moe_shared``,
-   ``flash_prefill@hymba_window``, ``flash_decode@hymba_ring``);
+   caches (``dyad_mm_blocks@mamba2``, ``@hymba``, ``@whisper``,
+   ``dyad_ff_fused@hymba``, ``@moe_shared``, ``@phi3v``,
+   ``flash_prefill@hymba_window``, ``@whisper_enc``, ``@phi3v_patches``,
+   ``flash_decode@hymba_ring``, ``@phi3v_ring``);
 5. the OPT serving path: OPT-125m at full width with ``dyad_it_4_kernel``,
    random weights from ``--seed``, ``Engine.generate`` at batch 8, prompt
    128, 32 new tokens, with the kernels' launch counters read around it;
@@ -270,8 +276,27 @@ exit and no result line):
    in fp32 on the card against the CPU port: greedy tokens equal, or
    parting only after a step whose CPU top-2 logit margin is under
    LOGIT_TOL, or for the MoE after a router near-tie (ROUTER_TIE, its
-   smallest gap printed); the phase's seconds, then the whole run's;
-16. the ``kernels`` JSON line (every record of phase 4), then the result
+   smallest gap printed); the phase's seconds;
+16. the encdec and vlm families (MODAL): Whisper-medium (24 encoder and
+   24 decoder layers, 1500 frames of 1024 a request) and
+   Phi-3-vision-4.2B at their published widths and full depth, set up as
+   in phase 15 with the ff weights x 4: ``Engine.generate`` at batch 8,
+   prompt 128, 32 new (Whisper with its frames), its launches exact for
+   the decoder's and the encoder's layers, then a profiled generate;
+   Phi-3-vision's ``forward`` with 576 patches and 128 text tokens at
+   batch 4 (``last_only``), launches exact, then profiled.  Each prints
+   decode tok/s, prefill (or forward) seconds, peak memory, the
+   device-busy share and the profile's launches by kernel name; it fails
+   if a kernel its route takes shows no launch in the profile, if any
+   plain version of a kernel or the plain self-attention runs on the
+   card, or if cross-attention's einsum route (CROSS_SDPA, counted on its
+   own) runs other than once a decoder layer and token.  Then each at
+   full width and 2 layers (2 + 2 for Whisper) in fp32 on the card
+   against the CPU port: greedy tokens equal, or parting only after a
+   step whose CPU top-2 margin is under LOGIT_TOL, the prefill logits,
+   and Phi-3-vision's patch forward logits, within LOGIT_TOL; the phase's
+   seconds, then the whole run's;
+17. the ``kernels`` JSON line (every record of phase 4), then the result
    line.
 
 Imports neither JAX nor the JAX package.
@@ -475,6 +500,38 @@ FAM_PARITY = {"layers": 2, "B": 2, "S": 32, "S_hymba": 1040, "new": 8,
 # The card and the CPU may then part, without a small top-2 logit margin,
 # at the next token or any later one
 ROUTER_TIE = 1e-5
+# phase 16: the encdec and vlm families at full width and depth, set up
+# as phase 15's (bf16 compute over fp32 params, fp32 caches, flash
+# attention, the config's linear with use_kernel and fuse_ff_kernel), the
+# ff weights x 4.  Per model: the batch generate (B, prompt, new); the
+# kernels each decoder layer launches in it, by wrapper (n: new tokens,
+# s: decode steps), and each encoder layer; Whisper's frames (1500 of
+# 1024 a request) drawn from the seed; Phi-3-vision's patch forward (B,
+# text tokens after its 576 patches, ``last_only``) and the kernels each
+# layer launches in it.  Whisper's ff has biases: no megakernel, its up
+# and down through dyad_mm_blocks
+MODAL = {
+    "whisper_medium": dict(
+        batch=(8, 128, 32),
+        per_layer=lambda n, s: {"flash_prefill": 1, "flash_decode": s,
+                                "dyad_mm_blocks": 2 * n},
+        per_enc_layer={"flash_prefill": 1, "dyad_mm_blocks": 2}),
+    "phi3_vision_4_2b": dict(
+        batch=(8, 128, 32),
+        per_layer=lambda n, s: {"flash_prefill": 1, "flash_decode": s,
+                                "dyad_ff_fused": n},
+        per_enc_layer={},
+        forward=(4, 128),
+        forward_per_layer={"flash_prefill": 1, "dyad_ff_fused": 1}),
+}
+MODAL_FF_SCALE = 4.0
+# card vs CPU at full width and 2 layers (2 + 2 for Whisper) in fp32;
+# Phi-3-vision's patch forward at ``patch_B`` x its 576 patches + S text
+MODAL_PARITY = {"layers": 2, "B": 2, "S": 32, "new": 8, "patch_B": 2}
+# the plain attention dataflow of cross-attention: the reference's own
+# einsum route, counted on its own; the plain versions of kernels and the
+# self-attention's plain dataflows must stay at 0 on the card
+CROSS_SDPA = "repro_torch.layers.attention._cross_sdpa"
 
 
 _T0 = time.perf_counter()
@@ -806,19 +863,31 @@ def _time_qwen3_fp32_cache(torch, randn, record, time_ms):
 # Qwen1.5-MoE's shared expert (2048 -> 5632), (M, n, d_in, d_ff, d_out);
 # B.4 windowed over Hymba's in-flight K/V (S >= the window: queries and
 # keys at the same per-batch offsets), K 5 x G 5, h 64; B.9 over Hymba's
-# ring with the window across the wrap point
+# ring with the window across the wrap point.  Phase 16's families
+# (MODAL): B.1 on Whisper's ff up (1024 -> 4096)
+# and down at the encoder's rows (8 x 1500) and the decode rows; B.8 on
+# Phi-3-vision's SwiGLU ff (blocks 768 x 2048, past the tensor-core
+# kernel's d_in of 256: the FMA kernel); B.4 non-causal over Whisper's
+# 1500 frames (h 64, a ragged last key tile), causal at h 96 over
+# Phi-3-vision's 576 patches + 128 text tokens and over its fp32 cache
+# (128 of 160 slots); B.9 at h 96 over its fp32 ring, bf16 q
 FAMILY_MM = {
     "mamba2_in_M8": (8, 4, 384, 768), "mamba2_out_M8": (8, 4, 768, 384),
     "mamba2_in_M1024": (1024, 4, 384, 768),
     "mamba2_out_M1024": (1024, 4, 768, 384),
     "hymba_in_M8": (8, 4, 400, 800), "hymba_out_M8": (8, 4, 800, 400),
     "hymba_in_M1024": (1024, 4, 400, 800),
-    "hymba_out_M1024": (1024, 4, 800, 400)}
+    "hymba_out_M1024": (1024, 4, 800, 400),
+    "whisper_up_M12000": (12000, 4, 256, 1024),
+    "whisper_down_M12000": (12000, 4, 1024, 256),
+    "whisper_up_M8": (8, 4, 256, 1024), "whisper_down_M8": (8, 4, 1024, 256)}
 FAMILY_FF = {
     "hymba_M8": (8, 4, 400, 1376, 400), "hymba_M1024": (1024, 4, 400, 1376,
                                                       400),
     "moe_shared_M8": (8, 4, 512, 1408, 512),
-    "moe_shared_M1024": (1024, 4, 512, 1408, 512)}
+    "moe_shared_M1024": (1024, 4, 512, 1408, 512),
+    "phi3v_M8": (8, 4, 768, 2048, 768),
+    "phi3v_M1024": (1024, 4, 768, 2048, 768)}
 FAMILY_PREFILL = {
     # Hymba's prefill of 1280-token prompts over the 1024 window, at the
     # per-slot offsets of a re-prefill (phase 4 times it at offset 0, the
@@ -827,13 +896,22 @@ FAMILY_PREFILL = {
                         off=[0, 17, 600, 1290]),
     # a smaller window than the prompt's reach, at offsets
     "hymba_offsets": dict(B=3, S=300, K=5, G=5, h=64, window=256,
-                          off=[0, 17, 600])}
+                          off=[0, 17, 600]),
+    # Whisper's encoder: every frame sees every frame
+    "whisper_enc": dict(B=8, S=1500, K=16, G=1, h=64, causal=False),
+    # Phi-3-vision's patch forward, and its prefill over a 160-slot cache
+    "phi3v_patches": dict(B=4, S=704, K=32, G=1, h=96),
+    "phi3v_cache": dict(B=8, S=128, T=160, K=32, G=1, h=96)}
 FAMILY_RING = {
     # Hymba's batch decode: 4 rings of 1024 slots, 1280 + 16 tokens written
     "hymba_batch": dict(B=4, L=1024, K=5, G=5, h=64, idx=1295, window=1024),
     # a ring smaller than its reach: the window across the wrap point
     "wrap_window": dict(B=4, L=64, K=5, G=5, h=64, idx=[70, 150, 64, 200],
-                        window=48)}
+                        window=48),
+    # Phi-3-vision's batch decode: 160 slots, 128 + 30 tokens written
+    "phi3v_batch": dict(B=8, L=160, K=32, G=1, h=96, idx=158, window=None),
+    "phi3v_slots": dict(B=4, L=160, K=32, G=1, h=96, idx=[0, 63, 64, 159],
+                        window=None)}
 
 
 def _check_families(torch, gen, dyad_mm, flash_attn, check, max_err):
@@ -870,10 +948,11 @@ def _check_families(torch, gen, dyad_mm, flash_attn, check, max_err):
                 for c, g, w in zip(("z1", "z2"), got, want)))
         for label, c in FAMILY_PREFILL.items():
             B, S, K, G, h = c["B"], c["S"], c["K"], c["G"], c["h"]
+            T = c.get("T", S)
             q = randn(B, S, K, G, h, dtype=dt)
-            k, v = randn(B, S, K, h, dtype=dt), randn(B, S, K, h, dtype=dt)
-            off = torch.tensor(c["off"], device=dev)
-            kw = dict(causal=True, window=c["window"])
+            k, v = randn(B, T, K, h, dtype=dt), randn(B, T, K, h, dtype=dt)
+            off = (torch.tensor(c["off"], device=dev) if "off" in c else 0)
+            kw = dict(causal=c.get("causal", True), window=c.get("window"))
             note("flash_prefill", check(
                 f"flash_prefill/{label}",
                 flash_attn.flash_prefill(q, k, v, off, off, **kw)[0],
@@ -896,24 +975,29 @@ def _check_families(torch, gen, dyad_mm, flash_attn, check, max_err):
 
 def _time_families(torch, randn, record, time_ms):
     """Phase 4 at the family shapes, bf16 compute over fp32 params and
-    caches as phase 15 serves them: ``dyad_mm_blocks@mamba2`` and
-    ``@hymba`` (the SSM in and out projections at M 1024 and 8; yardstick
-    torch.bmm over the -CAT operands), ``dyad_ff_fused@hymba`` and
-    ``@moe_shared`` (M 1024 and 8; no single call: the torch.bmm chain
-    beside, ``bmm_chain_ms``), ``flash_prefill@hymba_window`` (Hymba's
-    S 1280 prefill over its in-flight K/V, window 1024; yardstick SDPA
+    caches as phases 15 and 16 serve them: ``dyad_mm_blocks@mamba2`` and
+    ``@hymba`` (the SSM in and out projections at M 1024 and 8),
+    ``@whisper`` (the ff up and down at M 8 x 1500 and 8; yardstick
+    torch.bmm over the -CAT operands), ``dyad_ff_fused@hymba``,
+    ``@moe_shared`` and ``@phi3v`` (M 1024 and 8; no single call: the
+    torch.bmm chain beside, ``bmm_chain_ms``),
+    ``flash_prefill@hymba_window`` (Hymba's S 1280 prefill over its
+    in-flight K/V, window 1024; yardstick SDPA
     with the band mask, k and v expanded to the 25 query heads) and
     ``flash_decode@hymba_ring`` (its decode step over the wrapped ring;
-    yardstick SDPA over the ring's live slots)."""
+    yardstick SDPA over the ring's live slots); then
+    :func:`_time_modal_attention`."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import dyad_mm, flash_attn
 
     dev = torch.device("cuda")
     bf16, f32 = torch.bfloat16, torch.float32
-    for model in ("mamba2", "hymba"):
-        for label in (f"{model}_in_M1024", f"{model}_out_M1024",
-                      f"{model}_in_M8", f"{model}_out_M8"):
+    for model, labels in (
+            ("mamba2", ("in_M1024", "out_M1024", "in_M8", "out_M8")),
+            ("hymba", ("in_M1024", "out_M1024", "in_M8", "out_M8")),
+            ("whisper", ("up_M12000", "down_M12000", "up_M8", "down_M8"))):
+        for label in (f"{model}_{lab}" for lab in labels):
             M, n, d_in, d_out = FAMILY_MM[label]
             x = randn(M, n * d_in, dtype=bf16)
             w1, w2 = (randn(n, d_out, d_in).to(bf16) for _ in range(2))
@@ -927,7 +1011,7 @@ def _time_families(torch, randn, record, time_ms):
                    time_ms(lambda: torch.bmm(xc, wc)),
                    2 * (M * n * d_in + 2 * n * d_out * d_in + M * n * d_out),
                    4.0 * M * n * d_out * d_in, label, BF16_FLOPS, "bfloat16")
-    for model in ("hymba", "moe_shared"):
+    for model in ("hymba", "moe_shared", "phi3v"):
         for label in (f"{model}_M1024", f"{model}_M8"):
             M, n, d_in, d_ff, d_out = FAMILY_FF[label]
             args = _ff_args(randn, M, n, d_in, d_ff, d_out, "swiglu", bf16,
@@ -998,14 +1082,72 @@ def _time_families(torch, randn, record, time_ms):
            time_ms(library), 2 * live * K * h * 4 + 2 * 2 * B * K * G * h,
            4.0 * h * G * K * live, f"B{B}_L{L}_K{K}_G{G}_h{h}_idx{idx}",
            FP32_FLOPS, "bfloat16 q, float32 cache")
+    _time_modal_attention(torch, randn, record, time_ms)
+
+
+def _time_modal_attention(torch, randn, record, time_ms):
+    """Phase 4 at phase 16's attention shapes, bf16 as it serves them:
+    ``flash_prefill@whisper_enc`` (the encoder's non-causal attention over
+    1500 frames, h 64), ``flash_prefill@phi3v_patches`` (the causal patch
+    forward, h 96; yardstick SDPA) and ``flash_decode@phi3v_ring`` (the
+    decode step at h 96, bf16 q over the fp32 ring; yardstick SDPA over
+    the ring's live slots, q cast to fp32)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    for label, name in (("whisper_enc", "flash_prefill@whisper_enc"),
+                        ("phi3v_patches", "flash_prefill@phi3v_patches")):
+        c = FAMILY_PREFILL[label]
+        B, S, K, G, h = c["B"], c["S"], c["K"], c["G"], c["h"]
+        causal = c.get("causal", True)
+        q = randn(B, S, K, G, h, dtype=bf16)
+        k, v = randn(B, S, K, h, dtype=bf16), randn(B, S, K, h, dtype=bf16)
+        qt = q.reshape(B, S, K * G, h).transpose(1, 2)
+        kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1)
+                  for t in (k, v))
+        pairs = B * K * G * (S * (S + 1) // 2 if causal else S * S)
+        record(name,
+               time_ms(lambda: flash_attn.flash_prefill(q, k, v,
+                                                        causal=causal)),
+               time_ms(lambda: flash_attn.flash_prefill_plain(
+                   q, k, v, causal=causal)),
+               time_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=causal)),
+               2 * (2 * B * S * K * G * h + 2 * B * S * K * h),
+               4.0 * h * pairs,
+               f"B{B}_S{S}_K{K}_G{G}_h{h}_" + ("causal" if causal
+                                               else "noncausal"),
+               BF16_FLOPS, "bfloat16")
+
+    c = FAMILY_RING["phi3v_batch"]
+    B, L, K, G, h, idx = c["B"], c["L"], c["K"], c["G"], c["h"], c["idx"]
+    q = randn(B, 1, K, G, h, dtype=bf16)
+    kc, vc = randn(B, L, K, h), randn(B, L, K, h)
+    amask = _ring_mask(torch, idx, B, L, dev)
+    live = int(amask.sum())
+    q4 = q[:, 0]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q4.float(), kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=amask)
+    record("flash_decode@phi3v_ring",
+           time_ms(lambda: flash_attn.flash_decode(q, kc, vc, idx)),
+           time_ms(lambda: flash_attn.flash_decode_plain(q, kc, vc, idx)),
+           time_ms(library), 2 * live * K * h * 4 + 2 * 2 * B * K * G * h,
+           4.0 * h * G * K * live, f"B{B}_L{L}_K{K}_G{G}_h{h}_idx{idx}",
+           FP32_FLOPS, "bfloat16 q, float32 cache")
 
 
 @contextlib.contextmanager
 def _plain_watch(torch):
-    """Counts the calls of every plain version of a kernel, and of the
-    port's plain attention and ff dataflows, made with a tensor on the
-    card (a CPU call is the CPU route, not counted).  Yields the
-    Counter."""
+    """Counts the calls of every plain version of a kernel, of the port's
+    plain attention and ff dataflows, and (under CROSS_SDPA) of
+    cross-attention's einsum route, made with a tensor on the card (a CPU
+    call is the CPU route, not counted).  Yields the Counter."""
     from repro_torch.core import dyad
     from repro_torch.kernels import dyad_mm, flash_attn
     from repro_torch.layers import attention, mlp
@@ -1013,8 +1155,9 @@ def _plain_watch(torch):
     calls = collections.Counter()
     targets = [(mod, name) for mod in (dyad_mm, flash_attn)
                for name in dir(mod) if name.endswith("_plain")]
-    targets += [(attention, "_naive_sdpa"), (mlp, "_fused_dyad_mlp"),
-                (dyad, "_bmm")]
+    targets += [(attention, name) for name in (
+        "_naive_sdpa", "_chunked_sdpa", "_q_block_sdpa", "_cross_sdpa")]
+    targets += [(mlp, "_fused_dyad_mlp"), (dyad, "_bmm")]
     saved = []
     for mod, name in targets:
         fn = getattr(mod, name)
@@ -3735,9 +3878,15 @@ def main() -> int:
     fam = run.families()
     if fam is None:
         return 1
+
+    # -- 16. the encdec and vlm families -------------------------------------
+    modal = run.modal()
+    if modal is None:
+        return 1
+    fam.update(modal)
     log("run", seconds=f"{time.perf_counter() - t_run:.1f}")
 
-    # -- 16. the kernels line ------------------------------------------------
+    # -- 17. the kernels line ------------------------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
     files = {"dyad_mm_blocks": ("dyad_mm.cu", "dyad_mm.py:286"),
              "flash_prefill": ("flash_prefill.cu", "flash_attn.py:288"),
@@ -3787,7 +3936,13 @@ def main() -> int:
                  "dyad_ff_fused@hymba": fam["hymba_1_5b_batch"],
                  "dyad_ff_fused@moe_shared": fam["qwen2_moe_a2_7b_batch"],
                  "flash_prefill@hymba_window": fam["hymba_1_5b_batch"],
-                 "flash_decode@hymba_ring": fam["hymba_1_5b_batch"]}
+                 "flash_decode@hymba_ring": fam["hymba_1_5b_batch"],
+                 "dyad_mm_blocks@whisper": fam["whisper_medium_batch"],
+                 "flash_prefill@whisper_enc": fam["whisper_medium_batch"],
+                 "dyad_ff_fused@phi3v": fam["phi3_vision_4_2b_batch"],
+                 "flash_prefill@phi3v_patches":
+                     fam["phi3_vision_4_2b_forward"],
+                 "flash_decode@phi3v_ring": fam["phi3_vision_4_2b_batch"]}
     line = []
     # every timed record, under its kernel's name or a shape's
     # (``name@shape``); a record at OPT's training rows counts the OPT
@@ -4558,11 +4713,11 @@ class _Run:
         from repro_torch.serve.engine import Engine
 
         torch, dev, cpu, fp = self.torch, self.dev, self.cpu, FAM_PARITY
-        # the chunked einsum attention is the reference's CPU route past
-        # attn_chunk keys, not ported (ROADMAP A.4); the card's flash
-        # route never reads the chunk
+        # past attn_chunk keys (Hymba's 1040-token prompts over its 1024)
+        # the CPU takes the reference's chunked einsum attention; the
+        # card's flash route never reads the chunk
         cfg = _family_cfg(arch, n_layers=fp["layers"],
-                          compute_dtype="float32", attn_chunk=None)
+                          compute_dtype="float32")
         S = fp["S_hymba"] if arch == "hymba_1_5b" else fp["S"]
         B, new = fp["B"], fp["new"]
         pgen = torch.Generator(device=dev).manual_seed(self.seed)
@@ -4634,6 +4789,245 @@ class _Run:
                 return None
             torch.cuda.empty_cache()
         log("families", seconds=f"{time.perf_counter() - t0:.1f}")
+        return out
+
+    # -- 16. the encdec and vlm families ------------------------------------
+    def _modal_model(self, arch, **over):
+        """(cfg, params, prompts, frames) of MODAL's ``arch`` on the card:
+        the family config served there (``_family_cfg``), random weights
+        from the seed with the ff x MODAL_FF_SCALE, its batch's prompts
+        and, for an encoder-decoder, its frames in the compute dtype."""
+        from repro_torch.models import model
+
+        torch, dev = self.torch, self.dev
+        B, S, _ = MODAL[arch]["batch"]
+        cfg = _family_cfg(arch, **over)
+        pgen = torch.Generator(device=dev).manual_seed(self.seed)
+        params = _scale_ff(model.init_params(cfg, pgen, dev), MODAL_FF_SCALE)
+        prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=pgen,
+                                device=dev)
+        frames = None
+        if cfg.family == "encdec":
+            frames = torch.randn(B, cfg.n_frames, cfg.frontend_dim,
+                                 generator=pgen, device=dev).to(cfg.cdtype)
+        return cfg, params, prompts, frames
+
+    def modal_serve(self, arch, plain):
+        """``Engine.generate`` at full width and depth (an encoder-decoder
+        with its frames), counted: the kernels MODAL gives the decoder's
+        and the encoder's layers, exactly; no plain version of a kernel
+        and no plain self-attention on the card, cross-attention's einsum
+        route (CROSS_SDPA) once a decoder layer and token.  Then a
+        profiled generate of FAMILY_PROFILE_NEW tokens.  Returns (launches,
+        cfg, params), None on a failure."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.serve.engine import Engine
+
+        torch = self.torch
+        spec = MODAL[arch]
+        B, S, new = spec["batch"]
+        cfg, params, prompts, frames = self._modal_model(arch)
+        engine = Engine(cfg, params, max_len=S + new, device=self.dev)
+        engine.generate(prompts, 2, frames=frames)     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        plain.clear()
+        self.zero_counts()
+        toks = engine.generate(prompts, new, frames=frames)
+        launches = self.counts()
+        t = engine.timings
+        mem = torch.cuda.max_memory_allocated()
+        want = self.want(spec["per_layer"](new, new - 1), cfg.n_layers)
+        for k, v in spec["per_enc_layer"].items():
+            want[k] += v * cfg.n_enc_layers
+        cross = plain.pop(CROSS_SDPA, 0)
+        want_cross = cfg.n_layers * new if cfg.family == "encdec" else 0
+        shape_ok = (tuple(toks.shape) == (B, new) and int(toks.min()) >= 0
+                    and int(toks.max()) < cfg.vocab_size)
+        pnew = min(FAMILY_PROFILE_NEW, new)
+        engine.generate(prompts, pnew, frames=frames)
+        wall_ms = (engine.timings["prefill_s"]
+                   + engine.timings["decode_s"]) * 1e3
+        self.zero_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            engine.generate(prompts, pnew, frames=frames)
+            time.sleep(PROFILE_MARGIN_S)
+        ok, busy, _ = self._busy(prof, wall_ms, f"{arch}_profile",
+                                 self.counts())
+        plain.pop(CROSS_SDPA, 0)
+        log(f"{arch}_batch", arch=cfg.name, layers=cfg.n_layers,
+            enc_layers=cfg.n_enc_layers, d_model=cfg.d_model,
+            head_dim=cfg.hd, dtype=cfg.compute_dtype, batch=B, prompt=S,
+            new=new, frames=cfg.n_frames if frames is not None else 0,
+            profiled_new=pnew, prefill_s=f"{t['prefill_s']:.4f}",
+            decode_s=f"{t['decode_s']:.4f}",
+            decode_tok_s=f"{B * (new - 1) / t['decode_s']:.1f}",
+            max_memory_allocated_gb=f"{mem / 1e9:.2f}",
+            device_busy_share=f"{busy / wall_ms:.3f}",
+            distinct_tokens=len(set(toks.flatten().tolist())),
+            launches=json.dumps({k: v for k, v in launches.items() if v},
+                                separators=(",", ":")),
+            cross_sdpa_calls=cross, want_cross=want_cross,
+            plain_on_card=json.dumps(dict(plain)), tokens_ok=shape_ok)
+        if (launches != want or not shape_ok or plain or not ok
+                or cross != want_cross):
+            log(f"{arch}_batch", failed=f"launches {launches} want {want}, "
+                f"cross {cross} want {want_cross}, plain on the card "
+                f"{dict(plain)}")
+            return None
+        del engine
+        return launches, cfg, params
+
+    def modal_forward(self, arch, cfg, params, plain):
+        """A vision model's ``forward`` with its patches (MODAL's
+        ``forward``: B requests of 576 patches and S text tokens,
+        ``last_only``), counted exactly, no plain version on the card, then
+        profiled.  Returns the launches, None on a failure."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.models import model
+
+        torch, dev = self.torch, self.dev
+        spec = MODAL[arch]
+        B, S = spec["forward"]
+        gen = torch.Generator(device=dev).manual_seed(self.seed + 1)
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                             device=dev)
+        patches = torch.randn(B, cfg.n_patches, cfg.frontend_dim,
+                              generator=gen, device=dev).to(cfg.cdtype)
+
+        def fwd():
+            out = model.forward(cfg, params, toks, patches=patches,
+                                last_only=True)
+            torch.cuda.synchronize()
+            return out
+        with torch.no_grad():
+            fwd()                                       # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            plain.clear()
+            self.zero_counts()
+            t0 = time.perf_counter()
+            logits = fwd()
+            fwd_s = time.perf_counter() - t0
+            launches = self.counts()
+            mem = torch.cuda.max_memory_allocated()
+            self.zero_counts()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILE_MARGIN_S)
+                fwd()
+                time.sleep(PROFILE_MARGIN_S)
+        ok, busy, _ = self._busy(prof, fwd_s * 1e3, f"{arch}_forward_profile",
+                                 self.counts())
+        want = self.want(spec["forward_per_layer"], cfg.n_layers)
+        shape_ok = (tuple(logits.shape) == (B, 1, cfg.vocab_size)
+                    and bool(torch.isfinite(logits).all()))
+        log(f"{arch}_forward", arch=cfg.name, layers=cfg.n_layers, batch=B,
+            patches=cfg.n_patches, text=S, forward_s=f"{fwd_s:.4f}",
+            tok_s=f"{B * (cfg.n_patches + S) / fwd_s:.1f}",
+            max_memory_allocated_gb=f"{mem / 1e9:.2f}",
+            device_busy_share=f"{busy / (fwd_s * 1e3):.3f}",
+            launches=json.dumps({k: v for k, v in launches.items() if v},
+                                separators=(",", ":")),
+            plain_on_card=json.dumps(dict(plain)), logits_ok=shape_ok)
+        if launches != want or not shape_ok or plain or not ok:
+            log(f"{arch}_forward", failed=f"launches {launches} want {want}, "
+                f"plain on the card {dict(plain)}")
+            return None
+        return launches
+
+    def modal_parity(self, arch):
+        """Greedy tokens on the card against the CPU port at full width and
+        MODAL_PARITY's 2 layers (2 + 2 for an encoder-decoder) in fp32, the
+        same params (ff x 4), prompts and frames: equal, or parting only
+        after a step whose CPU top-2 logit margin is below LOGIT_TOL x
+        max(|logits|, 1); the prefill logits within that bound; and a
+        vision model's patch forward within it."""
+        from repro_torch.models import model
+        from repro_torch.serve.engine import Engine
+
+        torch, cpu, mp = self.torch, self.cpu, MODAL_PARITY
+        over = dict(n_layers=mp["layers"], compute_dtype="float32")
+        if arch == "whisper_medium":
+            over["n_enc_layers"] = mp["layers"]
+        cfg, params, prompts, frames = self._modal_model(arch, **over)
+        B, S, new = mp["B"], mp["S"], mp["new"]
+        prompts = prompts[:B, :S].contiguous()
+        frames = None if frames is None else frames[:B].contiguous()
+        fcpu = None if frames is None else frames.cpu()
+        params_cpu = _tree_to(params, cpu)
+        with torch.no_grad():
+            gl, _ = model.prefill(cfg, params, model.init_cache(
+                cfg, B, S + new, torch.float32, self.dev), prompts,
+                frames=frames, last_only=False)
+            cl, _ = model.prefill(cfg, params_cpu, model.init_cache(
+                cfg, B, S + new, torch.float32, cpu), prompts.cpu(),
+                frames=fcpu, last_only=False)
+        finite = bool(torch.isfinite(gl).all())
+        logits_ok, err, bound = _close(gl.cpu(), cl, LOGIT_TOL)
+        gt = Engine(cfg, params, max_len=S + new, device=self.dev).generate(
+            prompts, new, frames=frames).cpu()
+        ct = Engine(cfg, params_cpu, max_len=S + new, device=cpu).generate(
+            prompts.cpu(), new, frames=fcpu)
+        same = bool((gt == ct).all())
+        step = margin = None
+        if not same:
+            step = int((gt != ct).any(dim=0).nonzero()[0])
+            margin = _top2_margin(model, cfg, params_cpu, prompts.cpu(), ct,
+                                  step, S + new, frames=fcpu)
+        tie_ok = same or (margin is not None and margin < bound)
+        patch = {}
+        if cfg.family == "vlm":
+            pb = mp["patch_B"]
+            gen = torch.Generator(device=self.dev).manual_seed(self.seed + 2)
+            patches = torch.randn(pb, cfg.n_patches, cfg.frontend_dim,
+                                  generator=gen, device=self.dev)
+            with torch.no_grad():
+                gf = model.forward(cfg, params, prompts[:pb],
+                                   patches=patches)
+                cf = model.forward(cfg, params_cpu, prompts[:pb].cpu(),
+                                   patches=patches.cpu())
+            pok, perr, pbound = _close(gf.cpu(), cf, LOGIT_TOL)
+            patch = dict(patch_logits_max_abs_err=f"{perr:.3e}",
+                         patch_tol=f"{pbound:.3e}", patch_ok=pok)
+            logits_ok = logits_ok and pok and bool(torch.isfinite(gf).all())
+        ok = logits_ok and finite and tie_ok
+        log(f"{arch}_parity", arch=cfg.name, layers=cfg.n_layers,
+            enc_layers=cfg.n_enc_layers, dtype=cfg.compute_dtype, batch=B,
+            prompt=S, new=new, logits_max_abs_err=f"{err:.3e}",
+            tol=f"{bound:.3e}", finite=finite, tokens_equal=same,
+            first_parting_step=step, top2_margin=margin,
+            distinct_tokens=len(set(ct.flatten().tolist())), **patch, ok=ok)
+        return ok
+
+    def modal(self):
+        """Phase 16: Whisper-medium and Phi-3-vision-4.2B served at full
+        width and depth (the batch generate; Phi-3-vision's patch forward),
+        then each at 2 layers on the card against the CPU port.  Returns
+        {run: launch counts}, None on a failure."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        out = {}
+        with _plain_watch(torch) as plain:
+            for arch in MODAL:
+                got = self.modal_serve(arch, plain)
+                if got is None:
+                    return None
+                out[f"{arch}_batch"], cfg, params = got
+                got = None
+                if "forward" in MODAL[arch]:
+                    fwd = self.modal_forward(arch, cfg, params, plain)
+                    if fwd is None:
+                        return None
+                    out[f"{arch}_forward"] = fwd
+                del params
+                torch.cuda.empty_cache()
+        for arch in MODAL:
+            if not self.modal_parity(arch):
+                return None
+            torch.cuda.empty_cache()
+        log("modal", seconds=f"{time.perf_counter() - t0:.1f}")
         return out
 
     # -- 13. quantized serving ---------------------------------------------
@@ -5402,15 +5796,17 @@ def _tree_to(tree, device):
 
 
 def _scale_ff(params, scale: float):
-    """``params`` with every DYAD weight (w1, w2) of the ff modules, the
-    routed experts and the shared expert multiplied by ``scale``."""
+    """``params`` with every DYAD weight (w1, w2) of the ff modules (an
+    encoder's too), the routed experts and the shared expert multiplied
+    by ``scale``."""
     def walk(node):
         return {k: (walk(v) if isinstance(v, dict)
                     else v * scale if k in ("w1", "w2") else v)
                 for k, v in node.items()}
-    layers = [{k: walk(v) if k in ("mlp", "moe") else v
-               for k, v in lp.items()} for lp in params["layers"]]
-    return dict(params, layers=layers)
+    return dict(params, **{
+        key: [{k: walk(v) if k in ("mlp", "moe") else v
+               for k, v in lp.items()} for lp in params[key]]
+        for key in ("layers", "enc_layers") if key in params})
 
 
 def _trace(vocab: int, seed: int, spec):
@@ -5462,16 +5858,18 @@ def _paged_margin(torch, cfg, params, prompt, toks, device):
 
 
 def _top2_margin(model, cfg, params, prompts, toks, step: int,
-                 max_len: int) -> float:
+                 max_len: int, frames=None) -> float:
     """Gap between the two largest CPU logits at generation step ``step``,
-    teacher-forced on the CPU's own tokens: a gap under the logit
-    tolerance makes a differing greedy token a tie, not a fault."""
+    teacher-forced on the CPU's own tokens (an encoder-decoder's over its
+    ``frames``): a gap under the logit tolerance makes a differing greedy
+    token a tie, not a fault."""
     import torch
 
     with torch.no_grad():
         cache = model.init_cache(cfg, prompts.shape[0], max_len,
                                  torch.float32, torch.device("cpu"))
-        logits, cache = model.prefill(cfg, params, cache, prompts)
+        logits, cache = model.prefill(cfg, params, cache, prompts,
+                                      frames=frames)
         for i in range(step):
             logits, cache = model.decode_step(cfg, params, cache,
                                               toks[:, i:i + 1])

@@ -8,7 +8,8 @@ dict keys such as ``layers/mlp/up/w1`` ``(n_layers, n, d_out, d_in)``,
 ``pos/table`` and ``final_norm/scale`` for params, and
 ``params/layers/...``, ``opt/m/layers/...``, ``opt/v/...``, ``opt/step``
 and ``opt/master/...`` for a train state.  The port keeps every ``layers``
-subtree as a list of per-layer dicts; any other axis stays a tensor axis,
+subtree (and an encoder-decoder's ``enc_layers``, stacked on its own
+``n_enc_layers`` axis) as a list of per-layer dicts; any other axis stays a tensor axis,
 so a MoE layer's routed experts keep their leading expert axis
 (``layers/moe/experts/up/w1`` is ``(n_layers, E, n, d_out, d_in)`` in the
 reference and ``(E, n, d_out, d_in)`` in each port layer), beside the
@@ -33,7 +34,8 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch import tree as tree_lib
 
-_LAYERS = "layers"
+# the subtrees stacked on a leading layer axis in the reference
+_LAYERS = ("layers", "enc_layers")
 
 
 def flatten_with_paths(tree, prefix: str = "") -> Dict[str, object]:
@@ -61,19 +63,21 @@ def _nest(flat: Dict[str, object]) -> dict:
 
 
 def _unstack(node: dict) -> dict:
-    """Turn every ``layers`` dict of stacked arrays into a list of
-    per-layer dicts."""
+    """Turn every ``layers`` (and ``enc_layers``) dict of stacked arrays
+    into a list of per-layer dicts."""
     out = {k: _unstack(v) if isinstance(v, dict) else v
            for k, v in node.items()}
-    sub = out.get(_LAYERS)
-    if isinstance(sub, dict):
+    for key in _LAYERS:
+        sub = out.get(key)
+        if not isinstance(sub, dict):
+            continue
         flat = flatten_with_paths(sub)
         depth = {np.shape(v)[0] for v in flat.values()}
         if len(depth) > 1:
-            raise ValueError(f"inconsistent layer axes: {sorted(depth)}")
+            raise ValueError(f"inconsistent {key} axes: {sorted(depth)}")
         n = depth.pop() if depth else 0
-        out[_LAYERS] = [_nest({k: np.asarray(v)[i] for k, v in flat.items()})
-                        for i in range(n)]
+        out[key] = [_nest({k: np.asarray(v)[i] for k, v in flat.items()})
+                    for i in range(n)]
     return out
 
 

@@ -16,11 +16,15 @@ DENSE = factory.DENSE
 
 # the paper's architectures
 PAPER_ARCHS = ["opt125m", "opt350m", "pythia160m"]
-# every architecture the port runs: the paper's, the bias-free lm config
-# whose ff takes the megakernel, and the moe, ssm and hybrid families'
-# (Maverick at smoke size only: its 400 B parameters need several cards)
-PORTED_ARCHS = PAPER_ARCHS + ["qwen3_0_6b", "qwen2_moe_a2_7b",
-                              "llama4_maverick_400b_a17b", "mamba2_780m",
+# every architecture the port runs: the paper's, the dense lm configs, and
+# the moe, ssm, hybrid, encdec and vlm families' (Maverick, Qwen2.5-32B
+# and Llama-3-405B at smoke size only: their params need several cards,
+# ROADMAP A.11)
+PORTED_ARCHS = PAPER_ARCHS + ["qwen3_0_6b", "phi3_medium_14b",
+                              "qwen2_5_32b", "llama3_405b",
+                              "qwen2_moe_a2_7b",
+                              "llama4_maverick_400b_a17b", "whisper_medium",
+                              "mamba2_780m", "phi3_vision_4_2b",
                               "hymba_1_5b"]
 
 
@@ -53,9 +57,7 @@ def linear_cfg(spec: str) -> factory.LinearCfg:
 def get(arch: str, *, smoke: bool = False,
         linear: Optional[factory.LinearCfg] = None, **overrides) -> ModelCfg:
     if arch not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP A.13); "
-            f"ported: {PORTED_ARCHS}")
+        raise ValueError(f"unknown arch {arch!r}; ported: {PORTED_ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     cfg = (mod.smoke if smoke else mod.full)()
     if linear is not None:

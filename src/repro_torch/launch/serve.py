@@ -2,7 +2,9 @@
 
 * ``--engine batch`` (default): :class:`repro_torch.serve.engine.Engine`,
   one prefill of the whole ``(batch, prompt_len)`` prompt batch and a
-  decode loop.
+  decode loop; an encoder-decoder (``whisper_medium``) is fed random
+  frames from the same generator, a vlm (``phi3_vision_4_2b``) text
+  only.
 * ``--engine continuous``:
   :class:`repro_torch.serve.engine.ContinuousBatchingEngine` takes
   ``--requests`` prompts of mixed lengths into ``--slots`` cache slots;
@@ -164,8 +166,14 @@ def main(argv=None):
     prompts = torch.randint(0, cfg.vocab_size,
                             (args.batch, args.prompt_len), generator=gen,
                             device=dev)
+    frames = None
+    if cfg.family == "encdec":
+        # the audio an encoder-decoder serves: random precomputed frames
+        frames = torch.randn(args.batch, cfg.n_frames, cfg.frontend_dim,
+                             generator=gen, device=dev).to(cfg.cdtype)
     out = engine.generate(prompts, args.new_tokens,
-                          temperature=args.temperature, generator=gen)
+                          temperature=args.temperature, generator=gen,
+                          frames=frames)
     t = engine.timings
     tps = args.batch * args.new_tokens / (t["prefill_s"] + t["decode_s"])
     print(f"[serve] {cfg.name} on {dev}: generated {tuple(out.shape)} in "

@@ -1,5 +1,5 @@
-"""Multi-head / grouped-query attention with KV caches (port of
-``repro.layers.attention`` for the ``lm`` serving paths).
+"""Multi-head / grouped-query attention with KV caches, cross-attention
+and the chunked einsum paths (port of ``repro.layers.attention``).
 
 Ported: RoPE, qk-norm (RMSNorm of each query and key head before RoPE),
 the no-cache forward (the training path; on the flash route
@@ -23,11 +23,17 @@ A prompt that fills a window-bounded dense ring (S > 1 and S >= L, the
 batch and per-slot forms) attends its own in-flight K/V at ``idx +
 arange(S)`` and leaves the last L rows in the ring at their slots.
 ``chunk`` is consulted where the reference consults it, on the plain route
-only; the chunked einsum paths it selects there (``S > chunk``, or keys
-beyond ``chunk``) and cross-attention raise ``NotImplementedError``.  On
-the flash route the ``kernel_nan`` fault site (route ``attn_flash``)
-poisons the attention output; the reference's ``attn_tp`` route events
-wait for tensor parallelism (A.11).
+only: a no-cache self-attention over ``S > chunk`` queries (a multiple of
+``chunk``) takes :func:`_q_block_sdpa`, any other call with more than
+``chunk`` keys :func:`_chunked_sdpa`, both on :func:`_online_step`.
+
+Cross-attention (``kv_input``, the encoder-decoder's source rows) takes
+its K and V from the source, unroped and uncached, and always the plain
+route, as in the reference, whose cross-attention is an einsum:
+:func:`_cross_sdpa`, every query against every source row.  On the flash
+route the ``kernel_nan`` fault site (route ``attn_flash``) poisons the
+attention output; the reference's ``attn_tp`` route events wait for
+tensor parallelism (A.11).
 
 A cache is a dict: ``{"k", "v": (B, L, K, h), "idx"}`` (dense) or
 ``{"pages_k", "pages_v": (NP, P, K, h), ["scales_k", "scales_v":
@@ -85,22 +91,131 @@ def _mask(qpos, kpos, causal: bool, window: Optional[int]):
     return m
 
 
-def _naive_sdpa(q, k, v, qpos, kpos, causal, window):
-    """q: (B,S,K,G,h); k, v: (B,T,K,h) -> (B,S,K,G,h).
+def _sdpa_mask(qpos, kpos, causal: bool, window: Optional[int]):
+    """The validity mask shaped to broadcast against (B,S,K,G,T) scores
+    (``qpos`` (S,) or (B, S), ``kpos`` (T,) or (B, T))."""
+    m = _mask(qpos, kpos, causal, window)
+    return m[:, :, None, None, :] if m.dim() == 3 else m[None, :, None,
+                                                          None, :]
 
-    Scores and softmax in fp32; probabilities cast back to v's dtype for
-    the AV product.  Masked probabilities are zeroed and the denominator
-    guarded (``max(l, 1e-30)``): a fully-masked row yields 0."""
+
+def _sdpa(q, k, v, m):
+    """Softmax attention of q (B,S,K,G,h) over k, v (B,T,K,h) with the
+    broadcast mask ``m`` (None: every key valid).  Scores and softmax in
+    fp32; probabilities cast back to v's dtype for the AV product.  Masked
+    probabilities are zeroed and the denominator guarded (``max(l,
+    1e-30)``): a fully-masked row yields 0."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bskgh,btkh->bskgt", q.float(), k.float()) * scale
-    m = _mask(qpos, kpos, causal, window)
-    m = m[:, :, None, None, :] if m.dim() == 3 else m[None, :, None, None, :]
-    s = torch.where(m, s, torch.full_like(s, NEG_INF))
-    e = torch.where(m, torch.exp(s - s.amax(dim=-1, keepdim=True)),
-                    torch.zeros_like(s))
+    if m is not None:
+        s = torch.where(m, s, torch.full_like(s, NEG_INF))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    if m is not None:
+        e = torch.where(m, e, torch.zeros_like(s))
     p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bskgt,btkh->bskgh", p.to(v.dtype).float(), v.float())
     return o.to(q.dtype)
+
+
+def _naive_sdpa(q, k, v, qpos, kpos, causal, window):
+    """q: (B,S,K,G,h); k, v: (B,T,K,h) -> (B,S,K,G,h), the keys at
+    ``kpos`` masked by ``causal`` and ``window`` (see :func:`_sdpa`)."""
+    return _sdpa(q, k, v, _sdpa_mask(qpos, kpos, causal, window))
+
+
+def _cross_sdpa(q, k, v):
+    """Cross-attention: every query against every source row, no mask.
+    The reference's einsum route (its ``_naive_sdpa`` with no key masked),
+    under a name of its own: the encoder-decoder's own function, not the
+    plain version of a kernel."""
+    return _sdpa(q, k, v, None)
+
+
+def _online_step(carry, q, kb, vb, qpos, pb, causal, window, scale):
+    """One online-softmax update of ``carry = (m, l, acc)`` over a key
+    chunk, the step :func:`_chunked_sdpa` and :func:`_q_block_sdpa` share.
+    Masked probabilities are zeroed, so a fully-masked row keeps l == 0
+    (output 0 after the ``max(l, 1e-30)`` guard)."""
+    m_prev, l_prev, acc = carry
+    s = torch.einsum("bskgh,btkh->bskgt", q.float(), kb.float()) * scale
+    valid = _sdpa_mask(qpos, pb, causal, window)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m_prev, s.amax(dim=-1))
+    alpha = torch.exp(m_prev - m_new)
+    p = torch.where(valid, torch.exp(s - m_new[..., None]),
+                    torch.zeros_like(s))
+    l_new = l_prev * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum(
+        "bskgt,btkh->bskgh", p.to(vb.dtype).float(), vb.float())
+    return m_new, l_new, acc
+
+
+def _pad_keys(k, v, kpos, chunk: int):
+    """k, v and kpos padded to a multiple of ``chunk`` keys, the padding
+    at position ``_DEAD`` (masked)."""
+    pad = -k.shape[1] % chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kpos = torch.nn.functional.pad(kpos, (0, pad), value=_DEAD)
+    return k, v, kpos
+
+
+def _online_init(q):
+    B, S, K, G, h = q.shape
+    dev = q.device
+    return (torch.full((B, S, K, G), NEG_INF, dtype=torch.float32,
+                       device=dev),
+            torch.zeros(B, S, K, G, dtype=torch.float32, device=dev),
+            torch.zeros(B, S, K, G, h, dtype=torch.float32, device=dev))
+
+
+def _online_out(carry, dtype):
+    _, l, acc = carry
+    return (acc / l.clamp_min(1e-30)[..., None]).to(dtype)
+
+
+def _chunked_sdpa(q, k, v, qpos, kpos, causal, window, chunk: int):
+    """Online softmax over key chunks of ``chunk``: memory O(S * chunk)
+    instead of O(S * T).  ``kpos`` may be (T,) or per-batch (B, T)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    k, v, kpos = _pad_keys(k, v, kpos, chunk)
+    carry = _online_init(q)
+    for c in range(0, k.shape[1], chunk):
+        carry = _online_step(carry, q, k[:, c:c + chunk], v[:, c:c + chunk],
+                             qpos, kpos[..., c:c + chunk], causal, window,
+                             scale)
+    return _online_out(carry, q.dtype)
+
+
+def _q_block_sdpa(q, k, v, qpos, kpos, causal, window, chunk: int):
+    """Both queries and keys in blocks of ``chunk`` (S a multiple of it,
+    ``qpos`` and ``kpos`` 1-D): each query block runs the online softmax
+    over the key chunks, skipping a chunk that lies wholly outside the
+    block's causal or window band (the update would leave the carry as
+    it is).  Memory O(chunk^2) scores instead of O(S * T)."""
+    B, S, K, G, h = q.shape
+    scale = 1.0 / math.sqrt(h)
+    k, v, kpos = _pad_keys(k, v, kpos, chunk)
+    outs = []
+    for i in range(0, S, chunk):
+        qb, qp = q[:, i:i + chunk], qpos[i:i + chunk]
+        q_lo, q_hi = int(qp.min()), int(qp.max())
+        carry = _online_init(qb)
+        for c in range(0, k.shape[1], chunk):
+            pb = kpos[c:c + chunk]
+            live = pb[pb >= 0]
+            if live.numel() == 0:
+                continue
+            if causal and int(live.min()) > q_hi:
+                continue
+            if window is not None and int(live.max()) <= q_lo - window:
+                continue
+            carry = _online_step(carry, qb, k[:, c:c + chunk],
+                                 v[:, c:c + chunk], qp, pb, causal, window,
+                                 scale)
+        outs.append(_online_out(carry, q.dtype))
+    return torch.cat(outs, dim=1)
 
 
 def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
@@ -111,24 +226,31 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
               kv_input=None, cache=None, shared: Optional[dict] = None):
     """Returns (out, new_cache).  ``positions``: ``(S,)`` or per-slot
     ``(B, S)`` absolute positions of the queries; derived from the cache's
-    write index when None.  ``shared``: a dict the model hands every layer
-    of one step, in which the first layer leaves the cache's index tensors
-    (write rows, gather indices, key positions) for the others: every
-    layer reads the same write index and block table."""
-    if kv_input is not None:
-        raise NotImplementedError(
-            "cross-attention is not ported yet (ROADMAP A.13)")
+    write index when None.  ``kv_input``: the (B, T, D) source rows of a
+    cross-attention, which attends every one of them (the reference's
+    decoder block calls it with ``causal=False`` and no window or chunk),
+    reads no cache and returns None for it.
+    ``shared``: a dict the model hands every layer of one step, in which
+    the first layer leaves the cache's index tensors (write rows, gather
+    indices, key positions) for the others: every layer reads the same
+    write index and block table."""
     B, S, _ = x.shape
     K, G = n_kv, n_heads // n_kv
+    src = x if kv_input is None else kv_input
+    T = src.shape[1]
     q = factory.apply(params["wq"], x, lin_cfg, site="attn")
-    k = factory.apply(params["wk"], x, lin_cfg, site="attn")
-    v = factory.apply(params["wv"], x, lin_cfg, site="attn")
+    k = factory.apply(params["wk"], src, lin_cfg, site="attn")
+    v = factory.apply(params["wv"], src, lin_cfg, site="attn")
     q = q.reshape(B, S, n_heads, head_dim)
-    k = k.reshape(B, S, K, head_dim)
-    v = v.reshape(B, S, K, head_dim)
+    k = k.reshape(B, T, K, head_dim)
+    v = v.reshape(B, T, K, head_dim)
     if "q_norm" in params:
         q = norms.rmsnorm(params["q_norm"], q)
         k = norms.rmsnorm(params["k_norm"], k)
+    if kv_input is not None:
+        o = _cross_sdpa(q.reshape(B, S, K, G, head_dim), k, v)
+        o = o.reshape(B, S, n_heads * head_dim)
+        return factory.apply(params["wo"], o, lin_cfg, site="attn"), None
     use_flash = flash and kops.attn_route(x.device) == "flash"
     dev = x.device
 
@@ -198,15 +320,6 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
         # band
         o = kops.flash_attention(qg, k, v, idx, 0, causal=True,
                                  window=window)
-    elif chunk is not None and cache is None and S > chunk and \
-            S % chunk == 0:
-        raise NotImplementedError(
-            "the q-blocked chunked attention (_q_block_sdpa) is not ported "
-            "yet (ROADMAP A.4)")
-    elif chunk is not None and k.shape[1] > chunk:
-        raise NotImplementedError(
-            "the key-chunked attention (_chunked_sdpa) is not ported yet "
-            "(ROADMAP A.4)")
     else:
         qpos = (positions if positions is not None
                 else torch.arange(S, device=dev))
@@ -218,7 +331,13 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
         else:
             kpos = once("kpos", lambda: _key_positions(idx, S, T, dev,
                                                        ring=not paged))
-        o = _naive_sdpa(qg, k, v, qpos, kpos, causal, window)
+        if (chunk is not None and cache is None and S > chunk
+                and S % chunk == 0 and qpos.dim() == 1):
+            o = _q_block_sdpa(qg, k, v, qpos, kpos, causal, window, chunk)
+        elif chunk is not None and T > chunk:
+            o = _chunked_sdpa(qg, k, v, qpos, kpos, causal, window, chunk)
+        else:
+            o = _naive_sdpa(qg, k, v, qpos, kpos, causal, window)
     if use_flash:
         # the kernel_nan fault site: a broken flash kernel (the port has
         # no attn rung to demote to, ROADMAP C.5)

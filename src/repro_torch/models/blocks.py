@@ -1,28 +1,23 @@
-"""Per-layer blocks (port of ``repro.models.blocks`` for the kinds ``lm``,
-``moe``, ``ssm`` and ``hybrid``).
+"""Per-layer blocks (port of ``repro.models.blocks``): the kinds ``lm``,
+``moe``, ``ssm``, ``hybrid``, ``enc`` (the encoder's non-causal block)
+and ``dec_cross`` (the decoder's block: self-attention, then
+cross-attention over the encoder's output, then the ff).
 
 Layers are a list of per-layer parameter dicts, not a stacked leading
 axis: there is no ``scan`` to feed (``checkpoint.bridge`` unstacks the
-reference's layout).  The encoder (``enc``) and cross-attention
-(``dec_cross``) kinds wait for ROADMAP A.13."""
+reference's layout)."""
 from __future__ import annotations
 
+import torch
+
 from repro_torch import quant as quant_lib
+from repro_torch.core import factory
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers import moe as moe_lib
 from repro_torch.layers import norms
 from repro_torch.layers import ssm as ssm_lib
 from repro_torch.models.config import ModelCfg
-
-KINDS = ("lm", "moe", "ssm", "hybrid")
-
-
-def _require_ported(kind: str) -> None:
-    if kind not in KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP A.13)")
-
 
 def _init_norm(cfg: ModelCfg, dtype, device):
     if cfg.norm == "layernorm":
@@ -42,7 +37,7 @@ def _ssm_kw(cfg: ModelCfg) -> dict:
 
 
 def init_block(generator, cfg: ModelCfg, kind: str, device=None):
-    _require_ported(kind)
+    """kind: lm | moe | ssm | hybrid | enc | dec_cross."""
     dtype = cfg.pdtype
     p = {"norm1": _init_norm(cfg, dtype, device)}
     if kind != "ssm":
@@ -50,6 +45,12 @@ def init_block(generator, cfg: ModelCfg, kind: str, device=None):
             generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
             cfg.linear, qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
             dtype=dtype, device=device)
+    if kind == "dec_cross":
+        # cross-attention has no qk-norm
+        p["xnorm"] = _init_norm(cfg, dtype, device)
+        p["xattn"] = attn_lib.init_attention(
+            generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            cfg.linear, qkv_bias=cfg.qkv_bias, dtype=dtype, device=device)
     if kind in ("ssm", "hybrid"):
         p["ssm"] = ssm_lib.init_ssm(
             generator, cfg.d_model, cfg.linear, d_state=cfg.ssm_state,
@@ -89,20 +90,22 @@ def _ssm(params, cfg: ModelCfg, h, cache, prefill: bool):
 
 
 def apply_block(params, x, cfg: ModelCfg, kind: str, *, cache=None,
-                positions=None, shared=None, prefill: bool = False):
+                enc_out=None, positions=None, shared=None,
+                prefill: bool = False):
     """Returns (x, new_cache, aux): ``cache`` is this layer's dict
-    (``{"kv": ...}``, ``{"ssm": ...}`` or both), ``positions`` the
-    tokens' ``(S,)`` or per-slot ``(B, S)`` positions, ``shared`` the
-    step's index work shared across layers (see
-    ``layers.attention.attention``); ``aux`` the MoE router's load-balance
-    term, None for the other kinds.  ``prefill`` marks a cached pass of
-    the prompt: the SSM mixer runs its chunked form and hands on the
-    state, instead of one recurrent step.
+    (``{"kv": ...}``, ``{"ssm": ...}`` or both; a ``dec_cross`` layer's
+    also holds the cross K/V ``xk`` and ``xv``), ``enc_out`` the
+    encoder's output a ``dec_cross`` layer attends when its cache holds
+    no cross K/V, ``positions`` the tokens' ``(S,)`` or per-slot ``(B,
+    S)`` positions, ``shared`` the step's index work shared across layers
+    (see ``layers.attention.attention``); ``aux`` the MoE router's
+    load-balance term, None for the other kinds.  ``prefill`` marks a
+    cached pass of the prompt: the SSM mixer runs its chunked form and
+    hands on the state, instead of one recurrent step.
 
     The attention cache is written in place; the SSM cache is not (the
     new one is returned), so a step can be taken again from the same
     state."""
-    _require_ported(kind)
     new_cache = {} if cache is not None else None
     aux = None
     h = apply_norm(cfg, params["norm1"], x)
@@ -111,7 +114,7 @@ def apply_block(params, x, cfg: ModelCfg, kind: str, *, cache=None,
             params["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             head_dim=cfg.hd, lin_cfg=cfg.linear,
             rope_theta=cfg.rope_theta if cfg.pos_embed == "rope" else None,
-            positions=positions, causal=True, window=cfg.window,
+            positions=positions, causal=kind != "enc", window=cfg.window,
             chunk=cfg.attn_chunk, flash=cfg.flash_attn,
             cache=cache["kv"] if cache else None, shared=shared)
         if cache is not None:
@@ -127,6 +130,18 @@ def apply_block(params, x, cfg: ModelCfg, kind: str, *, cache=None,
                        + norms.rmsnorm(params["bnorm_s"], s))
     else:
         x = x + a
+    if kind == "dec_cross":
+        h = apply_norm(cfg, params["xnorm"], x)
+        if cache is not None and "xk" in cache:
+            # the cross K/V were filled at prefill (model.prefill_cross)
+            xa = _cross_from_cache(params["xattn"], cfg, h, cache)
+            new_cache["xk"], new_cache["xv"] = cache["xk"], cache["xv"]
+        else:
+            xa, _ = attn_lib.attention(
+                params["xattn"], h, n_heads=cfg.n_heads,
+                n_kv=cfg.n_kv_heads, head_dim=cfg.hd, lin_cfg=cfg.linear,
+                causal=False, kv_input=enc_out)
+        x = x + xa
     h = apply_norm(cfg, params["norm2"], x)
     if kind == "moe":
         m, aux = moe_lib.apply_moe(
@@ -138,6 +153,21 @@ def apply_block(params, x, cfg: ModelCfg, kind: str, *, cache=None,
     return x + m, new_cache, aux
 
 
+def _cross_from_cache(p, cfg: ModelCfg, q_in, cache):
+    """Cross-attention of the queries ``q_in`` over the cross K/V a
+    prefill left in ``cache`` (``xk``, ``xv``: (B, n_frames, K, h))."""
+    B, S, _ = q_in.shape
+    K, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    q = factory.apply(p["wq"], q_in, cfg.linear, site="attn").reshape(
+        B, S, cfg.n_heads, cfg.hd)
+    if "q_norm" in p:
+        q = norms.rmsnorm(p["q_norm"], q)
+    o = attn_lib._cross_sdpa(q.reshape(B, S, K, G, cfg.hd), cache["xk"],
+                             cache["xv"])
+    o = o.reshape(B, S, cfg.n_heads * cfg.hd)
+    return factory.apply(p["wo"], o, cfg.linear, site="attn")
+
+
 def init_block_cache(cfg: ModelCfg, kind: str, batch: int, max_len: int,
                      dtype, device=None, *, per_slot: bool = False,
                      page_size: int = None, n_pages: int = None):
@@ -146,10 +176,11 @@ def init_block_cache(cfg: ModelCfg, kind: str, batch: int, max_len: int,
     or with ``page_size`` a paged pool (``layers.attention.
     init_paged_kv_cache``, int8 when ``cfg.kv_quant`` says so and
     ``REPRO_KERNEL_QUANT`` is not off); for the SSM mixer its conv tail
-    (in the compute dtype) and fp32 state."""
-    _require_ported(kind)
+    (in the compute dtype) and fp32 state; for a ``dec_cross`` block the
+    cross K/V ``xk`` and ``xv``, (batch, n_frames, K, h) zeros in
+    ``dtype``, which ``model.prefill_cross`` fills."""
     c = {}
-    if kind != "ssm":
+    if kind in ("lm", "moe", "hybrid", "dec_cross"):
         if page_size is not None:
             kvq = cfg.kv_quant if quant_lib.enabled() else None
             c["kv"] = attn_lib.init_paged_kv_cache(
@@ -166,4 +197,8 @@ def init_block_cache(cfg: ModelCfg, kind: str, batch: int, max_len: int,
             head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
             n_groups=cfg.ssm_groups, conv_width=cfg.conv_width,
             dtype=cfg.cdtype, device=device)
+    if kind == "dec_cross":
+        shape = (batch, cfg.n_frames, cfg.n_kv_heads, cfg.hd)
+        c["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["xv"] = torch.zeros(shape, dtype=dtype, device=device)
     return c

@@ -1,6 +1,5 @@
-"""Model configuration (port of ``repro.models.config``: the ``lm``, ``moe``,
-``ssm`` and ``hybrid`` families' fields; the encoder-decoder and vlm
-fields wait for ROADMAP A.13)."""
+"""Model configuration (port of ``repro.models.config``: every family's
+fields, ``lm``, ``moe``, ``encdec``, ``ssm``, ``vlm`` and ``hybrid``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -60,6 +59,14 @@ class ModelCfg:
     ssm_groups: int = 1
     conv_width: int = 4
     ssd_chunk: int = 256
+    # encoder-decoder: the encoder's depth and the precomputed frames it
+    # reads, (n_frames, frontend_dim) a sequence
+    n_enc_layers: int = 0
+    n_frames: int = 0
+    frontend_dim: int = 0
+    # vlm: the precomputed patches prepended to the text, (n_patches,
+    # frontend_dim) an image
+    n_patches: int = 0
     # the paper's knob
     linear: factory.LinearCfg = factory.DENSE
     # precision & memory

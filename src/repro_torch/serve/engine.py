@@ -1,14 +1,18 @@
 """Serving engines (port of ``repro.serve.engine``).
 
 * :class:`Engine` — homogeneous batches: one single-pass prefill for the
-  whole prompt batch, then a Python decode loop.  Token semantics follow
+  whole prompt batch (an encoder-decoder's ``frames`` encoded into the
+  cross K/V first), then a Python decode loop.  Token semantics follow
   the reference: the first emitted token is sampled from the prefill
   logits and each decode step feeds the previous token, so ``generate``
-  returns ``(B, num_new)``.
+  returns ``(B, num_new)``.  :func:`prefill_tokenwise` is the
+  reference's one-step-a-token prefill, its correctness oracle.
 * :class:`ContinuousBatchingEngine` — heterogeneous requests share one
   padded decode step over ``n_slots`` cache slots.  A :class:`SlotManager`
   assigns slots, finished sequences retire (EOS, length, deadline, cancel,
-  fault) and queued requests back-fill freed slots.  Two cache modes:
+  fault) and queued requests back-fill freed slots.  It serves
+  token-only families: ``encdec`` and ``vlm`` raise, as in the
+  reference.  Two cache modes:
 
   - dense per-slot rings (``init_cache(..., per_slot=True)``): admission
     prefills the prompt on a B=1 cache and copies every leaf of it (the
@@ -80,9 +84,23 @@ from repro_torch.models import model
 from repro_torch.models.config import ModelCfg
 
 
-def prefill(cfg: ModelCfg, params, cache, tokens):
-    """Single-pass prefill.  Returns (last logits (B,1,V) fp32, cache at S)."""
-    return model.prefill(cfg, params, cache, tokens)
+def prefill(cfg: ModelCfg, params, cache, tokens, frames=None):
+    """Single-pass prefill; an ``encdec`` model's ``frames`` fill the
+    cross K/V first.  Returns (last logits (B,1,V) fp32, cache at S)."""
+    return model.prefill(cfg, params, cache, tokens, frames=frames)
+
+
+def prefill_tokenwise(cfg: ModelCfg, params, cache, tokens, frames=None):
+    """The prompt one ``decode_step`` per token (S calls): the reference's
+    correctness oracle for :func:`prefill`.  Returns (last logits (B,1,V)
+    fp32, cache at S)."""
+    if cfg.family == "encdec" and frames is not None:
+        cache = model.prefill_cross(cfg, params, cache, frames)
+    logits = None
+    for t in range(tokens.shape[1]):
+        logits, cache = model.decode_step(cfg, params, cache,
+                                          tokens[:, t:t + 1])
+    return logits, cache
 
 
 def sample_token(logits: torch.Tensor, temperature: float,
@@ -123,8 +141,11 @@ class Engine:
     @torch.no_grad()
     def generate(self, prompt_tokens: torch.Tensor, num_new: int, *,
                  temperature: float = 0.0,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """prompt_tokens: (B, S) int -> (B, num_new) int64 generated tokens.
+                 generator: Optional[torch.Generator] = None,
+                 frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """prompt_tokens: (B, S) int -> (B, num_new) int64 generated tokens;
+        ``frames`` (B, n_frames, frontend_dim): an ``encdec`` model's
+        audio, encoded in the prefill.
 
         Requires S + num_new - 1 <= max_len (the cache length)."""
         B, S = prompt_tokens.shape
@@ -139,7 +160,9 @@ class Engine:
         cache = model.init_cache(self.cfg, B, self.max_len, self.cache_dtype,
                                  self.device)
         with obs.span("prefill", cat="serve", batch=B, prompt_len=S):
-            logits, cache = prefill(self.cfg, self.params, cache, tokens)
+            logits, cache = prefill(
+                self.cfg, self.params, cache, tokens,
+                None if frames is None else frames.to(self.device))
             tok = sample_token(logits, temperature, generator)
             _sync(self.device)
         t1 = time.perf_counter()

@@ -164,8 +164,9 @@ def test_factory_sites_and_apply(scope):
 
 def test_unported_routes_raise():
     """The quantized ``_w8`` route computes: with sidecars the reference's
-    output over them, without them the fp route's.  An arch of another
-    family than the ported ones raises."""
+    output over them, without them the fp route's.  Every family is
+    ported now: the encoder-decoder's config builds, and only an arch the
+    reference does not have raises."""
     from repro import quant as jquant
     from repro_torch import quant
 
@@ -181,6 +182,6 @@ def test_unported_routes_raise():
     assert all(np.array_equal(q[k].numpy(), np.asarray(jq[k])) for k in jq)
     _close(factory.apply(q, torch.from_numpy(x), tcfg),
            jfactory.apply(jq, jnp.asarray(x), jcfg))
-    # the decoder-only families are ported now; the encoder-decoder is not
-    with pytest.raises(NotImplementedError, match="A.13"):
-        tbase.get("whisper_medium", smoke=True)
+    assert tbase.get("whisper_medium", smoke=True).family == "encdec"
+    with pytest.raises(ValueError, match="unknown arch"):
+        tbase.get("whisper_large", smoke=True)

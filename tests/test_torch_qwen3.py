@@ -225,10 +225,19 @@ def test_flash_route_ignores_chunk(monkeypatch):
                                           (10, 4, "_chunked_sdpa")])
 def test_chunked_branches_raise_only_when_taken(S, chunk, name,
                                                 monkeypatch):
+    """S > chunk on the plain route: the reference's chunked einsum paths,
+    ported (they raised until the port had them).  S a multiple of chunk
+    takes the q-blocked one, else the key-chunked one; each matches the
+    reference's output, and only the branch the reference takes runs."""
     monkeypatch.setenv("REPRO_KERNEL_ATTN", "xla")
-    _, got = _attn_case(S, chunk)
-    with pytest.raises(NotImplementedError, match=f"{name}.*A.4"):
-        got()
+    taken = []
+    for branch in ("_q_block_sdpa", "_chunked_sdpa", "_naive_sdpa"):
+        fn = getattr(tattn, branch)
+        monkeypatch.setattr(tattn, branch, lambda *a, _b=branch, _f=fn,
+                            **k: taken.append(_b) or _f(*a, **k))
+    want, got = _attn_case(S, chunk)
+    _close(got().numpy(), want)
+    assert taken == [name]
 
 
 def test_qwen3_train_launcher_cpu_smoke():
